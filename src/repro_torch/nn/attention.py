@@ -4,7 +4,10 @@ Full-sequence path uses ``tsl.flash_attention`` (the CUDA C++ kernel on
 ``h100``); the prefill-chunk and decode paths use
 ``tsl.attention_prefill_chunk`` / ``tsl.attention_decode`` and write the KV
 cache through ``tsl.cache_update``. Cache layout (B, KH, S_max, hd),
-heads-major, as in the reference.
+heads-major, as in the reference. The fused paged span
+(``attention_span_paged``) writes its rows straight into block-table pages
+and attends through ``tsl.attention_decode_paged`` (the CUDA C++ block-table
+kernel on ``h100``).
 
 KV caches are written IN PLACE (the JAX reference returns new arrays): the
 caller's cache tensors are updated and returned, which is what lets the
@@ -128,3 +131,36 @@ def attention_decode(tsl, p, x_t, k_cache, v_cache, pos, cfg):
     o = tsl.attention_decode(q, k_cache, v_cache, kv_len=pos + 1)
     o = o.transpose(1, 2).reshape(b, 1, h * hd)
     return tsl.matmul(o, p["wo"]), k_cache, v_cache
+
+
+def attention_span_paged(tsl, p, x, k_pool, v_pool, tables, pos, cfg, span_op, *,
+                         kv_len):
+    """Fused paged decode span: project C tokens per slot, write each row
+    STRAIGHT into its block-table page and attend directly against the page
+    pool — no page->lane gather anywhere.
+
+    x (B, C, D) span activations (C == 1 is the decode step); pools
+    (KH, n_pages, page, hd) — one layer's slice of the serve-layer pool,
+    written IN PLACE; tables (B, P) int32 page ids on x's device; ``pos`` a
+    (B,) device tensor of per-slot base write positions. ``span_op`` is
+    ``tsl.attention_decode_paged``; it masks ends-aligned at ``kv_len``, the
+    (B,) int32 device tensor pos + C that every layer shares, so rows past a
+    slot's fill are dead. Inactive slots must point
+    at a scratch page (a valid id): their row writes and reads land there.
+    Full-precision pools only (the int8 wire format is not ported yet).
+
+    Returns (y (B,C,D), k_pool, v_pool)."""
+    b, c, _ = x.shape
+    h, hd = cfg.n_heads, cfg.hd
+    page = k_pool.shape[-2]
+    positions = pos.long()[:, None] + torch.arange(c, device=pos.device)[None, :]
+    q, k, v = _project_qkv(tsl, p, x, cfg, positions)          # positions (B, C)
+    pid = torch.gather(tables, 1, positions // page).long()
+    off = positions % page
+    # pool[:, pid, off] broadcasts the (B, C) index pair under the KH slice:
+    # (KH, B, C, hd) slabs, heads-major like the pool
+    k_pool[:, pid, off] = k.transpose(0, 1).to(k_pool.dtype)
+    v_pool[:, pid, off] = v.transpose(0, 1).to(v_pool.dtype)
+    o = span_op(q.contiguous(), k_pool, v_pool, tables, kv_len=kv_len)
+    o = o.transpose(1, 2).reshape(b, c, h * hd)
+    return tsl.matmul(o, p["wo"]), k_pool, v_pool

@@ -3,7 +3,8 @@
 Layer params stay stacked along a leading L axis — the reference's layout,
 so its params load 1:1 — and a Python loop over the layers replaces
 ``lax.scan``. Decode and prefill-chunk write the KV cache state IN PLACE
-(see ``nn/attention.py``) and return it.
+(see ``nn/attention.py``) and return it; the fused paged decode writes the
+page pools in place the same way.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from .attention import (attention_decode, attention_forward, attention_prefill_chunk,
-                        init_attention)
+                        attention_span_paged, init_attention)
 from .common import apply_norm_params, init_norm
 from .mlp import init_mlp, mlp_forward
 
@@ -90,6 +91,15 @@ def state_batch_axes(state):
     return {k: 1 for k in state}
 
 
+def state_page_axes(state):
+    """Token-axis position per state leaf for PAGED serving (None = not
+    paged): every KV leaf (L, B, KH, S_max, hd) grows along axis 3, one row
+    per cache token, so both leaves page. KV rows depend only on their
+    absolute position (rotary at write time), which is what makes prefix
+    pages exactly shareable."""
+    return {k: 3 for k in state}
+
+
 def lm_prefill(tsl, params, tokens, cfg, *, max_len: int):
     """Full-sequence prefill; returns (last_logits (B,V), decode state)."""
     logits, kvs = lm_forward(tsl, params, tokens, cfg, collect_cache=True,
@@ -141,3 +151,35 @@ def lm_decode_step(tsl, params, state, tokens_t, pos, cfg):
                             apply_norm_params(tsl, cfg, bp["mlp_norm"], x), cfg)
     x = apply_norm_params(tsl, cfg, params["final_norm"], x)
     return lm_head(tsl, params, x, cfg)[:, 0], state
+
+
+def _lm_paged_span(tsl, params, pools, tables, tokens, pos, cfg, span_op):
+    """Fused-paged span body: every layer's span attends DIRECTLY against
+    its (KH, n_pages, page, hd) slice of the (L, 1, KH, n_pages, page, hd)
+    pools (see attention_span_paged), written in place. ``kv_len`` = pos + C
+    is computed once on the device and shared by every layer.
+    Returns (logits (B,C,V), pools)."""
+    x = tsl.embed_lookup(params["embed"], tokens)
+    kv_len = (pos + tokens.shape[1]).to(torch.int32)
+    for i in range(cfg.n_layers):
+        bp = layer_params(params["blocks"], i)
+        h, _, _ = attention_span_paged(
+            tsl, bp["attn"], apply_norm_params(tsl, cfg, bp["attn_norm"], x),
+            pools["k"][i, 0], pools["v"][i, 0], tables, pos, cfg, span_op,
+            kv_len=kv_len)
+        x = x + h
+        x = x + mlp_forward(tsl, bp["mlp"],
+                            apply_norm_params(tsl, cfg, bp["mlp_norm"], x), cfg)
+    x = apply_norm_params(tsl, cfg, params["final_norm"], x)
+    return lm_head(tsl, params, x, cfg), pools
+
+
+def lm_decode_step_paged(tsl, params, state, pools, tables, tokens_t, pos, cfg):
+    """Fused paged decode: tokens_t (B,1) scored straight off the page pools
+    through ``tsl.attention_decode_paged`` (tables (B,P) int32 page ids,
+    ``pos`` (B,) per-slot positions, both on the device). ``state`` is the
+    family's TAIL-only dict — empty for this family (every leaf pages) —
+    passed through untouched. Returns (logits (B,V), state, pools)."""
+    logits, pools = _lm_paged_span(tsl, params, pools, tables, tokens_t, pos, cfg,
+                                   tsl.attention_decode_paged)
+    return logits[:, 0], state, pools

@@ -16,10 +16,18 @@ generated library for its device (``h100`` kernels on the card,
         (pos: int, or a (B,) tensor of per-slot positions)
     init_decode_state(batch, max_len) -> zeroed state dict
     state_batch_axes(state) -> {leaf: slot axis}
+    state_page_axes(state) -> {leaf: token axis | None}  (paged serving)
+    decode_step_paged(params, state, pools, tables, tokens_t, pos)
+        -> (logits (B,V), state, pools)
+        (fused paged decode straight off the block-table page pools; ``state``
+         is the tail-only dict, empty for this family; ``verify_step_paged`` /
+         ``verify_commit_paged`` stay None until speculative decoding is
+         ported)
     insert_slot(state, donor, slot) / reset_slot(state, slot)
 
 Unlike the reference, state is updated IN PLACE by prefill_chunk,
-decode_step, insert_slot and reset_slot (each still returns it).
+decode_step, insert_slot and reset_slot (each still returns it), and the
+page pools by decode_step_paged.
 
 ``load_jax_params(np_tree, cfg, device)`` turns the reference's params
 (``build_model(cfg).init(PRNGKey(s))``, ``np.asarray`` per leaf) into this
@@ -85,6 +93,17 @@ class Model:
 
     def state_batch_axes(self, state):
         return lm.state_batch_axes(state)
+
+    def state_page_axes(self, state):
+        return lm.state_page_axes(state)
+
+    def decode_step_paged(self, params, state, pools, tables, tokens_t, pos):
+        return lm.lm_decode_step_paged(self.tsl, params, state, pools, tables, tokens_t,
+                                       pos, self.cfg)
+
+    # speculative decoding over the pools: not ported yet
+    verify_step_paged = None
+    verify_commit_paged = None
 
     # -- state surgery (continuous batching: serve/ builds on these) ---------
 

@@ -1,27 +1,44 @@
-"""Continuous-batching serving, lane mode (mirrors ``repro.serve``).
+"""Continuous-batching serving, lane mode and paged (mirrors ``repro.serve``).
 
 - ``scheduler``: request queue, slot-table lifecycle, SLA accounting and
-  ``lib.cost()``-driven admission priced against the target SRU's roofline
-  (host-side control plane, no torch);
-- ``slots``: reading a slot back out and validating a donor against the
-  slot table (the surgery itself is ``Model.insert_slot`` / ``reset_slot``);
-- ``engine``: the per-step continuous-batching loop with chunked prefill.
+  ``lib.cost()``-driven admission priced against the target SRU's roofline,
+  plus page-count admission (host-side control plane, no torch);
+- ``slots``: reading a slot back out, validating a donor against the slot
+  table (the surgery itself is ``Model.insert_slot`` / ``reset_slot``), and
+  the refcounted page allocator;
+- ``paging``: block-table page pools, copy-on-write prefix sharing and the
+  host-spill tier;
+- ``engine``: the per-step continuous-batching loop with chunked prefill,
+  lane-mode or paged (fused decode off the pools, or the lane fallback).
 """
 
 from .engine import SamplingConfig, ServeEngine
-from .scheduler import (BucketPolicy, CostModelAdmission, Request, RequestMetrics,
-                        Scheduler, upd_serve_defaults)
-from .slots import take_slot, validate_donor
+from .paging import (PagedConfig, PagedKVStore, PrefixEntry, PrefixStore, prefix_key,
+                     selected_page_size, upd_page_defaults)
+from .scheduler import (BucketPolicy, CostModelAdmission, PagedAdmission, Request,
+                        RequestMetrics, Scheduler, upd_serve_defaults)
+from .slots import PageAllocator, PagesExhausted, SlotPages, take_slot, validate_donor
 
 __all__ = [
     "BucketPolicy",
     "CostModelAdmission",
+    "PageAllocator",
+    "PagedAdmission",
+    "PagedConfig",
+    "PagedKVStore",
+    "PagesExhausted",
+    "PrefixEntry",
+    "PrefixStore",
     "Request",
     "RequestMetrics",
     "SamplingConfig",
     "Scheduler",
     "ServeEngine",
+    "SlotPages",
+    "prefix_key",
+    "selected_page_size",
     "take_slot",
+    "upd_page_defaults",
     "upd_serve_defaults",
     "validate_donor",
 ]

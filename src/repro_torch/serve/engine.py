@@ -1,6 +1,6 @@
-"""Per-step continuous-batching serving engine with chunked prefill, lane
-mode (mirrors ``repro/serve/engine.py`` without its paged, speculative and
-mesh paths, which later slices of the port add).
+"""Per-step continuous-batching serving engine with chunked prefill, in lane
+mode or over paged slot memory (mirrors ``repro/serve/engine.py`` without its
+speculative and mesh paths, which later slices of the port add).
 
 One fixed-shape batched decode state (the slot table) runs ONE unified step
 per iteration: every in-flight prefill advances by exactly one fixed-size
@@ -22,12 +22,27 @@ proportionally to prefill vs decode tokens.
 The slot table, the donors and the KV caches are updated IN PLACE on the
 device (the reference donates its buffers to jit for the same effect).
 
+Paged mode (``paged=PagedConfig(...)``): admission and residency are PAGE
+decisions (``serve/paging.py``). Prefills run lane-less into donors (up to
+``max_inflight_prefills`` at once) and commit their rows into pages at
+completion; a completed request with no free lane PARKS in its pages and
+activates when a lane frees. Identical prompt prefixes are prefilled once
+and shared copy-on-write; decode growth past the pool preempts the
+latest-activated request into a continuation at the queue head; cold parked
+pages spill to host memory. FUSED (the default) decodes every slot straight
+off the pools through per-step (B, P) block tables
+(``Model.decode_step_paged`` -> ``attention_decode_paged``, the CUDA C++
+block-table kernel on the card) — no page->lane gather ever runs;
+``fused=False`` activates a request by gathering its pages into a lane and
+decodes as lane mode (the bit-identical fallback).
+
 Report: per request TTFT, prefill_s/decode_s attribution, decode tokens/s,
 latency, SLA hit, bucket; per run real-token throughput, steady-state padded
 slot steps (0 == true continuous batching), TTFT percentiles by bucket,
 slot reuse, the per-step log, the admission log, every refusal with its
-reason, and the cost model's pricing. The reference's ``jit_cache`` key has
-no counterpart: eager PyTorch compiles no step functions.
+reason, the cost model's pricing and, in paged mode, ``report["paged"]``.
+The reference's ``jit_cache`` key has no counterpart: eager PyTorch compiles
+no step functions.
 """
 
 from __future__ import annotations
@@ -40,8 +55,10 @@ import torch
 
 from repro_torch.nn.model import build_model
 
-from .scheduler import BucketPolicy, CostModelAdmission, Request, Scheduler
-from .slots import validate_donor
+from .paging import PagedConfig, PagedKVStore, prefix_key, selected_page_size
+from .scheduler import (BucketPolicy, CostModelAdmission, PagedAdmission, Request,
+                        Scheduler)
+from .slots import PagesExhausted, validate_donor
 
 
 @dataclass(frozen=True)
@@ -67,9 +84,15 @@ class _PrefillTask:
     n_chunks: int
     donor: dict                 # batch-1 decode state being filled
     chunk_idx: int = 0
-    fill: int = 0               # REAL rows in the donor's cache
+    fill: int = 0               # REAL rows in the donor's cache (incl. prefix)
     first_logits: torch.Tensor | None = None   # logits at the last real row
     prefill_s: float = 0.0
+    # paged mode (slot == -1: no lane is reserved; the request activates
+    # into a free lane at completion or parks resident in pages)
+    share_key: str | None = None    # prefix-store content address
+    share_rows: int = 0             # aligned share-boundary cache rows
+    publish: bool = False           # miss: this task publishes the prefix
+    boundary_tail: dict | None = None   # tail snapshot AT the boundary
 
 
 class ServeEngine:
@@ -78,11 +101,12 @@ class ServeEngine:
                  device: torch.device | str = "cuda", target: str | None = None,
                  params: dict | None = None, admission: bool = True,
                  prefill_chunk: int | None = None,
-                 buckets: tuple[int, ...] | None = None):
+                 buckets: tuple[int, ...] | None = None,
+                 paged: PagedConfig | None = None):
         """``params``: weights to serve (e.g. ``load_jax_params`` of the
         reference's); default ``model.init(seed)``. ``target`` overrides the
         library the device would select (``torch_cpu`` on the card runs the
-        plain versions)."""
+        plain versions). ``paged`` switches on paged slot memory."""
         self.cfg = cfg
         self.batch = batch
         self.max_len = max_len
@@ -105,9 +129,48 @@ class ServeEngine:
                     f"prefill chunk of {chunk}")
             fit = (largest,)
         self.policy = BucketPolicy(fit, chunk)
-        self.cost_model = CostModelAdmission(
-            cfg, batch, max_len, lib=self.model.lib,
-            policy=self.policy) if admission else None
+        # -- paged slot memory (block-table residency under the lanes) -------
+        self.paged = paged
+        self._store: PagedKVStore | None = None
+        self._seed = seed
+        self._max_inflight = 0
+        self._parked: dict[str, dict] = {}      # rid -> resume info (FIFO)
+        self._resumed: dict[str, dict] = {}     # rid -> preemption stash
+        self._inflight_keys: dict[str, str] = {}  # share key -> publisher rid
+        self._act_stamp: dict[int, int] = {}    # slot -> activation seq
+        self._act_seq = 0
+        self._preempt_count = 0
+        if paged is not None:
+            donor = self.model.init_decode_state(1, max_len)
+            shapes = {n: (tuple(t.shape), t.dtype) for n, t in donor.items()}
+            self._page_axes = self.model.state_page_axes(donor)
+            psize = paged.page_size or selected_page_size(self.model.tsl)
+            n_pages = None
+            if paged.hbm_budget_bytes is None:
+                # default budget: pages for 2x the lane count at worst-case
+                # length — paged strictly dominates the contiguous table
+                probe = PagedKVStore(shapes, self._page_axes, page_size=psize,
+                                     ops=self.model.tsl, n_pages=1, device="meta")
+                n_pages = 2 * batch * max(probe.pages_for_rows(max_len), 1)
+            self._store = PagedKVStore(
+                shapes, self._page_axes, page_size=psize,
+                hbm_budget_bytes=paged.hbm_budget_bytes, n_pages=n_pages,
+                fused=paged.fused, device=self.device, ops=self.model.tsl)
+            self._max_inflight = paged.max_inflight_prefills or 2 * batch
+        # FUSED paged decode: slots decode straight off the block-table pools
+        self._fused = self._store is not None and self._store.fused
+        self._table_width = -(-max_len // self._store.page) if self._fused else 0
+        self._lane_activations = 0      # full page->lane gathers (fallback)
+        self._tail_restores = 0         # fused activations (tails only)
+        self._gather_bytes_eliminated = 0
+        if not admission:
+            self.cost_model = None
+        elif self._store is not None:
+            self.cost_model = PagedAdmission(cfg, batch, max_len, lib=self.model.lib,
+                                             budget=self._store, policy=self.policy)
+        else:
+            self.cost_model = CostModelAdmission(cfg, batch, max_len, lib=self.model.lib,
+                                                 policy=self.policy)
         # sampling draws come from a seeded device generator (the reference
         # draws from jax.random keys: sampled streams differ, greedy is exact)
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
@@ -145,6 +208,243 @@ class ServeEngine:
                                                       task.fill)
         return logits[:, max(n_real, 1) - 1]
 
+    def _new_donor(self) -> dict:
+        return self.model.init_decode_state(1, self.max_len)
+
+    def _init_state(self) -> dict:
+        state = self.model.init_decode_state(self.batch, self.max_len)
+        if self._fused:
+            # fused mode keeps only the TAIL leaves in the slot table (none
+            # for the dense family): the paged leaves live in the pools
+            state = {n: state[n] for n, ax in self._page_axes.items() if ax is None}
+        return state
+
+    def _tails_template(self) -> dict:
+        """Zeroed tails-only donor for fused activation: load_donor restores
+        the tail snapshot into it and, lacking the paged leaves, gathers no
+        page."""
+        return {n: torch.zeros(shape, dtype=dt, device=self.device)
+                for n, (shape, dt) in self._store.tail_leaves.items()}
+
+    def _build_tables(self, sched: Scheduler, active) -> torch.Tensor:
+        """(B, P) int32 block table for this step on the device: active
+        slots' page lists (scratch-padded past coverage), all-scratch rows
+        for idle slots — every entry is a valid page id."""
+        tabs = np.full((self.batch, self._table_width), self._store.scratch_page,
+                       np.int32)
+        for slot in active:
+            tabs[slot] = self._store.table_row(sched.slots[slot].request.rid,
+                                               self._table_width)
+        return torch.as_tensor(tabs, device=self.device)
+
+    # -- paged serving helpers ------------------------------------------------
+
+    def _share_plan(self, req: Request) -> tuple[str | None, int]:
+        """(content key, boundary rows) for the shareable prefix of ``req``,
+        or (None, 0). The boundary is the largest chunk-aligned token count
+        <= the caller's shared_prefix_len hint (default: the whole prompt
+        minus its last token — the first token's logits must come from a
+        re-run chunk) that is page-aligned: only whole pages are shared."""
+        if self._store is None or not self.paged.prefix_sharing:
+            return None, 0
+        cap = req.prompt_len - 1 if req.shared_prefix_len is None \
+            else min(int(req.shared_prefix_len), req.prompt_len - 1)
+        chunk = self.policy.chunk
+        t = (cap // chunk) * chunk
+        if self._store.paged:
+            while t >= chunk and t % self._store.page:
+                t -= chunk
+        if t < chunk:
+            return None, 0
+        key = prefix_key(arch=self.cfg.name, page_size=self._store.page,
+                         seed=self._seed, tokens=np.asarray(req.tokens, np.int64)[:t])
+        return key, t
+
+    def _reserve_paged(self, sched: Scheduler, tasks: list, now, step: int) -> None:
+        """Paged reservation: admit up to max_inflight concurrent prefills,
+        attach each to the store (prompt pages now, shared prefix retained on
+        a hit) and fast-forward the chunk schedule past shared rows. A prompt
+        whose prefix an in-flight publisher is still prefilling DEFERS until
+        the entry is published: followers hit the store instead of racing
+        the publisher (prefill-once)."""
+        chunk = self.policy.chunk
+        while len(tasks) < self._max_inflight:
+            req = sched.next_admissible(now())
+            if req is None:
+                break
+            share_key, share_rows = self._share_plan(req)
+            if share_key is not None and share_key in self._inflight_keys:
+                sched.requeue_front(req)
+                break
+            bucket = req.bucket or self.policy.assign(req.prompt_len)
+            if not bucket:
+                bucket = BucketPolicy.round_up(req.prompt_len, chunk)
+            req.bucket = bucket
+            try:
+                shared = self._store.attach(req.rid, prompt_rows=req.prompt_len,
+                                            share_key=share_key)
+            except PagesExhausted:
+                # admission saw enough pages, the attach lost the race:
+                # transient, retry next step
+                sched.requeue_front(req)
+                break
+            padded = np.zeros((1, bucket), np.int64)
+            padded[0, :req.prompt_len] = np.asarray(req.tokens, np.int64)
+            task = _PrefillTask(req=req, slot=-1, padded=padded,
+                                n_chunks=bucket // chunk, donor=self._new_donor(),
+                                share_key=share_key, share_rows=share_rows)
+            if shared:
+                # prefix hit: seed the donor from the shared pages and skip
+                # the chunks they cover — shared rows are never prefilled
+                task.donor = self._store.load_donor(req.rid, task.donor)
+                task.fill = shared
+                task.chunk_idx = shared // chunk
+            elif share_key is not None:
+                task.publish = True
+                self._inflight_keys[share_key] = req.rid
+            sched.reserve_unplaced(req, step)
+            tasks.append(task)
+
+    def _occupy(self, sched, state, donor, slot, rid, info, pending_host, pos_host,
+                temps_host, histories):
+        """Graft ``donor`` into free lane ``slot`` and resume ``rid`` there."""
+        validate_donor(state, donor, self.model.state_batch_axes(state))
+        state = self.model.insert_slot(state, donor, slot)
+        sched.place_parked(rid, slot)
+        temps_host[slot] = info["temp"]
+        pending_host[slot] = info["pending"]
+        pos_host[slot] = info["fill"]
+        histories[slot] = info["history"]
+        self._act_seq += 1
+        self._act_stamp[slot] = self._act_seq
+        return state
+
+    def _activate_parked(self, sched: Scheduler, state, pending_host, pos_host,
+                         temps_host, histories):
+        """Drain parked (resident, lane-less) requests into free lanes, FIFO,
+        resuming each at its committed fill. Fused: restore the tails only —
+        the pages stay in the pools (the gather the lane path would run is
+        counted as eliminated); fallback: gather the pages into a donor."""
+        for slot in sched.free_slots():
+            if not self._parked:
+                break
+            rid = next(iter(self._parked))
+            info = self._parked.pop(rid)
+            self._store.pin(rid)        # hot again: rehydrate, no spilling
+            if self._fused:
+                donor = self._store.load_donor(rid, self._tails_template())
+                self._tail_restores += 1
+                self._gather_bytes_eliminated += \
+                    self._store.requests[rid].fill * self._store.row_bytes
+            else:
+                donor = self._store.load_donor(rid, self._new_donor())
+                self._lane_activations += 1
+            state = self._occupy(sched, state, donor, slot, rid, info, pending_host,
+                                 pos_host, temps_host, histories)
+        return state
+
+    def _preempt_slot(self, slot: int, sched: Scheduler, state, histories):
+        """Page exhaustion: evict a decoding request from its lane, free its
+        pages, and requeue a CONTINUATION at the queue head — prompt =
+        everything the model has consumed, resume_token = the emitted but
+        unconsumed pending token. Re-prefilling those rows reproduces the
+        evicted cache (chunked prefill gives decode's tokens), so
+        preemption is lossless."""
+        req, m = sched.preempt(slot)
+        rid = req.rid
+        hist = histories.pop(slot)
+        prev = self._resumed.get(rid)
+        self._resumed[rid] = {
+            # the original identity survives any number of preemptions
+            "prompt_len": prev["prompt_len"] if prev else m.prompt_len,
+            "bucket": prev["bucket"] if prev else m.bucket,
+            "admitted_at_step": prev["admitted_at_step"] if prev else m.admitted_at_step,
+            "gen_len": m.gen_len,
+            "ttft_s": m.ttft_s,
+            "tokens_out": m.tokens_out,
+            "prefill_s": m.prefill_s,
+            "decode_s": m.decode_s,
+            "preemptions": m.preemptions + 1,
+        }
+        self._preempt_count += 1
+        sched.requeue_front(Request(
+            rid=rid, tokens=np.asarray(hist[:-1], np.int64), gen_len=m.gen_len,
+            sla_s=req.sla_s, arrival_s=req.arrival_s, temperature=req.temperature,
+            shared_prefix_len=req.shared_prefix_len, resume_token=int(hist[-1])))
+        self._store.free(rid)
+        self._act_stamp.pop(slot, None)
+        return self.model.reset_slot(state, slot)
+
+    def _grow_or_preempt(self, active, sched: Scheduler, state, pos_host, histories):
+        """Before the decode step: every decoding slot's pages must cover the
+        row this step commits. On exhaustion, preempt the LATEST-activated
+        slot (it has sunk the least decode work) until the grow fits —
+        possibly the growing slot itself."""
+        active = list(active)
+        for slot in list(active):
+            if slot not in active:
+                continue
+            rid = sched.slots[slot].request.rid
+            need = min(int(pos_host[slot]) + 1, self.max_len)
+            while True:
+                try:
+                    self._store.grow(rid, need)
+                    break
+                except PagesExhausted:
+                    victims = [s for s in active if s != slot] or [slot]
+                    victim = max(victims, key=lambda s: self._act_stamp.get(s, -1))
+                    state = self._preempt_slot(victim, sched, state, histories)
+                    active.remove(victim)
+                    if victim == slot:
+                        break
+        return active, state
+
+    def _complete_paged(self, task: _PrefillTask, sched: Scheduler, state, now, outputs,
+                        histories, pending_host, pos_host, temps_host):
+        """Prefill completion in paged mode: commit the donor's rows past the
+        shared boundary into pages, publish the prefix on a miss, sample the
+        first token (or resume a preemption's pending token), then activate
+        into a free lane — or PARK resident in pages until a lane frees.
+        Returns (state, first tokens emitted: 0 for a resumed
+        continuation)."""
+        req, rid = task.req, task.req.rid
+        tail = self._store.snapshot_tail(task.donor) if self._store.tail_leaves else None
+        self._store.store_donor(rid, task.donor, fill=task.fill, tail=tail)
+        if task.publish:
+            self._store.publish_prefix(rid, task.share_key, n_rows=task.share_rows,
+                                       tail=task.boundary_tail)
+            self._inflight_keys.pop(task.share_key, None)
+        m = sched.unplaced_metrics(rid)
+        for name, val in self._resumed.pop(rid, {}).items():
+            setattr(m, name, val)
+        m.prefill_s += task.prefill_s
+        temp = self._slot_temperature(req)
+        gen_inc = 0
+        if req.resume_token is not None:
+            first = int(req.resume_token)
+        else:
+            first = int(self._sample(task.first_logits, np.asarray([temp], np.float32))[0])
+            outputs[rid] = [first]
+            gen_inc = 1
+            sched.first_token_unplaced(rid, now())
+        info = {"pending": first, "fill": task.fill, "temp": temp,
+                "history": [int(t) for t in np.asarray(req.tokens)] + [first]}
+        if m.tokens_out >= m.gen_len:
+            # gen_len == 1: finished without ever taking a lane
+            sched.finish_unplaced(rid, now())
+            self._store.free(rid)
+            return state, gen_inc
+        free = sched.free_slots()
+        if free:
+            donor = {n: task.donor[n] for n in self._store.tail_leaves} if self._fused \
+                else task.donor
+            state = self._occupy(sched, state, donor, free[0], rid, info, pending_host,
+                                 pos_host, temps_host, histories)
+        else:
+            self._parked[rid] = info
+            self._store.unpin(rid)      # parked: cold, host-spillable
+        return state, gen_inc
+
     # -- the serving loop -----------------------------------------------------
 
     @torch.inference_mode()
@@ -158,19 +458,23 @@ class ServeEngine:
             raise ValueError(f"gen_len must be >= 1 (requests {bad}); the "
                              "first token always comes from prefill")
         sched = Scheduler(self.batch, admission=self.cost_model)
+        # paged run-state (parking, preemption stashes, publisher locks)
+        self._parked, self._resumed, self._inflight_keys = {}, {}, {}
+        self._act_stamp, self._act_seq, self._preempt_count = {}, 0, 0
         t0 = time.perf_counter()
         now = lambda: time.perf_counter() - t0  # noqa: E731
         for r in requests:
             sched.submit(r, now())
 
-        state = self.model.init_decode_state(self.batch, self.max_len)
-        axes = self.model.state_batch_axes(state)
+        state = self._init_state()
         # host mirrors of per-slot decode-loop state: the pending token
-        # (emitted but not yet consumed by the model), the cache fill and
-        # the sampling temperature
+        # (emitted but not yet consumed by the model), the cache fill, the
+        # sampling temperature and the committed token history (prompt +
+        # emitted: a preempted request's continuation prompt)
         pending_host = np.zeros(self.batch, np.int64)
         pos_host = np.zeros(self.batch, np.int64)
         temps_host = np.full(self.batch, self.sampling.temperature, np.float32)
+        histories: dict[int, list[int]] = {}
         outputs: dict[str, list[int]] = {}
         tasks: list[_PrefillTask] = []
         step_log: list[dict] = []
@@ -178,6 +482,7 @@ class ServeEngine:
         padded_steady = 0
         generated = 0
         prefill_tokens_total = 0
+        decode_steps = 0
         chunk = self.policy.chunk
 
         while sched.has_work() or tasks:
@@ -185,26 +490,32 @@ class ServeEngine:
             sched.release(now())
 
             # -- reservation: every free slot starts a chunk schedule --------
-            while True:
-                free = sched.free_slots()
-                if not free:
-                    break
-                req = sched.next_admissible(now())
-                if req is None:
-                    break
-                bucket = req.bucket or self.policy.assign(req.prompt_len)
-                if not bucket:
-                    # admission off + prompt beyond the largest bucket: still
-                    # cover the whole prompt in whole chunks
-                    bucket = BucketPolicy.round_up(req.prompt_len, chunk)
-                req.bucket = bucket
-                padded = np.zeros((1, bucket), np.int64)
-                padded[0, :req.prompt_len] = np.asarray(req.tokens, np.int64)
-                tasks.append(_PrefillTask(
-                    req=req, slot=free[0], padded=padded,
-                    n_chunks=bucket // chunk,
-                    donor=self.model.init_decode_state(1, self.max_len)))
-                sched.reserve(free[0], req, step)
+            # (paged mode: activation and admission are PAGE decisions —
+            # drain parked requests into freed lanes, then admit lane-less)
+            if self._store is not None:
+                state = self._activate_parked(sched, state, pending_host, pos_host,
+                                              temps_host, histories)
+                self._reserve_paged(sched, tasks, now, step)
+            else:
+                while True:
+                    free = sched.free_slots()
+                    if not free:
+                        break
+                    req = sched.next_admissible(now())
+                    if req is None:
+                        break
+                    bucket = req.bucket or self.policy.assign(req.prompt_len)
+                    if not bucket:
+                        # admission off + prompt beyond the largest bucket:
+                        # still cover the whole prompt in whole chunks
+                        bucket = BucketPolicy.round_up(req.prompt_len, chunk)
+                    req.bucket = bucket
+                    padded = np.zeros((1, bucket), np.int64)
+                    padded[0, :req.prompt_len] = np.asarray(req.tokens, np.int64)
+                    tasks.append(_PrefillTask(
+                        req=req, slot=free[0], padded=padded,
+                        n_chunks=bucket // chunk, donor=self._new_donor()))
+                    sched.reserve(free[0], req, step)
 
             # -- unified step, phase 1: one chunk per in-flight prefill ------
             ran: list[_PrefillTask] = []
@@ -223,11 +534,16 @@ class ServeEngine:
                 if n_real:
                     task.fill += n_real
                     task.first_logits = last
+                if (task.publish and task.boundary_tail is None
+                        and self._store.tail_leaves and task.fill >= task.share_rows):
+                    # tail families: the prefix entry must restore the state
+                    # AT the boundary (chunk-aligned, so the crossing is exact)
+                    task.boundary_tail = self._store.snapshot_tail(task.donor)
             chunk_tokens = len(ran) * chunk
             prefill_tokens_total += chunk_tokens
 
             active = sched.active_slots()
-            if sched.queue:
+            if sched.queue and self._store is None:
                 # released queue still has work: every free, unreserved slot
                 # this step is waste (0 by construction with per-step
                 # admission; a tripwire for future scheduling policies)
@@ -235,14 +551,32 @@ class ServeEngine:
 
             # -- phase 2: one decode step over every occupied slot -----------
             emitted_this_step = 0
+            if active and self._store is not None:
+                # page growth for the row this step commits; exhaustion
+                # preempts LIFO back to the queue head
+                active, state = self._grow_or_preempt(active, sched, state, pos_host,
+                                                      histories)
             if active:
                 if int(pos_host[active].max()) >= self.max_len:
                     raise RuntimeError(
                         f"active slot position {int(pos_host[active].max())} "
                         f"overran max_len={self.max_len}")
                 tokens = torch.as_tensor(pending_host[:, None], device=self.device)
-                logits, state = self.model.decode_step(
-                    self.params, state, tokens, torch.as_tensor(pos_host))
+                if self._fused:
+                    # the steady-state fused path: read and write the pools
+                    # THROUGH the block table — no page->lane gather. Idle
+                    # slots decode at position 0 into the scratch page.
+                    pos_step = np.zeros(self.batch, np.int64)
+                    pos_step[active] = pos_host[active]
+                    logits, state, pools = self.model.decode_step_paged(
+                        self.params, state, self._store.device_pools(),
+                        self._build_tables(sched, active), tokens,
+                        torch.as_tensor(pos_step, device=self.device))
+                    self._store.set_device_pools(pools)
+                else:
+                    logits, state = self.model.decode_step(
+                        self.params, state, tokens, torch.as_tensor(pos_host))
+                decode_steps += 1
                 toks = self._sample(logits, temps_host)
                 for slot in active:
                     rid = sched.slots[slot].request.rid
@@ -250,6 +584,8 @@ class ServeEngine:
                     pos_host[slot] += 1
                     pending_host[slot] = int(toks[slot])
                     outputs[rid].append(int(toks[slot]))
+                    if slot in histories:
+                        histories[slot].append(int(toks[slot]))
                     generated += 1
                     emitted_this_step += 1
 
@@ -271,13 +607,20 @@ class ServeEngine:
             for task in list(tasks):
                 if task.chunk_idx < task.n_chunks:
                     continue
+                tasks.remove(task)
+                if self._store is not None:
+                    state, gen_inc = self._complete_paged(
+                        task, sched, state, now, outputs, histories, pending_host,
+                        pos_host, temps_host)
+                    generated += gen_inc
+                    continue
                 # prefill complete: graft the donor into its reserved slot,
                 # sample the first token, occupy
                 slot = task.slot
                 temps_host[slot] = self._slot_temperature(task.req)
                 first = int(self._sample(task.first_logits,
                                          temps_host[slot:slot + 1])[0])
-                validate_donor(state, task.donor, axes)
+                validate_donor(state, task.donor, self.model.state_batch_axes(state))
                 state = self.model.insert_slot(state, task.donor, slot)
                 sched.place(task.req, slot)
                 sched.add_prefill_time(slot, task.prefill_s)
@@ -286,14 +629,18 @@ class ServeEngine:
                 outputs[task.req.rid] = [first]
                 pending_host[slot] = first
                 pos_host[slot] = task.fill
-                tasks.remove(task)
                 if sched.slot_done(slot):           # gen_len == 1 edge case
                     sched.finish(slot, now())
                     state = self.model.reset_slot(state, slot)
             for slot in list(active):
                 if sched.slot_done(slot):
+                    rid_done = sched.slots[slot].request.rid
                     sched.finish(slot, now())
                     state = self.model.reset_slot(state, slot)
+                    histories.pop(slot, None)
+                    if self._store is not None:
+                        self._store.free(rid_done)
+                        self._act_stamp.pop(slot, None)
 
             if ran or active:
                 step += 1           # a unified step actually did device work
@@ -349,5 +696,45 @@ class ServeEngine:
                 "step_seconds": self.cost_model.step_seconds(),
                 "prefill_seconds_largest_bucket":
                     self.cost_model.prefill_seconds(self.policy.buckets[-1]),
+            }
+        if self._store is not None:
+            st = self._store
+            budget_bytes = st.n_pages * st.page_bytes
+            contig_slot = max(st.contiguous_bytes_per_slot(self.max_len), 1)
+            report["paged"] = {
+                "page_size": st.page,
+                "page_bytes": st.page_bytes,
+                "n_pages": st.n_pages,
+                "hbm_budget_bytes": budget_bytes,
+                # bytes priced from the pages actually allocated
+                "hbm_bytes_resident": st.hbm_bytes_resident(),
+                "hbm_bytes_resident_peak": st.pages_used_peak * st.page_bytes,
+                "pages_used_peak": st.pages_used_peak,
+                "resident_requests": st.resident_requests(),
+                "resident_requests_peak": st.resident_peak,
+                # what a contiguous max-len slot table holds at the same budget
+                "contiguous_resident_bound": budget_bytes // contig_slot,
+                "prefix_hits": st.prefix_store.hits,
+                "prefix_misses": st.prefix_store.misses,
+                "prefix_entries": len(st.prefix_store.entries),
+                "cow_copies": st.cow_copies,
+                "preemptions": self._preempt_count,
+                "int8": False,
+                "fused": self._fused,
+                # host spill tier: cold unshared pages evicted to host memory
+                "spills": st.spills,
+                "rehydrates": st.rehydrates,
+                "spilled_pages": st.spilled_pages(),
+                "host_spill_bytes": st.host_spill_bytes(),
+                # fused accounting: lane_activations counts full page->lane
+                # gathers (the fallback); fused activations restore the tails
+                # only — gather_bytes_eliminated is what those skipped
+                # gathers would have moved
+                "lane_activations": self._lane_activations,
+                "tail_restores": self._tail_restores,
+                "gather_bytes_eliminated": self._gather_bytes_eliminated,
+                "gather_bytes_eliminated_per_step":
+                    self._gather_bytes_eliminated / max(decode_steps, 1),
+                "decode_steps": decode_steps,
             }
         return report

@@ -1,5 +1,6 @@
-"""Slot-table scheduler for per-step continuous batching (mirrors the
-lane-mode half of ``repro/serve/scheduler.py``).
+"""Slot-table scheduler for per-step continuous batching (mirrors
+``repro/serve/scheduler.py`` without its mesh pricing and speculative
+accounting).
 
 Pure host-side control plane — no torch in here. The engine owns the device
 state; the scheduler owns the request stream (arrival-gated queue), the
@@ -24,7 +25,9 @@ not engine constants.
 Refusals are permanent and carry a reason (``over_budget`` — the request's
 bucket does not fit the slot table's max_len or exceeds the largest declared
 bucket; ``sla_infeasible`` — even the best-case estimate misses its
-deadline).
+deadline). Paged serving adds :class:`PagedAdmission`, whose page shortage
+DEFERS (``defer:`` reasons keep the request at the head of the queue), and a
+lane-less track of requests that prefill or park without a lane.
 """
 
 from __future__ import annotations
@@ -106,7 +109,12 @@ class Request:
     ``arrival_s``. ``arrival_s`` may be preset to a FUTURE engine-clock time
     (trace-driven arrivals); when left at 0.0 ``submit`` stamps it.
     ``temperature`` overrides the engine's SamplingConfig for this request
-    (<= 0 -> greedy)."""
+    (<= 0 -> greedy). Paged serving: ``shared_prefix_len`` is the
+    prefix-store boundary hint (leading tokens shared across requests, a
+    system prompt; None lets the engine share the whole prompt minus its
+    last token), and ``resume_token`` is set on a PREEMPTED continuation —
+    the emitted but unconsumed token to resume with instead of sampling a
+    first one."""
 
     rid: str
     tokens: object                  # prompt token array (1-D, int)
@@ -115,6 +123,8 @@ class Request:
     arrival_s: float = 0.0
     bucket: int = 0                 # stamped at admission (BucketPolicy)
     temperature: float | None = None
+    shared_prefix_len: int | None = None
+    resume_token: int | None = None
 
     @property
     def prompt_len(self) -> int:
@@ -139,6 +149,8 @@ class RequestMetrics:
     sla_s: float | None = None
     sla_met: bool | None = None     # None: no SLA attached
     admitted_at_step: int = -1      # engine step index at slot reservation
+    preemptions: int = 0            # paged serving: times preempted on page
+                                    # exhaustion and requeued as a continuation
 
 
 @dataclass
@@ -239,6 +251,50 @@ class CostModelAdmission:
         return True, "ok"
 
 
+class PagedAdmission(CostModelAdmission):
+    """Page-count admission for the paged slot store: admit on pages
+    allocatable NOW, not on worst-case bucket bytes.
+
+    The price is the pages the request's PROMPT needs at attach (decode
+    growth is paid step by step, with preemption as the backstop), against
+    ``budget.pages_free()`` — the free list, evictable prefix-store pages
+    and host-spillable pages. ``budget`` is anything with
+    ``pages_for_rows(rows)`` and ``pages_free()`` (the
+    :class:`repro_torch.serve.paging.PagedKVStore` interface).
+
+    A page shortage is TRANSIENT, so it defers rather than refuses: the
+    ``defer:`` reason makes ``Scheduler.next_admissible`` keep the request
+    at the FRONT of the queue. A preempted continuation (``resume_token``
+    set) skips the SLA and gen-budget checks — its original admission priced
+    the whole request — but still pays the page check for its longer
+    re-prefill prompt."""
+
+    def __init__(self, cfg, batch: int, max_len: int, *, lib, budget,
+                 policy: BucketPolicy | None = None):
+        super().__init__(cfg, batch, max_len, lib=lib, policy=policy)
+        self.budget = budget
+
+    def admit(self, req: Request, now_s: float) -> tuple[bool, str]:
+        if req.resume_token is not None:
+            chunk = self.policy.chunk if self.policy else 1
+            bucket = (self.policy.assign(req.prompt_len) if self.policy else None) \
+                or BucketPolicy.round_up(req.prompt_len, chunk)
+            if bucket + 1 > self.max_len:
+                return False, (f"over_budget: continuation prompt {req.prompt_len} "
+                               f"cannot re-prefill within max_len {self.max_len}")
+            req.bucket = bucket
+        else:
+            ok, reason = super().admit(req, now_s)
+            if not ok:
+                return ok, reason
+        need = self.budget.pages_for_rows(req.prompt_len)
+        free = self.budget.pages_free()
+        if need > free:
+            return False, (f"defer: needs {need} pages for its prompt, "
+                           f"{free} allocatable now")
+        return True, "ok"
+
+
 @dataclass
 class _Slot:
     request: Request | None = None     # occupied: decoding
@@ -267,6 +323,12 @@ class Scheduler:
       attribute_step_time(...)         — split a shared step's wall time
                                          between prefill and decode tokens
       finish(slot, now) -> metrics     — request complete, slot freed
+
+    Paged mode adds a lane-less track: reserve_unplaced / place_parked /
+    first_token_unplaced / finish_unplaced (admission and parking are
+    page-count decisions, not lane decisions) and preempt / requeue_front
+    (page exhaustion sends a decoding request back to the queue head as a
+    resumable continuation).
     """
 
     def __init__(self, n_slots: int, admission: CostModelAdmission | None = None):
@@ -278,6 +340,9 @@ class Scheduler:
         self.finished: list[RequestMetrics] = []
         self.refused: list[Refusal] = []
         self.admission_log: list[dict] = []   # {step, slot, rid} per admission
+        # paged serving: requests admitted WITHOUT a lane (prefilling into a
+        # donor, or parked resident in pages awaiting a free lane)
+        self.unplaced: dict[str, tuple[Request, RequestMetrics]] = {}
 
     # -- request stream -------------------------------------------------------
 
@@ -314,8 +379,18 @@ class Scheduler:
             ok, reason = self.admission.admit(req, now_s)
             if ok:
                 return req
+            if reason.startswith("defer"):
+                # transient shortage (paged admission: pages free up as
+                # decodes finish): keep FIFO order, try again next step
+                self.queue.appendleft(req)
+                return None
             self.refused.append(Refusal(req.rid, reason))
         return None
+
+    def requeue_front(self, req: Request) -> None:
+        """Put a request at the HEAD of the queue: a preempted continuation
+        (it was already being served) or an attach that lost a page race."""
+        self.queue.appendleft(req)
 
     # -- slot lifecycle -------------------------------------------------------
 
@@ -346,6 +421,60 @@ class Scheduler:
         s.request = req
         s.reserved = None
         s.served += 1
+
+    # -- paged serving: lane-less admission, parking, preemption --------------
+
+    def reserve_unplaced(self, req: Request, step: int) -> RequestMetrics:
+        """Admit a request WITHOUT reserving a lane (its prefill runs in a
+        donor, and a completed request may stay parked in pages). Logged
+        with slot -1; ``place_parked`` moves it into a lane later."""
+        if req.rid in self.unplaced:
+            raise ValueError(f"request {req.rid!r} already unplaced")
+        self.admission_log.append({"step": step, "slot": -1, "rid": req.rid})
+        m = RequestMetrics(
+            rid=req.rid, slot=-1, prompt_len=req.prompt_len,
+            gen_len=req.gen_len, bucket=req.bucket or req.prompt_len,
+            sla_s=req.sla_s, admitted_at_step=step)
+        self.unplaced[req.rid] = (req, m)
+        return m
+
+    def unplaced_metrics(self, rid: str) -> RequestMetrics:
+        return self.unplaced[rid][1]
+
+    def place_parked(self, rid: str, slot: int) -> Request:
+        """Activate an unplaced (parked) request into a free lane, carrying
+        its metrics (TTFT was stamped at prefill completion)."""
+        s = self.slots[slot]
+        if not s.free:
+            raise ValueError(f"slot {slot} is not free")
+        req, m = self.unplaced.pop(rid)
+        m.slot = slot
+        s.request, s.metrics = req, m
+        s.served += 1
+        return req
+
+    def first_token_unplaced(self, rid: str, now_s: float) -> None:
+        """TTFT stamp for a request finishing prefill without a lane."""
+        req, m = self.unplaced[rid]
+        m.ttft_s = max(now_s - req.arrival_s, 1e-9)
+        m.tokens_out = 1
+
+    def finish_unplaced(self, rid: str, now_s: float) -> RequestMetrics:
+        """Complete a request that never got (or no longer needs) a lane —
+        the parked gen_len == 1 edge case."""
+        req, m = self.unplaced.pop(rid)
+        return self._close(m, req, now_s)
+
+    def preempt(self, slot: int) -> tuple[Request, RequestMetrics]:
+        """Evict a DECODING request from its lane on page exhaustion. It is
+        not finished: the engine stashes the metrics and requeues a
+        continuation at the queue head."""
+        s = self.slots[slot]
+        if s.request is None:
+            raise ValueError(f"slot {slot} is not decoding")
+        req, m = s.request, s.metrics
+        s.request, s.reserved, s.metrics = None, None, None
+        return req, m
 
     def first_token(self, slot: int, now_s: float) -> None:
         m = self.slots[slot].metrics
@@ -388,13 +517,16 @@ class Scheduler:
     def finish(self, slot: int, now_s: float) -> RequestMetrics:
         s = self.slots[slot]
         m, req = s.metrics, s.request
+        s.request, s.reserved, s.metrics = None, None, None
+        return self._close(m, req, now_s)
+
+    def _close(self, m: RequestMetrics, req: Request, now_s: float) -> RequestMetrics:
         m.latency_s = max(now_s - req.arrival_s, 1e-9)
         decode_s = m.decode_s if m.decode_s > 0 \
             else max(m.latency_s - m.ttft_s, 1e-9)
         m.decode_tokens_per_s = max(m.tokens_out - 1, 0) / max(decode_s, 1e-9)
         if m.sla_s is not None:
             m.sla_met = m.latency_s <= m.sla_s
-        s.request, s.reserved, s.metrics = None, None, None
         self.finished.append(m)
         return m
 
@@ -402,7 +534,8 @@ class Scheduler:
 
     def has_work(self) -> bool:
         return (bool(self.queue) or bool(self.pending)
-                or bool(self.active_slots()) or bool(self.reserved_slots()))
+                or bool(self.active_slots()) or bool(self.reserved_slots())
+                or bool(self.unplaced))
 
     def sla_hit_rate(self) -> float | None:
         scored = [m for m in self.finished if m.sla_met is not None]

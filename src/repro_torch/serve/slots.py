@@ -1,14 +1,93 @@
-"""State surgery companions for continuous batching (mirrors the lane-mode
-half of ``repro/serve/slots.py``).
+"""State surgery companions for continuous batching and the paged-memory
+bookkeeping (mirrors ``repro/serve/slots.py``).
 
 The dense family carries its decode state as a dict of tensors with the
 request (slot) axis at a per-leaf position that ``Model.state_batch_axes``
 declares; ``Model.insert_slot`` / ``reset_slot`` do the surgery. This module
 reads a slot back out (``take_slot``) and validates a donor against the slot
-table on the host (``validate_donor``) before it is grafted. The paged-memory
-primitives of the reference wait for the paged slice of the port."""
+table on the host (``validate_donor``) before it is grafted.
+
+The paged building blocks are pure host bookkeeping: :class:`PageAllocator`,
+a refcounted free list over fixed-size cache pages (the unit the paged store
+accounts device memory in), and :class:`SlotPages`, one request's page list
+and fill. The device pools and the gather/scatter through the
+``cache_page_read`` / ``cache_page_write`` primitives live in
+``serve/paging.py``."""
 
 from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+
+class PagesExhausted(RuntimeError):
+    """No free page: the caller must evict/preempt or defer admission."""
+
+
+class PageAllocator:
+    """Refcounted free-list allocator over ``n_pages`` fixed-size pages.
+
+    Pages are ids 0..n_pages-1. ``alloc`` hands out a page at refcount 1;
+    ``retain`` adds a sharer (copy-on-write prefix sharing); ``release``
+    drops one reference and returns the page to the free list at zero.
+    Double-free and retain-after-free raise instead of corrupting the pool."""
+
+    def __init__(self, n_pages: int):
+        if n_pages < 1:
+            raise ValueError(f"need at least one page, got {n_pages}")
+        self.n_pages = int(n_pages)
+        self._free = list(range(self.n_pages - 1, -1, -1))
+        self._refs = [0] * self.n_pages
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        return self.n_pages - len(self._free)
+
+    def refcount(self, page: int) -> int:
+        return self._refs[page]
+
+    def alloc(self) -> int:
+        if not self._free:
+            raise PagesExhausted(f"all {self.n_pages} pages in use")
+        page = self._free.pop()
+        self._refs[page] = 1
+        return page
+
+    def _check(self, page: int) -> None:
+        if not 0 <= page < self.n_pages:
+            raise ValueError(f"page {page} outside pool of {self.n_pages}")
+
+    def retain(self, page: int) -> None:
+        self._check(page)
+        if self._refs[page] <= 0:
+            raise ValueError(f"retain of free page {page}")
+        self._refs[page] += 1
+
+    def release(self, page: int) -> None:
+        self._check(page)
+        if self._refs[page] <= 0:
+            raise ValueError(f"double free of page {page}")
+        self._refs[page] -= 1
+        if self._refs[page] == 0:
+            self._free.append(page)
+
+
+@dataclass
+class SlotPages:
+    """One request's page list: ``pages[i]`` covers cache rows
+    [i*page_size, (i+1)*page_size). ``n_shared`` leading pages are prefix-
+    store pages held by reference (read-only until copy-on-write); a spilled
+    page is marked -1."""
+
+    pages: list[int] = field(default_factory=list)
+    n_shared: int = 0
+    fill: int = 0                   # real cache rows committed so far
+
+    def covered_rows(self, page_size: int) -> int:
+        return len(self.pages) * page_size
 
 
 def take_slot(state: dict, axes: dict, slot: int) -> dict:

@@ -25,10 +25,12 @@ from repro_torch.serve import upd_serve_defaults
 
 SLICE_PRIMITIVES = ("load", "set1", "embed_lookup", "cache_update", "matmul", "rmsnorm",
                     "layernorm", "rope_apply", "swiglu", "flash_attention",
-                    "attention_prefill_chunk", "attention_decode")
+                    "attention_prefill_chunk", "attention_decode", "cache_page_read",
+                    "cache_page_write", "attention_decode_paged")
 KERNEL_MODULES = {"rmsnorm": "repro_torch.kernels.rmsnorm.ops",
                   "swiglu": "repro_torch.kernels.swiglu.ops",
-                  "flash_attention": "repro_torch.kernels.flash_attention.ops"}
+                  "flash_attention": "repro_torch.kernels.flash_attention.ops",
+                  "attention_decode_paged": "repro_torch.kernels.paged.ops"}
 ATOL = RTOL = 1e-5
 
 
@@ -64,9 +66,9 @@ def test_cross_generation_writes_both_packages_that_parse():
     h100 = out["h100"]
     for f in h100.glob("*.py"):
         ast.parse(f.read_text())
-    nn_src = (h100 / "ops_nn.py").read_text()
+    ops_src = "".join(f.read_text() for f in sorted(h100.glob("ops_*.py")))
     for mod in KERNEL_MODULES.values():
-        assert f"from {mod} import" in nn_src
+        assert f"from {mod} import" in ops_src
     target_src = (h100 / "_target.py").read_text()
     assert 'torch.bfloat16: "bfloat16"' in target_src
     assert "peak_flops_bf16 = 989000000000000.0" in target_src
@@ -161,6 +163,15 @@ def _args(prim, rng):
     if prim == "attention_decode":
         return (_rand(rng, 1, 4, 1, 8), _rand(rng, 1, 2, 9, 8),
                 _rand(rng, 1, 2, 9, 8)), {"kv_len": 7}
+    if prim == "cache_page_read":
+        return (_rand(rng, 512, 3), np.asarray([256, 0, 128], np.int32)), {}
+    if prim == "cache_page_write":
+        return (_rand(rng, 512, 3), _rand(rng, 3 * 64, 3),
+                np.asarray([256, 0, 128], np.int32)), {}
+    if prim == "attention_decode_paged":
+        tables = np.asarray([[3, 1, 0], [2, 4, 5]], np.int32)
+        return (_rand(rng, 2, 4, 1, 8), _rand(rng, 2, 6, 8, 8), _rand(rng, 2, 6, 8, 8),
+                tables), {"kv_len": np.asarray([13, 24], np.int32)}
     raise KeyError(prim)
 
 
@@ -181,6 +192,10 @@ def test_torch_cpu_library_matches_cpu_xla(prim, libs):
     ("attention_prefill_chunk", "flops", dict(B=1, H=16, KH=16, C=64, S=256, D=64, TP=1)),
     ("attention_prefill_chunk", "bytes", dict(B=1, H=16, KH=16, C=64, S=256, D=64, TP=1)),
     ("attention_prefill_chunk", "comms", dict(B=1, H=16, KH=16, C=64, S=256, D=64, TP=4)),
+    ("attention_decode_paged", "bytes", dict(B=8, H=16, KH=16, P=5, PAGE=64, D=64)),
+    ("attention_decode_paged", "flops", dict(B=8, H=16, KH=16, P=5, PAGE=64, D=64)),
+    ("cache_page_read", "bytes", dict(N=4, PAGE=64, R=24576)),
+    ("cache_page_write", "bytes", dict(N=4, PAGE=64, R=24576)),
 ])
 def test_cost_channel_matches_the_reference(prim, term, shapes, lib_cpu):
     want = jax_tsl_api.cost(prim, term, **shapes)

@@ -1,14 +1,18 @@
-"""The port stands alone: no file of src/repro_torch/, no generated package
-of its generator and not chip_smoke.py imports JAX or the JAX package
-``repro`` (``repro_torch`` is its own); and its entry points run on the card
-unless the caller asks for the CPU — asking for CUDA where there is none, or
-on a card that is not Hopper, raises instead of quietly running elsewhere."""
+"""The port stands alone: no file of src/repro_torch/, no Python carried in
+its UPD YAML (``helpers:``, ``implementation:``, bench ``setup:`` blocks) or
+its generator templates, no generated package and not chip_smoke.py imports
+JAX or the JAX package ``repro`` (``repro_torch`` is its own); and its entry
+points run on the card unless the caller asks for the CPU — asking for CUDA
+where there is none, or on a card that is not Hopper, raises instead of
+quietly running elsewhere."""
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
 import torch
+import yaml
 
 from repro_torch.core import generate_all, load_corpus
 
@@ -39,6 +43,63 @@ def _port_files():
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_source_imports_neither_jax_nor_repro(path):
     assert not _bad(_imports(path.read_text())), path
+
+
+# import statements in code that is not plain Python yet (Jinja templates,
+# code blocks of the UPD YAML before stage-1 rendering): scanned line by line
+_IMPORT_LINE = re.compile(r"^\s*(?:from\s+([\w.]+)\s+import\b|import\s+([\w.,\s]+))",
+                          re.MULTILINE)
+
+
+def _line_imports(code: str) -> set[str]:
+    mods = set()
+    for frm, imp in _IMPORT_LINE.findall(code):
+        if frm:
+            mods.add(frm)
+        else:
+            mods |= {m.strip().split()[0] for m in imp.split(",") if m.strip()}
+    return mods
+
+
+def _code_blocks(node):
+    """Every helpers / implementation / setup string of a UPD document."""
+    if isinstance(node, dict):
+        for key, val in node.items():
+            if key in ("helpers", "implementation", "setup") and isinstance(val, str):
+                yield val
+            else:
+                yield from _code_blocks(val)
+    elif isinstance(node, list):
+        for item in node:
+            yield from _code_blocks(item)
+
+
+def _upd_and_template_files():
+    port = ROOT / "src" / "repro_torch"
+    files = sorted((port / "tsl_data").rglob("*.yaml")) \
+        + sorted((port / "core" / "templates").glob("*.j2"))
+    assert len(files) >= 8
+    return files
+
+
+@pytest.mark.parametrize("path", _upd_and_template_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_upd_code_blocks_and_templates_import_neither_jax_nor_repro(path):
+    text = path.read_text()
+    if path.suffix == ".yaml":
+        code = "\n".join(c for doc in yaml.safe_load_all(text) for c in _code_blocks(doc))
+    else:
+        code = text
+    assert not _bad(_line_imports(code)), path
+
+
+def test_code_block_scan_catches_a_copied_reference_import():
+    doc = yaml.safe_load("definitions:\n  - helpers: |\n      from repro.kernels.paged.ref"
+                         " import page_read as _r\n    implementation: |\n"
+                         "      import jax.numpy as jnp, torch\n      return _r(x)\n")
+    code = "\n".join(_code_blocks(doc))
+    assert _bad(_line_imports(code)) == {"repro.kernels.paged.ref", "jax.numpy"}
+    assert not _bad(_line_imports("from repro_torch.kernels.paged.ref import page_read"))
 
 
 def test_upd_bodies_and_generated_packages_import_neither():
