@@ -6,8 +6,9 @@
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. Kernels. Builds every kernel of the main paths from the sources in the
-   checkout (nvcc for the CUDA C++ flash and paged attention, both started
-   at once; Triton JIT for rmsnorm and swiglu), runs each wrapper on the
+   checkout (nvcc for the CUDA C++ flash and paged attention, range_count,
+   hadd and to_integral, all started at once; Triton JIT for rmsnorm, swiglu
+   and softmax), runs each wrapper on the
    card at the main paths' shapes and holds it against its plain PyTorch
    version on the same inputs within the stated tolerance; times kernel,
    plain version and the one PyTorch library call that computes the same
@@ -16,8 +17,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    need against the H100 SXM datasheet peaks. No single PyTorch call
    computes paged attention: its yardstick is scaled_dot_product_attention
    on the same rows already gathered into contiguous lanes (gather not
-   timed). For the paged serving shape it also times the host's enqueue of
-   one call: wrapper, bare launcher and the yardstick.
+   timed); none computes a range count or packs a mask (library "—").
+   For the paged serving shape it also times the host's enqueue of
+   one call: wrapper, bare launcher and the yardstick. The app's kernels
+   run at the app's sizes (2^30 float32, 2^28 int32, the (2^25, 32) mask)
+   and at edge lengths (0, 1, 31, 33, 2^20 + 7; bit 31; a view off 16-byte
+   alignment; fractional bounds on int32 data; NaN data); their integer
+   results must equal the plain versions' bit for bit.
 2. Model. qwen1.5-0.5b at full width (24 layers, d=1024, vocab 151936 padded
    to 152064, bf16, seeded init): Model.prefill on a (2, 512) prompt then 8
    greedy decode steps through the h100 library; the same prefill with the
@@ -35,6 +41,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    paged kernel launched 24 times per decode step; prints the share of
    requests whose tokens equal a lane-mode run's on the same requests
    (information only: bf16 kernels may flip a near-tied argmax).
+3c. App. The paper's range-count app (Fig 8) through
+   repro_torch.launch.quickstart.main on 2^30 float32 uniforms in
+   [0, 100000) (4 GiB, the paper's size) and 2^28 int32 in [0, 100), each
+   with the quickstart's range and one that selects about half: the fused,
+   popcount, composed and hand-written counts must be equal, and a 2^20
+   prefix's count equal the torch_cpu library's on the host. Each way is
+   timed (GiB/s against 3.35 TB/s), and the composed way's peak memory read.
+3d. Generated suite. The h100 library generated with its tests (paper
+   §4.1); every generated test function runs on the card; any failure
+   fails the phase.
 4. Step profile. The step kinds the serving engines run, on phase 2's
    model at the serve phases' shapes — a lane decode step and a fused paged
    decode step over 8 slots at position 256, and one 64-token prefill chunk
@@ -47,8 +63,10 @@ The launch counters are set to 0 before phase 2 and read after phase 3:
 every kernel of that main path must have launched on it (flash attention in
 Model.prefill, rmsnorm and swiglu in every layer of serving). They are set
 to 0 again just before phase 3b and read just after it for the paged path
-(paged attention, rmsnorm and swiglu). Launches made to compare a kernel
-with its plain version are not counted.
+(paged attention, rmsnorm and swiglu), just before phase 3c and read just
+after it for the app path (range_count, hadd, to_integral), and just
+before phase 3d and read just after it for the suite (softmax). Launches
+made to compare a kernel with its plain version are not counted.
 
 Stdout ends with the card's name and power limit (nvidia-smi), one JSON line
 {"kernels": [...]}, and, last, {"ok": true, "device": {...}}.
@@ -56,7 +74,9 @@ Stdout ends with the card's name and power limit (nvidia-smi), one JSON line
 
 from __future__ import annotations
 
+import importlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -67,11 +87,15 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM datasheet peaks (dense): the roofline the bounds are taken against
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12,
+                  # int32 outside the tensor cores: half the f32 rate (an
+                  # H100 SM has 64 INT32 lanes beside its 128 FP32 lanes)
+                  "torch.int32": 33.5e12}
 
 # |kernel - plain| <= ATOL + RTOL * |plain|, per dtype: bf16 output may differ
 # by one rounding step (2^-7 relative) where the f32 sums round differently;
-# f32 differs only by summation order
+# f32 differs only by summation order. Softmax scales ATOL by 1/d on rows
+# of width d (check_case's atol_scale): a probability is ~1/d, not ~1
 TOLERANCE = {"torch.bfloat16": (1e-2, 1e-2), "torch.float32": (1e-4, 1e-4)}
 
 ARCH = "qwen1.5-0.5b"
@@ -89,6 +113,18 @@ PAGED_BATCH, PAGED_MAX_LEN, PAGED_CHUNK, PAGE = 8, 320, 64, 64
 # the first generated position, a chunk that ends there; 10 traced steps
 PROFILE_BATCH, PROFILE_FILL, PROFILE_CHUNK, PROFILE_GEN = 8, 256, 64, 64
 PROFILE_STEPS = 10
+# app phase: the paper's range-count data (bench_fig10_applicability: 2^30
+# uniform floats in [0, 100000), 4 GiB) and 2^28 int32 in [0, 100); the
+# quickstart's range and one that selects about half
+APP_F32_N, APP_I32_N = 1 << 30, 1 << 28
+APP_CASES = (("float32", APP_F32_N, ((5.0, 15.0), (25000.0, 75000.0))),
+             ("int32", APP_I32_N, ((5, 15), (25, 74))))
+# phase 1: edge lengths of the app's kernels (0, 1, around a warp, and a
+# length no power of two divides); the vocabulary row width for softmax
+EDGE = (1 << 20) + 7
+EDGE_LENGTHS = (0, 1, 31, 33, EDGE)
+VOCAB_ROW = 152064
+APP_CHECK_N = 1 << 20       # prefix also counted on the host (torch_cpu)
 
 
 def gpu_line() -> str:
@@ -132,12 +168,25 @@ def host_us(fn, iters: int = 200) -> float:
     return t
 
 
-def check_case(name, shape, got, want, dtype) -> dict:
+def check_case(name, shape, got, want, dtype, nan_ok: bool = False,
+               atol_scale: float = 1.0) -> dict:
+    """Kernel vs plain within TOLERANCE; ``nan_ok``: NaN where (and only
+    where) the plain version has NaN, the rest compared. ``atol_scale``
+    puts ATOL in the output's own units where a typical value is not ~1:
+    softmax passes 1/d, so on a row of width d it compares
+    |kernel - plain| <= ATOL/d + RTOL |plain| (d·softmax has mean 1)."""
     import torch
 
     torch.cuda.synchronize()
+    if nan_ok:
+        if not torch.equal(torch.isnan(got), torch.isnan(want)):
+            raise AssertionError(f"{name} {shape}: NaN where the plain version has none "
+                                 f"or the reverse")
+        keep = ~torch.isnan(want)
+        got, want = got[keep], want[keep]
     diff = (got.float() - want.float()).abs()
     atol, rtol = TOLERANCE[str(dtype)]
+    atol *= atol_scale
     limit = atol + rtol * want.float().abs()
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name} {shape}: non-finite output")
@@ -149,6 +198,21 @@ def check_case(name, shape, got, want, dtype) -> dict:
     rel = (diff[big] / want.float().abs()[big]).max().item() if bool(big.any()) else 0.0
     return {"max_abs_err": diff.max().item(), "max_rel_err": rel,
             "tolerance_used": (diff / limit).max().item(), "atol": atol, "rtol": rtol}
+
+
+def check_exact(name, shape, got, want) -> dict:
+    """Integer results (counts, sums, bit words): kernel == plain, bit for bit."""
+    import torch
+
+    torch.cuda.synchronize()
+    g, w = (t.view(torch.int32) if t.dtype == torch.uint32 else t for t in (got, want))
+    if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
+        err = (g.long() - w.long()).abs().max().item() if g.shape == w.shape else "shape"
+        raise AssertionError(f"{name} {shape}: kernel != plain ({got.dtype} "
+                             f"{tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}; "
+                             f"max abs err {err})")
+    return {"max_abs_err": 0.0, "max_rel_err": 0.0, "tolerance_used": 0.0, "atol": 0,
+            "rtol": 0}
 
 
 def bound(bytes_moved: float, ops: float, dtype) -> tuple[float, str]:
@@ -165,18 +229,23 @@ def kernel_phase(dev) -> list[dict]:
     from repro_torch.kernels.common import KERNEL_BUILD_ROOT
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.hadd import kernel as ha_kernel
     from repro_torch.kernels.paged import kernel as pa_kernel
     from repro_torch.kernels.paged import ops as pa
+    from repro_torch.kernels.range_count import kernel as rc_kernel
     from repro_torch.kernels.rmsnorm import ops as rn
     from repro_torch.kernels.swiglu import ops as sw
+    from repro_torch.kernels.to_integral import kernel as ti_kernel
 
     t0 = time.perf_counter()
     # nvcc builds of the CUDA sources (cached by digest), one per source, at once
-    with ThreadPoolExecutor(2) as pool:
-        list(pool.map(lambda build: build(), (fa_kernel._fn, pa_kernel._fn)))
-    print(f"[phase1] flash_attention and paged_attention built in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for name in ("flash_attention", "paged_attention"):
+    cuda = {"flash_attention": fa_kernel, "paged_attention": pa_kernel,
+            "range_count": rc_kernel, "hadd": ha_kernel, "to_integral": ti_kernel}
+    with ThreadPoolExecutor(len(cuda)) as pool:
+        list(pool.map(lambda k: k._fn(), cuda.values()))
+    print(f"[phase1] {', '.join(cuda)} built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for name in cuda:
         for log in sorted(KERNEL_BUILD_ROOT.glob(f"{name}_*/build.log")):
             regs = [ln.strip() for ln in log.read_text().splitlines()
                     if "registers" in ln or "spill" in ln]
@@ -265,6 +334,18 @@ def kernel_phase(dev) -> list[dict]:
                     "src/repro_torch/kernels/paged/csrc/paged_attention.cu",
                     "src/repro/kernels/paged/kernel.py:88", None,
                     paged_cases(dev, pa)))
+    results.append(("range_count", "cuda",
+                    "src/repro_torch/kernels/range_count/csrc/range_count.cu",
+                    "src/repro/kernels/range_count/kernel.py:52", None,
+                    range_count_cases(dev)))
+    results.append(("hadd", "cuda", "src/repro_torch/kernels/hadd/csrc/hadd.cu",
+                    "src/repro/kernels/hadd/kernel.py:46", None, hadd_cases(dev)))
+    results.append(("to_integral", "cuda",
+                    "src/repro_torch/kernels/to_integral/csrc/to_integral.cu",
+                    "src/repro/kernels/to_integral/kernel.py:31", None,
+                    to_integral_cases(dev)))
+    results.append(("softmax", "triton", "src/repro_torch/kernels/softmax/kernel.py",
+                    "src/repro/kernels/softmax/kernel.py:24", None, softmax_cases(dev)))
 
     rows = []
     for name, route, source, replaces, main_shape, cs in results:
@@ -278,11 +359,13 @@ def kernel_phase(dev) -> list[dict]:
                      "library_ms": top["library_ms"], "shape": top["shape"],
                      "cases": cs})
         for c in cs:
+            lib = "—" if c["library_ms"] is None else f"{c['library_ms']:.4f} ms"
             print(f"[phase1] {name} {c['shape']} {c['dtype']}: err {c['max_abs_err']:.3g} "
                   f"(rel {c['max_rel_err']:.3g}, {c['tolerance_used']:.2f} of tolerance) "
                   f"kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} ms "
-                  f"library {c['library_ms']:.4f} ms bound {c['bound_ms']:.4f} ms "
+                  f"library {lib} bound {c['bound_ms']:.4f} ms "
                   f"({c['bound_by']})"
+                  + (f" {c['note']}" if "note" in c else "")
                   + (f"; host enqueue us {json.dumps(c['host_us'])}" if "host_us" in c
                      else ""), flush=True)
     return rows
@@ -369,14 +452,207 @@ def paged_cases(dev, pa) -> list[dict]:
     return cases
 
 
+def _timed(case: dict, kernel_fn, plain_fn, library_fn, iters: int) -> dict:
+    """Adds the kernel's, the plain version's and the library call's ms."""
+    case["ms"] = cuda_ms(kernel_fn, iters)
+    case["plain_ms"] = cuda_ms(plain_fn, iters)
+    case["library_ms"] = cuda_ms(library_fn, iters) if library_fn is not None else None
+    return case
+
+
+def range_count_cases(dev) -> list[dict]:
+    """Phase 1, range_count: the app's 2^30 float32 uniforms (the main
+    case) and 2^28 int32, edge lengths (0, 1, 31, 33, 2^20 + 7, a view off
+    16-byte alignment), a fractional bound on int32 data and NaN data.
+    Counts must be equal. No single PyTorch call computes a range count."""
+    import torch
+
+    from repro_torch.kernels.range_count import ops as rc
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    big = torch.rand(APP_F32_N, generator=g, device=dev).mul_(100_000)
+    ints = torch.randint(0, 100, (APP_I32_N,), generator=g, device=dev, dtype=torch.int32)
+    nan = torch.rand(EDGE, generator=g, device=dev).mul_(20)
+    nan[::3] = float("nan")
+    # (label, data, lo, hi, main)
+    specs = [("f32", big, 5.0, 15.0, True), ("f32", big, 25000.0, 75000.0, False),
+             ("i32", ints, 5, 15, False), ("i32", ints, 25, 74, False)]
+    for n in EDGE_LENGTHS:
+        specs += [("f32", big[:n].mul(1e-3), 5.0, 15.0, False),
+                  ("i32", ints[:n], 10, 40, False)]
+    small = big[:EDGE + 1].mul(1e-3)
+    specs += [("f32 view 4 bytes off 16-byte alignment", small[1:], 5.0, 15.0, False),
+              ("i32 fractional bounds", ints[:EDGE], 5.5, 7.9, False),
+              ("i32 int lo, float hi", ints[:EDGE], 5, 7.9, False),
+              ("f32 NaN data", nan, 2.0, 9.0, False)]
+    cases = []
+    for label, data, lo, hi, main in specs:
+        n = data.numel()
+        shape = [n, label, lo, hi]
+        c = {"shape": shape, "dtype": str(data.dtype).removeprefix("torch."), "main": main,
+             **check_exact("range_count", shape, rc.range_count(data, lo, hi),
+                           rc.ref.range_count(data, lo, hi))}
+        iters = 10 if n >= APP_I32_N else 50
+        _timed(c, lambda: rc.range_count(data, lo, hi),
+               lambda: rc.ref.range_count(data, lo, hi), None, iters)
+        c["bound_ms"], c["bound_by"] = bound(n * data.element_size() + 4, 3 * n,
+                                             torch.int32 if data.dtype == torch.int32
+                                             else torch.float32)
+        cases.append(c)
+    return cases
+
+
+def hadd_cases(dev) -> list[dict]:
+    """Phase 1, hadd: the composed app's one row of 2^30 int32 0/1 lanes
+    (the main case), (64, 512) rows (the bench shape) in f32 and bf16, row
+    lengths 0, 1, 31, 33 and 2^20 + 7 in f32 / bf16 / int32, and an int32
+    row whose sum passes 2^24 (exact) and one that wraps past 2^31."""
+    import torch
+
+    from repro_torch.kernels.hadd import ops as ha
+
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def rand(shape, dtype):
+        if dtype == torch.int32:
+            return torch.randint(-1000, 1000, shape, generator=g, device=dev,
+                                 dtype=torch.int32)
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    lanes = torch.randint(0, 2, (APP_F32_N,), generator=g, device=dev, dtype=torch.int32)
+    specs = [(lanes, True, "the composed app's lanes"),
+             (rand((64, 512), torch.float32), False, "bench shape"),
+             (rand((64, 512), torch.bfloat16), False, "bench shape")]
+    for n in EDGE_LENGTHS:
+        for dt in (torch.float32, torch.bfloat16, torch.int32):
+            specs.append((rand((3, n), dt), False, ""))
+    specs += [
+        (torch.randint(0, 1 << 10, (EDGE,), generator=g, device=dev,
+                       dtype=torch.int32), False, "int32 sum past 2^24"),
+        (torch.full((5000,), 1 << 20, device=dev, dtype=torch.int32), False,
+         "int32 sum wraps past 2^31"),
+        (rand((8, VOCAB_ROW), torch.bfloat16), False, "vocab rows"),
+    ]
+    cases = []
+    for x, main, note in specs:
+        shape = list(x.shape)
+        got, want = ha.hadd(x), ha.ref.hadd(x)
+        check = (check_exact("hadd", shape, got, want) if x.dtype == torch.int32
+                 else check_case("hadd", shape, got, want, x.dtype))
+        c = {"shape": shape, "dtype": str(x.dtype).removeprefix("torch."), "main": main,
+             **check}
+        if note:
+            c["note"] = note
+        iters = 10 if x.numel() >= APP_I32_N else 50
+        _timed(c, lambda: ha.hadd(x), lambda: ha.ref.hadd(x),
+               lambda: torch.sum(x, -1, dtype=x.dtype), iters)
+        rows = math.prod(x.shape[:-1])
+        c["bound_ms"], c["bound_by"] = bound(
+            (x.numel() + rows) * x.element_size(), x.numel(),
+            torch.int32 if x.dtype == torch.int32 else torch.float32)
+        cases.append(c)
+    return cases
+
+
+def to_integral_cases(dev) -> list[dict]:
+    """Phase 1, to_integral: the app's mask packed 32 lanes a word ((2^25,
+    32) bool, the main case), row counts 1, 31, 33 and 2^20 + 7, lane counts
+    1, 31 and 32 with bit 31 (every lane set; only lane 31 set), and uint8
+    masks. Words must be equal. No PyTorch call packs a mask."""
+    import torch
+
+    from repro_torch.kernels.to_integral import ops as ti
+
+    g = torch.Generator(device=dev).manual_seed(12)
+
+    def mask(rows, n):
+        return torch.rand((rows, n), generator=g, device=dev) > 0.5
+
+    full = torch.ones((4, 32), dtype=torch.bool, device=dev)
+    top = torch.zeros((4, 32), dtype=torch.bool, device=dev)
+    top[:, 31] = True
+    specs = [(mask(APP_F32_N // 32, 32), True), (full, False), (top, False),
+             (mask(7, 1), False), (mask(7, 31), False), (mask(0, 32), False),
+             (mask(5, 32).to(torch.uint8), False)]
+    for rows in EDGE_LENGTHS[1:]:
+        specs.append((mask(rows, 32), False))
+    cases = []
+    for m, main in specs:
+        shape = list(m.shape)
+        c = {"shape": shape, "dtype": str(m.dtype).removeprefix("torch."), "main": main,
+             **check_exact("to_integral", shape, ti.to_integral(m), ti.ref.to_integral(m))}
+        _timed(c, lambda: ti.to_integral(m), lambda: ti.ref.to_integral(m), None,
+               10 if m.numel() >= APP_I32_N else 50)
+        c["bound_ms"], c["bound_by"] = bound(m.numel() + 4 * shape[0], m.numel(),
+                                             torch.int32)
+        cases.append(c)
+    if not torch.equal(ti.to_integral(full).view(torch.int32),
+                       torch.full((4,), -1, dtype=torch.int32, device=dev)):
+        raise AssertionError("to_integral: 32 set lanes are not 0xFFFFFFFF")
+    return cases
+
+
+def softmax_cases(dev) -> list[dict]:
+    """Phase 1, softmax: vocabulary rows ((8, 152064) bf16, the main case:
+    wider than one block, online max/sum) with -inf lanes, the same in f32
+    and with a row of only -inf (NaN, as the plain version gives), flat
+    rows (unit logits: no entry dominates, so a fault in the small entries
+    or the tail block shows against ATOL/d), rows that
+    fit one block ((4096, 1024) f32, (64, 512) bf16), the generated suite's
+    shapes, and widths 1, 31, 33 and 2^20 + 7."""
+    import torch
+
+    from repro_torch.kernels.softmax import ops as sm
+
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    def rand(shape, dtype, neg_inf=False, dead_row=False, scale=4.0):
+        x = torch.randn(shape, generator=g, device=dev).mul_(scale)
+        if neg_inf:
+            x[:, ::7] = float("-inf")
+            x[0, : shape[1] // 2] = float("-inf")
+        if dead_row:
+            x[1] = float("-inf")
+        return x.to(dtype)
+
+    specs = [(rand((8, VOCAB_ROW), torch.bfloat16, neg_inf=True), True),
+             (rand((8, VOCAB_ROW), torch.float32, neg_inf=True), False),
+             (rand((8, VOCAB_ROW), torch.float32, dead_row=True), False),
+             (rand((8, VOCAB_ROW), torch.bfloat16, neg_inf=True, scale=1.0), False),
+             (rand((8, VOCAB_ROW), torch.float32, scale=1.0), False),
+             (rand((4096, 1024), torch.float32), False),
+             (rand((64, 512), torch.bfloat16, neg_inf=True), False),
+             (rand((7, 33), torch.float32), False), (rand((4, 16), torch.bfloat16), False),
+             (rand((3, 9000), torch.float32, neg_inf=True), False)]
+    for d in EDGE_LENGTHS[1:]:
+        specs.append((rand((2, d), torch.float32), False))
+    cases = []
+    for x, main in specs:
+        shape = list(x.shape)
+        c = {"shape": shape, "dtype": str(x.dtype).removeprefix("torch."), "main": main,
+             **check_case("softmax", shape, sm.softmax(x), sm.ref.softmax(x), x.dtype,
+                          nan_ok=True, atol_scale=1 / shape[-1])}
+        _timed(c, lambda: sm.softmax(x), lambda: sm.ref.softmax(x),
+               lambda: torch.softmax(x, -1), 20)
+        c["bound_ms"], c["bound_by"] = bound(2 * x.numel() * x.element_size(),
+                                             5 * x.numel(), torch.float32)
+        cases.append(c)
+    return cases
+
+
 def counters() -> dict:
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.hadd.ops import hadd
     from repro_torch.kernels.paged.ops import paged_attention
+    from repro_torch.kernels.range_count.ops import range_count
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.softmax.ops import softmax
     from repro_torch.kernels.swiglu.ops import swiglu
+    from repro_torch.kernels.to_integral.ops import to_integral
 
     return {"rmsnorm": rmsnorm, "swiglu": swiglu, "flash_attention": flash_attention,
-            "paged_attention": paged_attention}
+            "paged_attention": paged_attention, "range_count": range_count, "hadd": hadd,
+            "to_integral": to_integral, "softmax": softmax}
 
 
 def read_counts() -> dict:
@@ -664,6 +940,92 @@ def paged_serve_phase(dev, params, gpu: str) -> dict:
     return out
 
 
+def app_phase(dev, gpu: str) -> dict:
+    """The paper's range-count app on the card: quickstart.main (the entry
+    point a user runs) on each APP_CASES data set and range, whose four
+    ways must give equal counts; the fused count of a prefix held against
+    the torch_cpu library's on the host; each way timed by CUDA events
+    (GiB/s of data against the 3.35 TB/s datasheet rate: Fig 10's generated
+    vs hand-written, no claim) and the composed way's peak memory."""
+    import torch
+
+    from repro_torch import tsl_api
+    from repro_torch.launch import quickstart
+
+    ops = tsl_api.ops(dev)
+    host_ops = tsl_api.ops("cpu")
+    out = []
+    for dtype, n, ranges in APP_CASES:
+        data = quickstart.make_data(n, dtype, dev, seed=0)
+        gib = data.numel() * data.element_size() / 2**30
+        for lo, hi in ranges:
+            result = quickstart.main(["--device", "cuda", "--n", str(n), "--dtype", dtype,
+                                      "--low", str(lo), "--high", str(hi), "--seed", "0"])
+            counts = result["counts"]
+            prefix = data[:APP_CHECK_N]
+            on_card = int(ops.range_count(prefix, lo, hi))
+            on_host = int(host_ops.range_count(prefix.cpu(), lo, hi))
+            if on_card != on_host:
+                raise AssertionError(f"app {dtype} [{lo}, {hi}]: card count {on_card} of "
+                                     f"the first {APP_CHECK_N} != host count {on_host}")
+            if len(set(counts.values())) != 1:
+                raise AssertionError(f"app {dtype} [{lo}, {hi}]: {counts}")
+            times = {}
+            for name, fn in quickstart.routes(ops).items():
+                times[name] = cuda_ms(lambda: fn(data, lo, hi), 5)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            quickstart.composed(ops, data, lo, hi)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+            row = {"dtype": dtype, "n": n, "low": lo, "high": hi,
+                   "count": counts["fused"], "counts": counts, "prefix_count": on_card,
+                   "ms": times,
+                   "gib_per_s": {k: gib / (t / 1e3) for k, t in times.items()},
+                   "share_of_3_35_tb_s": {k: n * data.element_size() / (t / 1e3) / 3.35e12
+                                          for k, t in times.items()},
+                   "composed_peak_gib_beyond_data": peak}
+            print(f"[app] {dtype} n={n} [{lo}, {hi}] on {gpu}: {json.dumps(row)}",
+                  flush=True)
+            out.append(row)
+        del data
+        torch.cuda.empty_cache()
+    return {"cases": out}
+
+
+def suite_phase(gpu: str) -> dict:
+    """The h100 library generated with its tests (paper §4.1), every
+    generated test function run on the card in the file's (topological)
+    order. Any failure fails the phase, after all have run."""
+    import warnings
+
+    from repro_torch.core import GenConfig, generate_library, load_library
+
+    pkg_dir, _ = generate_library(GenConfig(target="h100"))
+    lib = load_library("h100")
+    if Path(lib.__file__).parent != pkg_dir:
+        raise AssertionError(f"loaded {lib.__file__}, generated {pkg_dir}")
+    mod = importlib.import_module(lib.__name__ + ".tests.test_generated")
+    names = [n for n in vars(mod) if n.startswith("test_")]     # file order
+    failed = {}
+    t0 = time.perf_counter()
+    for name in names:
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")     # "unsafe test" warnings
+                getattr(mod, name)()
+        except Exception as e:  # noqa: BLE001 - counted, then raised below
+            failed[name] = f"{type(e).__name__}: {e}"[:300]
+    out = {"package": lib.__name__, "tests": len(names), "passed": len(names) - len(failed),
+           "failed": len(failed), "seconds": time.perf_counter() - t0}
+    print(f"[suite] generated h100 tests on {gpu}: {json.dumps(out)}", flush=True)
+    if failed or not names:
+        raise AssertionError(f"generated h100 suite: {len(failed)} of {len(names)} "
+                             f"failed: {json.dumps(failed)[:3000]}")
+    return out
+
+
 def _host_top_functions(fn, n: int = 10) -> dict:
     """Host time by Python function over PROFILE_STEPS calls, ms per call:
     the top ``n`` by cProfile self time and by cumulative time (where a
@@ -792,13 +1154,25 @@ def main() -> int:
     serve = serve_phase(gpu)
     counts = read_counts()
     paged = paged_serve_phase(dev, params, gpu)
+    for fn in counters().values():
+        fn.launches = 0
+    app = app_phase(dev, gpu)
+    app["launches"] = read_counts()
+    for fn in counters().values():
+        fn.launches = 0
+    suite = suite_phase(gpu)
+    suite["launches"] = read_counts()
+    path_of = {"paged_attention": paged["launches"], "range_count": app["launches"],
+               "hadd": app["launches"], "to_integral": app["launches"],
+               "softmax": suite["launches"]}
     for row in kernels:
-        path = paged["launches"] if row["name"] == "paged_attention" else counts
-        row["launches"] = path[row["name"]]
+        row["launches"] = path_of.get(row["name"], counts)[row["name"]]
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} never launched on its main path")
     profile_phase(dev, lm, params, gpu)
-    print(f"[done] main-path launches {counts}, paged path {paged['launches']}; per prefill "
+    print(f"[done] main-path launches {counts}, paged path {paged['launches']}, app "
+          f"{app['launches']}, generated suite {suite['launches']} "
+          f"({suite['passed']}/{suite['tests']} passed); per prefill "
           f"{model['prefill_launches']}, per decode step {model['decode_step_launches']}, "
           f"per prefill chunk {model['prefill_chunk_launches']}; "
           f"serve decode_tokens_per_s {serve['decode_tokens_per_s']:.1f} ttft_s_mean "

@@ -28,6 +28,7 @@ import json
 import os
 import shutil
 import tempfile
+import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Iterable
@@ -70,6 +71,7 @@ def variant_digest(config) -> str:
     beyond (corpus, target, hardware)."""
     h = hashlib.sha256(repr((
         sorted(config.only) if config.only else None, config.package_name,
+        config.emit_tests,
     )).encode())
     return h.hexdigest()[:8]
 
@@ -111,7 +113,9 @@ class ArtifactCache:
                 out.write_text(f.content)
             (stage / "_cache_key.json").write_text(
                 json.dumps(key.as_dict(), indent=1))
-            (stage / "_manifest.json").write_text("{}")
+            if not (stage / "_manifest.json").exists():
+                raise ValueError(f"{name}: the file set holds no _manifest.json "
+                                 f"(the commit stamp)")
             try:
                 os.rename(stage, pkg_dir)
             except OSError:
@@ -121,3 +125,33 @@ class ArtifactCache:
         finally:
             shutil.rmtree(stage, ignore_errors=True)
         return pkg_dir
+
+    # -- maintenance (``python -m repro_torch.core cache ...``) ---------------
+
+    def packages(self) -> list[Path]:
+        """Committed package directories under the root."""
+        if not self.package_root.is_dir():
+            return []
+        return sorted(d for d in self.package_root.iterdir()
+                      if not d.name.startswith(".") and self.lookup(d.name) is not None)
+
+    def stats(self) -> dict:
+        pkgs = self.packages()
+        size = sum(f.stat().st_size for d in pkgs for f in d.rglob("*") if f.is_file())
+        return {"root": str(self.root), "packages": len(pkgs), "bytes": size}
+
+    def clear(self) -> int:
+        """Remove every committed package; returns how many."""
+        pkgs = self.packages()
+        for d in pkgs:
+            shutil.rmtree(d, ignore_errors=True)
+        return len(pkgs)
+
+    def gc(self, max_age_days: float) -> int:
+        """Remove packages committed more than ``max_age_days`` ago."""
+        cutoff = time.time() - max_age_days * 86400.0
+        old = [d for d in self.packages()
+               if (d / "_manifest.json").stat().st_mtime < cutoff]
+        for d in old:
+            shutil.rmtree(d, ignore_errors=True)
+        return len(old)

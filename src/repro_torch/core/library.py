@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+import json
 import shutil
 import sys
 from pathlib import Path
@@ -24,7 +25,7 @@ from types import ModuleType
 from . import loader
 from .cache import GENERATOR_VERSION, ArtifactCache, CacheKey, variant_digest
 from .corpus import load_corpus
-from .model import CorpusIR, GenConfig, GenerationResult
+from .model import CorpusIR, GenConfig, GeneratedFile, GenerationResult
 from .pipeline import core_pipeline
 
 DEFAULT_BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "tsl_torch"
@@ -81,13 +82,44 @@ def generate_library(config: GenConfig, build_root: Path | None = None,
     run_cfg = dataclasses.replace(config, package_name=pkg,
                                   build_root=str(build_root))
     result = core_pipeline(run_cfg).run(run_cfg, corpus=corpus)
-    return store.commit(pkg, key, result.files), result
+    return store.commit(pkg, key, [*result.files, manifest(result)]), result
+
+
+def manifest(result: GenerationResult) -> GeneratedFile:
+    """``_manifest.json``: selection provenance per (primitive, ctype), the
+    file list, hardware flags, fingerprint and warnings — the manifest the
+    reference's build-generation GPO writes (the rest of that GPO is not
+    ported). Its presence stamps the package as committed."""
+    cfg = result.config
+    doc = {
+        "generator": "TSLGen (PyTorch port)",
+        "target": cfg.target,
+        "package": cfg.package_name,
+        "fingerprint": result.meta.get("fingerprint", ""),
+        "hardware_flags": result.meta.get("hardware_flags", []),
+        "cherry_picked": sorted(cfg.only) if cfg.only else None,
+        "files": sorted(f.relpath for f in result.files),
+        "n_generated_tests": result.meta.get("n_generated_tests", 0),
+        "primitives": {
+            name: {
+                ctype: {"score": sel.score, "loc": sel.impl.loc,
+                        "is_native": sel.impl.is_native, "candidates": sel.candidates,
+                        "selected_by": sel.reason, "required_flags": list(sel.impl.flags)}
+                for ctype, sel in sorted(sels.items())
+            }
+            for name, sels in sorted(result.selection.items())
+        },
+        "warnings": list(result.warnings),
+    }
+    return GeneratedFile(relpath="_manifest.json", content=json.dumps(doc, indent=1),
+                         kind="build")
 
 
 def generate_all(targets: tuple[str, ...] | list[str] | None = None,
                  build_root: Path | None = None, *, force: bool = False,
                  corpus: CorpusIR | None = None,
-                 upd_paths: tuple[str, ...] = ()) -> dict[str, Path]:
+                 upd_paths: tuple[str, ...] = (),
+                 only: tuple[str, ...] | None = None) -> dict[str, Path]:
     """Generate libraries for several targets off ONE shared corpus
     (``targets=None``: every target the corpus defines). Cross-generation
     for a target this host cannot run (``h100`` on a CPU host) only renders
@@ -97,7 +129,7 @@ def generate_all(targets: tuple[str, ...] | list[str] | None = None,
     names = list(targets) if targets is not None else sorted(corpus.targets)
     out: dict[str, Path] = {}
     for name in names:
-        cfg = GenConfig(target=name, upd_paths=tuple(upd_paths))
+        cfg = GenConfig(target=name, upd_paths=tuple(upd_paths), only=only)
         out[name], _ = generate_library(cfg, build_root, force=force,
                                         corpus=corpus)
     return out

@@ -44,6 +44,7 @@ class TargetDef:
     hbm_bw: float                       # bytes/s
     ici_bw: float                       # bytes/s per link (NVLink, each way)
     ici_links: int
+    device: str                         # torch device its tensors are created on
     interpret: bool = False             # kept for schema parity; unused
     runs_on_host: bool = True           # can impls execute in this process?
     dtype_map: dict[str, str] = field(default_factory=dict)   # ctype -> short name (paper: Neon naming scheme)
@@ -224,7 +225,7 @@ class CorpusIR:
 @dataclass
 class GenerationResult:
     """Per-target mutable state flowing through the *target* pipeline
-    (select → generate).
+    (select → generate → testgen).
 
     The corpus half (``corpus``) is immutable and shared; everything mutable
     here is specific to one (target, config) generation run."""
@@ -261,5 +262,6 @@ class GenConfig:
     hardware_flags: tuple[str, ...] | None = None   # override probed flags (paper: --targets)
     only: tuple[str, ...] | None = None  # cherry-picked primitive subset (paper §1 "slim")
     package_name: str = "tsl_torch"
+    emit_tests: bool = True              # testgen GPO: <pkg>/tests/test_generated.py
     upd_paths: tuple[str, ...] = ()      # extra UPD search paths (extensibility studies)
     build_root: str | None = None        # artifact-cache root (None -> build/tsl_torch)

@@ -11,7 +11,7 @@ Since the incremental-engine refactor the GPOs are split into two phases:
 * **corpus phase** (``corpus.CorpusPipeline``): template-check + validate,
   target-agnostic, run ONCE per UPD fingerprint, producing an immutable
   :class:`~.model.CorpusIR`.
-* **target phase** (:class:`Pipeline` here): select → generate, run once
+* **target phase** (:class:`Pipeline` here): select → generate (→ testgen), run once
   per (target, config) on a shared corpus, producing a
   :class:`~.model.GenerationResult`.
 """
@@ -107,10 +107,15 @@ class Pipeline(OperatorList):
 
 
 def core_pipeline(config: GenConfig) -> Pipeline:
-    """The target-phase core (paper ①): select -> generate. The reference's
-    extension GPOs (bench selection, test/build/doc generation) are not part
-    of this port yet."""
+    """The target-phase core (paper ①): select -> generate, plus the
+    test-generation GPO when ``config.emit_tests``. The reference's other
+    extension GPOs (bench selection, build and doc generation) are not part
+    of this port."""
     from .generate import GenerateGPO
     from .select import SelectGPO
+    from .testgen import TestGenGPO
 
-    return Pipeline([SelectGPO(), GenerateGPO()])
+    pipe = Pipeline([SelectGPO(), GenerateGPO()])
+    if config.emit_tests:
+        pipe.append(TestGenGPO())
+    return pipe

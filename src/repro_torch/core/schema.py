@@ -231,6 +231,10 @@ TARGET_SCHEMA = Schema(
         Entry("ici_links", "int", default=0),
         Entry("interpret", "bool", default=False),
         Entry("runs_on_host", "bool", default=True),
+        # torch device the target's tensors live on: load/set/set1 create
+        # their tensors there, generated tests too. No default: a card
+        # target that left it out would build host tensors unnoticed
+        Entry("device", "str", mandatory=True, choices=("cpu", "cuda")),
         Entry("dtype_map", "dict", default={}),
         Entry("description", "str", default=""),
     ),

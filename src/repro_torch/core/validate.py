@@ -56,6 +56,7 @@ class ValidateGPO:
                 ici_links=doc["ici_links"],
                 interpret=doc["interpret"],
                 runs_on_host=doc["runs_on_host"],
+                device=doc["device"],
                 dtype_map=doc["dtype_map"],
                 description=doc["description"],
                 extra=extra,

@@ -12,6 +12,7 @@ with the compiler's output; nothing falls back to a plain version."""
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -40,6 +41,16 @@ def cdiv(a: int, b: int) -> int:
 
 def next_power_of_2(n: int) -> int:
     return 1 << max(0, int(n) - 1).bit_length()
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of ``device`` (asked once per card)."""
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
 
 
 def check_cuda_tensor(t: torch.Tensor, name: str, dtypes: tuple) -> None:

@@ -8,15 +8,22 @@ The paged cases draw their tables as permutations of the pool with the
 scratch page (0) padding each row past its coverage.
 
 Tolerance: bf16 |kernel - plain| <= 1e-2 + 1e-2 |plain| (one bf16 rounding
-step where f32 sums round differently); f32 1e-4 + 1e-4 |plain|."""
+step where f32 sums round differently); f32 1e-4 + 1e-4 |plain|. Softmax
+compares d·softmax on rows of width d (mean 1), so its absolute term is
+1e-2/d (bf16) or 1e-4/d (f32) of a probability. Counts, int32 sums and
+packed words are integers: equal, bit for bit."""
 
 import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.hadd import ops as ha
 from repro_torch.kernels.paged import ops as pa
+from repro_torch.kernels.range_count import ops as rc
 from repro_torch.kernels.rmsnorm import ops as rn
+from repro_torch.kernels.softmax import ops as sm
 from repro_torch.kernels.swiglu import ops as sw
+from repro_torch.kernels.to_integral import ops as ti
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
@@ -37,10 +44,13 @@ def _draws(dev, dtype, seed=0):
     return lambda *shape: torch.randn(*shape, generator=g, device=dev).to(dtype)
 
 
-def _check(got, want, dtype):
+def _check(got, want, dtype, row_width=1):
+    """|got - want| <= tol + tol |want|, both multiplied by ``row_width``
+    first (softmax passes d, so the absolute term is tol/d)."""
     torch.cuda.synchronize()
     tol = TOL[dtype]
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(got.float() * row_width, want.float() * row_width,
+                               atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -155,3 +165,130 @@ def test_paged_attention_rejects_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="head dim"):
         pa.paged_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
                            v[..., :32].contiguous(), tables, kv_len)
+
+
+EDGE_LENGTHS = [0, 1, 31, 33, (1 << 20) + 7]
+
+
+def _equal(got, want):
+    torch.cuda.synchronize()
+    g, w = (t.view(torch.int32) if t.dtype == torch.uint32 else t for t in (got, want))
+    assert g.shape == w.shape and g.dtype == w.dtype
+    assert torch.equal(g, w), (g.long() - w.long()).abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("n", EDGE_LENGTHS + [1 << 24])
+@pytest.mark.parametrize("lo,hi", [(10, 40), (5.5, 7.9), (5, 7.9), (-1.0, 200.0)])
+def test_range_count_kernel(dev, n, dtype, lo, hi):
+    g = torch.Generator(device=dev).manual_seed(n)
+    data = torch.randint(0, 100, (n,), generator=g, device=dev, dtype=torch.int32).to(dtype)
+    before = rc.range_count.launches
+    _equal(rc.range_count(data, lo, hi), rc.ref.range_count(data, lo, hi))
+    assert rc.range_count.launches == before + (n > 0)
+
+
+def test_range_count_kernel_off_alignment_nan_and_shape(dev):
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.rand(4099, generator=g, device=dev) * 20
+    x[::5] = float("nan")
+    for view in (x[1:], x[2:-1], x[3:], x.view(1, 4099)[:, 1:].reshape(-1)):
+        _equal(rc.range_count(view, 2.0, 9.0), rc.ref.range_count(view, 2.0, 9.0))
+    m = x.view(1, 4099)[:, :4096].reshape(64, 64)
+    _equal(rc.range_count(m, 2.0, 9.0), rc.ref.range_count(m, 2.0, 9.0))
+    with pytest.raises(TypeError, match="dtype"):
+        rc.range_count(x.to(torch.bfloat16), 2.0, 9.0)
+    with pytest.raises(ValueError, match="int32 range"):
+        rc.range_count(x.int(), 0, 2**40)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+@pytest.mark.parametrize("shape", [(64, 512), (1 << 20,), (3, 5001), (2, 3, 33)]
+                         + [(3, n) for n in EDGE_LENGTHS])
+def test_hadd_kernel(dev, shape, dtype):
+    g = torch.Generator(device=dev).manual_seed(len(shape))
+    if dtype == torch.int32:
+        x = torch.randint(-1000, 1000, shape, generator=g, device=dev, dtype=dtype)
+    else:
+        x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    before = ha.hadd.launches
+    got, want = ha.hadd(x), ha.ref.hadd(x)
+    assert got.shape == want.shape == shape[:-1]
+    if dtype == torch.int32:
+        _equal(got, want)
+    else:
+        _check(got, want, dtype)
+    assert ha.hadd.launches == before + (shape[-1] > 0)
+
+
+def test_hadd_kernel_int32_exact_past_2_24_and_wraps(dev):
+    x = torch.full(((1 << 25) + 3,), 3, dtype=torch.int32, device=dev)   # 3 * 2^25 > 2^24
+    _equal(ha.hadd(x), ha.ref.hadd(x))
+    assert int(ha.hadd(x)) == 3 * ((1 << 25) + 3)
+    w = torch.full((5000,), 1 << 20, dtype=torch.int32, device=dev)      # wraps past 2^31
+    _equal(ha.hadd(w), ha.ref.hadd(w))
+
+
+@pytest.mark.parametrize("rows,n", [(1, 32), (31, 32), (33, 32), ((1 << 20) + 7, 32),
+                                    (7, 1), (7, 31), (0, 32), (5, 11)])
+@pytest.mark.parametrize("dtype", [torch.bool, torch.uint8])
+def test_to_integral_kernel(dev, rows, n, dtype):
+    g = torch.Generator(device=dev).manual_seed(rows)
+    m = (torch.rand((rows, n), generator=g, device=dev) > 0.5).to(dtype)
+    before = ti.to_integral.launches
+    _equal(ti.to_integral(m), ti.ref.to_integral(m))
+    assert ti.to_integral.launches == before + (rows > 0)
+
+
+def test_to_integral_kernel_bit_31(dev):
+    m = torch.zeros((3, 32), dtype=torch.bool, device=dev)
+    m[0] = True
+    m[1, 31] = True
+    got = ti.to_integral(m)
+    assert got.dtype == torch.uint32
+    want = torch.tensor([-1, -(1 << 31), 0], dtype=torch.int32, device=dev)
+    _equal(got.view(torch.int32), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 152064), (4096, 1024), (64, 512), (7, 33), (3, 9000),
+                                   (2, 1), (2, 31), (2, 33), (2, (1 << 20) + 7)])
+@pytest.mark.parametrize("scale", [4.0, 1.0])   # 1: flat rows, no entry dominates
+def test_softmax_kernel(dev, shape, dtype, scale):
+    g = torch.Generator(device=dev).manual_seed(shape[1])
+    x = (torch.randn(shape, generator=g, device=dev) * scale)
+    x[:, 1::7] = float("-inf")               # -inf lanes weigh 0
+    x[0, : shape[1] // 2] = float("-inf")    # a first block of only -inf
+    x = x.to(dtype)
+    before = sm.softmax.launches
+    got, want = sm.softmax(x), sm.ref.softmax(x)
+    assert sm.softmax.launches == before + 1
+    _check(got, want, dtype, row_width=shape[1])
+
+
+def test_softmax_kernel_row_of_only_neg_inf_is_nan(dev):
+    for d in (100, 9000):
+        x = torch.randn((3, d), device=dev)
+        x[1] = float("-inf")
+        got, want = sm.softmax(x), sm.ref.softmax(x)
+        torch.cuda.synchronize()
+        assert torch.isnan(got[1]).all() and torch.isnan(want[1]).all()
+        _check(got[[0, 2]], want[[0, 2]], torch.float32, row_width=d)
+
+
+def test_h100_library_creates_tensors_on_the_card_and_runs_the_app_there(dev):
+    """load / set / set1 of the h100 library give CUDA tensors (they gave
+    host tensors before the SRU's device was rendered into them), and the
+    app's four ways count on the card."""
+    import numpy as np
+
+    from repro_torch import tsl_api
+    from repro_torch.launch import quickstart
+
+    ops = tsl_api.ops(dev)
+    for t in (ops.load(np.ones(3, np.float32)), ops.set([1, 2], dtype="int32"),
+              ops.set1(7, (2, 3), dtype=torch.float32)):
+        assert t.device.type == "cuda"
+    data = quickstart.make_data(1 << 20, "float32", dev)
+    counts = quickstart.count_four_ways(ops, data, 5.0, 15.0)
+    assert counts["fused"] == int(rc.ref.range_count(data.cpu(), 5.0, 15.0))

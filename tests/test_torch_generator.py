@@ -26,11 +26,18 @@ from repro_torch.serve import upd_serve_defaults
 SLICE_PRIMITIVES = ("load", "set1", "embed_lookup", "cache_update", "matmul", "rmsnorm",
                     "layernorm", "rope_apply", "swiglu", "flash_attention",
                     "attention_prefill_chunk", "attention_decode", "cache_page_read",
-                    "cache_page_write", "attention_decode_paged")
+                    "cache_page_write", "attention_decode_paged",
+                    # the range-count app (Fig 8) and the suite's softmax
+                    "set", "select", "between_inclusive", "hadd", "to_integral",
+                    "range_count", "range_count_popcnt", "softmax")
 KERNEL_MODULES = {"rmsnorm": "repro_torch.kernels.rmsnorm.ops",
                   "swiglu": "repro_torch.kernels.swiglu.ops",
                   "flash_attention": "repro_torch.kernels.flash_attention.ops",
-                  "attention_decode_paged": "repro_torch.kernels.paged.ops"}
+                  "attention_decode_paged": "repro_torch.kernels.paged.ops",
+                  "range_count": "repro_torch.kernels.range_count.ops",
+                  "hadd": "repro_torch.kernels.hadd.ops",
+                  "to_integral": "repro_torch.kernels.to_integral.ops",
+                  "softmax": "repro_torch.kernels.softmax.ops"}
 ATOL = RTOL = 1e-5
 
 
@@ -51,7 +58,8 @@ def test_corpus_covers_the_slice_on_both_targets():
 def test_h100_selects_the_kernel_torch_cpu_the_plain_version(prim):
     h100 = _selection("h100").selection[prim]
     cpu = _selection("torch_cpu").selection[prim]
-    for ctype in ("float32", "bfloat16"):
+    assert set(h100) == set(cpu) and "float32" in h100
+    for ctype in h100:
         assert KERNEL_MODULES[prim] in h100[ctype].impl.helpers
         assert h100[ctype].impl.target_extension == "h100"
         assert "cuda" in h100[ctype].impl.flags
@@ -168,6 +176,21 @@ def _args(prim, rng):
     if prim == "cache_page_write":
         return (_rand(rng, 512, 3), _rand(rng, 3 * 64, 3),
                 np.asarray([256, 0, 128], np.int32)), {}
+    if prim == "set":
+        return ([1, 2, 3, 4],), {"dtype": "float32"}
+    if prim == "select":
+        return (rng.random((4, 8)) > 0.5, _rand(rng, 4, 8), _rand(rng, 4, 8)), {}
+    if prim == "between_inclusive":
+        return (_rand(rng, 64, lo=0, hi=20), np.full(64, 5, np.float32),
+                np.full(64, 15, np.float32)), {}
+    if prim == "hadd":
+        return (_rand(rng, 3, 20),), {}
+    if prim == "to_integral":
+        return (rng.random((9, 32)) > 0.5,), {}
+    if prim in ("range_count", "range_count_popcnt"):
+        return (_rand(rng, 517, lo=0, hi=100), 10.0, 40.0), {}
+    if prim == "softmax":
+        return (_rand(rng, 4, 16, lo=-4, hi=4),), {}
     if prim == "attention_decode_paged":
         tables = np.asarray([[3, 1, 0], [2, 4, 5]], np.int32)
         return (_rand(rng, 2, 4, 1, 8), _rand(rng, 2, 6, 8, 8), _rand(rng, 2, 6, 8, 8),

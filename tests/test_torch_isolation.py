@@ -107,7 +107,7 @@ def test_upd_bodies_and_generated_packages_import_neither():
         for d in prim.definitions:
             assert not _bad(_imports(d.helpers) | _imports(d.implementation)), prim.name
     for target, pkg in generate_all().items():
-        for f in pkg.glob("*.py"):
+        for f in pkg.rglob("*.py"):
             assert not _bad(_imports(f.read_text())), (target, f)
 
 
