@@ -58,6 +58,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    per step) and traced with torch.profiler (device busy time, kernel
    launches, the kernels that take the time). The device's idle share is
    1 - busy / wall.
+5. Train. qwen1.5-0.5b at full width (bf16 params, float32 AdamW moments),
+   batch 8 x 512 seeded random tokens, through Model.loss (remat) and
+   repro_torch.train.
+5a. The training kernels (flash forward with lse, dq, dk/dv) against their
+   plain versions at the train shape (8, 16, 512, 64) causal bf16, the GQA
+   case (2, 40 over 8 KV heads, 512, 128), a kv_len < Sk and an Sq > Sk case
+   (rows that see no key: lse and dq exactly 0) and float32, under the
+   scale-relative gates of repro_torch.gates; each timed beside its plain
+   version, its bound and its library yardstick (the forward:
+   aten._scaled_dot_product_flash_attention, which returns a logsumexp;
+   dq + dk/dv: the backward of F.scaled_dot_product_attention through
+   autograd, one number for the three gradients).
+5b. The loss and every parameter's gradient on one batch, through the h100
+   library (the kernels) and through the plain versions bound on the card
+   (torch_cpu library): losses within 5e-3 relative, every leaf's gradient
+   non-zero and within 5e-2 relative L2 of the plain path's.
+5c. make_train_step for 5 AdamW steps (lr 3e-4, no warmup) on that batch:
+   each step's loss, grad_norm, synchronised wall ms, device busy share
+   (torch.profiler) and peak memory; every loss finite and the fifth below
+   the first; the same 5 steps through the plain versions, each loss
+   within 5e-3 of the kernels'. Where the step's device time goes: the top
+   kernels, the three training kernels' share, the GEMMs' share and the
+   152064-wide cross-entropy's forward + backward (timed alone).
 
 The launch counters are set to 0 before phase 2 and read after phase 3:
 every kernel of that main path must have launched on it (flash attention in
@@ -65,8 +88,11 @@ Model.prefill, rmsnorm and swiglu in every layer of serving). They are set
 to 0 again just before phase 3b and read just after it for the paged path
 (paged attention, rmsnorm and swiglu), just before phase 3c and read just
 after it for the app path (range_count, hadd, to_integral), and just
-before phase 3d and read just after it for the suite (softmax). Launches
-made to compare a kernel with its plain version are not counted.
+before phase 3d and read just after it for the suite (softmax), and just
+before phase 5c and read just after it for training (flash forward with
+lse, dq, dk/dv: 48, 24 and 24 per step with remat; rmsnorm 4L + 1 and
+swiglu 2L per step). Launches made to compare a kernel with its plain
+version are not counted.
 
 Stdout ends with the card's name and power limit (nvidia-smi), one JSON line
 {"kernels": [...]}, and, last, {"ok": true, "device": {...}}.
@@ -125,6 +151,10 @@ EDGE = (1 << 20) + 7
 EDGE_LENGTHS = (0, 1, 31, 33, EDGE)
 VOCAB_ROW = 152064
 APP_CHECK_N = 1 << 20       # prefix also counted on the host (torch_cpu)
+# phase 5: the train batch, the steps and the optimizer (no warmup, so the
+# loss must fall on a batch it sees again)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 5
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=0)
 
 
 def gpu_line() -> str:
@@ -239,14 +269,16 @@ def kernel_phase(dev) -> list[dict]:
 
     t0 = time.perf_counter()
     # nvcc builds of the CUDA sources (cached by digest), one per source, at once
-    cuda = {"flash_attention": fa_kernel, "paged_attention": pa_kernel,
-            "range_count": rc_kernel, "hadd": ha_kernel, "to_integral": ti_kernel}
+    cuda = {"flash_attention": fa_kernel._fn, "flash_attention_bwd": fa_kernel._bwd_fns,
+            "paged_attention": pa_kernel._fn, "range_count": rc_kernel._fn,
+            "hadd": ha_kernel._fn, "to_integral": ti_kernel._fn}
     with ThreadPoolExecutor(len(cuda)) as pool:
-        list(pool.map(lambda k: k._fn(), cuda.values()))
+        list(pool.map(lambda build: build(), cuda.values()))
     print(f"[phase1] {', '.join(cuda)} built in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for name in cuda:
-        for log in sorted(KERNEL_BUILD_ROOT.glob(f"{name}_*/build.log")):
+        digest = "[0-9a-f]" * 12
+        for log in sorted(KERNEL_BUILD_ROOT.glob(f"{name}_{digest}/build.log")):
             regs = [ln.strip() for ln in log.read_text().splitlines()
                     if "registers" in ln or "spill" in ln]
             print(f"[phase1] ptxas {name}:", "; ".join(regs), flush=True)
@@ -641,7 +673,10 @@ def softmax_cases(dev) -> list[dict]:
 
 
 def counters() -> dict:
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         flash_attention_bwd_dkv,
+                                                         flash_attention_bwd_dq,
+                                                         flash_attention_fwd_lse)
     from repro_torch.kernels.hadd.ops import hadd
     from repro_torch.kernels.paged.ops import paged_attention
     from repro_torch.kernels.range_count.ops import range_count
@@ -652,7 +687,10 @@ def counters() -> dict:
 
     return {"rmsnorm": rmsnorm, "swiglu": swiglu, "flash_attention": flash_attention,
             "paged_attention": paged_attention, "range_count": range_count, "hadd": hadd,
-            "to_integral": to_integral, "softmax": softmax}
+            "to_integral": to_integral, "softmax": softmax,
+            "flash_attention_fwd_lse": flash_attention_fwd_lse,
+            "flash_attention_bwd_dq": flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": flash_attention_bwd_dkv}
 
 
 def read_counts() -> dict:
@@ -667,12 +705,13 @@ def model_phase(dev, gpu: str) -> tuple[dict, object, dict]:
 
     from repro_torch.configs import get_config
     from repro_torch.nn.model import build_model
+    from repro_torch.train.optimizer import tree_leaves
 
     cfg = get_config(ARCH)
     model = build_model(cfg, device=dev)
     assert model.lib.TARGET_NAME == "h100", model.lib.TARGET_NAME
     params = model.init(0)
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
     g = torch.Generator(device=dev).manual_seed(1)
     tokens = torch.randint(0, cfg.vocab, PREFILL_SHAPE, generator=g, device=dev)
     max_len = PREFILL_SHAPE[1] + DECODE_STEPS
@@ -822,14 +861,6 @@ def paged_model_check(dev, model, params) -> dict:
         raise AssertionError(f"fused paged decode argmax {out['argmax_kernel']} (kernel) "
                              f"vs {out['argmax_plain']} (plain)")
     return out
-
-
-def _leaves(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
-            yield from _leaves(v)
-        else:
-            yield v
 
 
 def serve_phase(gpu: str) -> dict:
@@ -1122,6 +1153,354 @@ def profile_phase(dev, model, params, gpu: str) -> dict:
         print(f"[phase4] {kind} on {gpu}: {json.dumps(r)}", flush=True)
     return out
 
+# (B, H, KH, Sq, Sk, D, dtype, causal, kv_len, main)
+TRAIN_FA_CASES = [
+    (8, 16, 16, 512, 512, 64, "bfloat16", True, None, True),     # the train step's shape
+    (2, 40, 8, 512, 512, 128, "bfloat16", True, None, False),    # GQA, qwen3-14b's heads
+    (2, 16, 16, 64, 320, 64, "bfloat16", True, 300, False),      # kv_len < Sk
+    (1, 8, 4, 200, 72, 64, "bfloat16", True, None, False),       # Sq > Sk: rows see no key
+    (2, 16, 16, 512, 512, 64, "float32", True, None, False),
+]
+
+
+def train_kernel_cases(dev) -> dict[str, list[dict]]:
+    """Phase 5a: the lse forward, dq and dk/dv kernels against their plain
+    versions (on the plain version's lse and delta, so each kernel sees the
+    same inputs as its plain version) under the card gates; each case timed
+    with its bound and library yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import gates
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    ref = fa.ref
+    g = torch.Generator(device=dev).manual_seed(20)
+    out = {"flash_attention_fwd_lse": [], "flash_attention_bwd_dq": [],
+           "flash_attention_bwd_dkv": []}
+    for b, h, kh, sq, sk, d, dt_name, causal, kv_len, main in TRAIN_FA_CASES:
+        dt = getattr(torch, dt_name)
+        gate = {"bfloat16": "card_bf16", "float32": "card_f32"}[dt_name]
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g, device=dev).to(dt)
+
+        q, k, v, do = rnd(b, h, sq, d), rnd(b, kh, sk, d), rnd(b, kh, sk, d), rnd(b, h, sq, d)
+        kw = dict(causal=causal, kv_len=kv_len)
+        seen = ref.visible(sq, sk, device=dev, **kw)
+        no_key = ~seen.any(-1)
+        pairs = int(seen.sum())                      # visible (row, key) pairs per head
+        shape = [b, h, kh, sq, sk, d]
+        base = {"shape": shape, "dtype": dt_name, "kv_len": kv_len, "main": main}
+        itemsize = q.element_size()
+        qbytes, kvbytes, rows = b * h * sq * d * itemsize, b * kh * sk * d * itemsize, b * h * sq
+
+        o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
+        o_r, lse_r = ref.attention_fwd_lse(q, k, v, **kw)
+        m = gates.check(o, o_r, gate, f"fwd_lse out {shape}")
+        lse_over = gates.check_lse(lse, lse_r, no_key, f"fwd_lse lse {shape}")
+        c = {**base, "rel": m["rel"], "worst_of_limit": m["worst"],
+             "lse_worst_of_limit": lse_over, "rows_without_key": int(no_key.sum()),
+             "max_abs_err": max((o.float() - o_r.float()).abs().max().item(),
+                                (lse - lse_r).abs().max().item())}
+        library = None
+        if sq == sk and kv_len is None and dt == torch.bfloat16:
+            ke, ve = (t.repeat_interleave(h // kh, 1) for t in (k, v))
+            library = lambda: torch.ops.aten._scaled_dot_product_flash_attention(  # noqa: E731
+                q, ke, ve, 0.0, causal)
+        _timed(c, lambda: fa.flash_attention_fwd_lse(q, k, v, **kw),
+               lambda: ref.attention_fwd_lse(q, k, v, **kw), library, 10)
+        if main:   # the same kernel's serving instantiation, which stores no lse
+            c["serving_forward_ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), 10)
+        c["bound_ms"], c["bound_by"] = bound(2 * qbytes + 2 * kvbytes + 4 * rows,
+                                             4 * b * h * pairs * d, dt)
+        out["flash_attention_fwd_lse"].append(c)
+
+        delta = (do.float() * o_r.float()).sum(-1)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse_r, delta, **kw)
+        dq_r = ref.attention_bwd_dq(q, k, v, do, lse_r, delta, **kw)
+        m = gates.check(dq, dq_r, gate, f"dq {shape}")
+        if bool((dq[:, :, no_key] != 0).any()):
+            raise AssertionError(f"dq {shape}: not 0 on a row that sees no key")
+        c = {**base, "rel": m["rel"], "worst_of_limit": m["worst"],
+             "max_abs_err": (dq.float() - dq_r.float()).abs().max().item()}
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse_r, delta, **kw)
+        dk_r, dv_r = ref.attention_bwd_dkv(q, k, v, do, lse_r, delta, **kw)
+        mk = gates.check(dk, dk_r, gate, f"dk {shape}")
+        mv = gates.check(dv, dv_r, gate, f"dv {shape}")
+        c2 = {**base, "rel": max(mk["rel"], mv["rel"]),
+              "worst_of_limit": max(mk["worst"], mv["worst"]),
+              "max_abs_err": max((dk - dk_r).abs().max().item(),
+                                 (dv - dv_r).abs().max().item())}
+        library = None
+        if kv_len is None and sq == sk:
+            qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+            o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                                   enable_gqa=h != kh)
+            library = lambda: torch.autograd.grad(o_lib, (qs, ks, vs), do,  # noqa: E731
+                                                  retain_graph=True)
+        _timed(c, lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse_r, delta, **kw),
+               lambda: ref.attention_bwd_dq(q, k, v, do, lse_r, delta, **kw), library, 10)
+        _timed(c2, lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse_r, delta, **kw),
+               lambda: ref.attention_bwd_dkv(q, k, v, do, lse_r, delta, **kw), None, 10)
+        c2["library_ms"] = c["library_ms"]
+        if library is not None:
+            c["note"] = c2["note"] = ("library: SDPA's whole backward (dq, dk and dv), "
+                                      "beside dq + dk/dv")
+        # bytes: q, k, v, dO once, lse and delta; dq out (dq) / f32 dk, dv per
+        # query head out (dk/dv). ops: 2 flops per MAC of S = QK^T and
+        # dP = dO V^T, then dq = dS K (dq) / dv = P^T dO and dk = dS^T Q (dk/dv)
+        c["bound_ms"], c["bound_by"] = bound(3 * qbytes + 2 * kvbytes + 8 * rows,
+                                             6 * b * h * pairs * d, dt)
+        c2["bound_ms"], c2["bound_by"] = bound(
+            2 * qbytes + 2 * kvbytes + 8 * rows + 2 * b * h * sk * d * 4,
+            8 * b * h * pairs * d, dt)
+        out["flash_attention_bwd_dq"].append(c)
+        out["flash_attention_bwd_dkv"].append(c2)
+        for name, cs in out.items():
+            x = cs[-1]
+            lib = "—" if x["library_ms"] is None else f"{x['library_ms']:.4f} ms"
+            print(f"[phase5a] {name} {shape} {dt_name} kv_len {kv_len}: rel {x['rel']:.3g} "
+                  f"worst {x['worst_of_limit']:.3g} of the {gate} limit, max abs err "
+                  f"{x['max_abs_err']:.3g}; kernel {x['ms']:.4f} ms plain "
+                  f"{x['plain_ms']:.4f} ms library {lib} bound {x['bound_ms']:.4f} ms "
+                  f"({x['bound_by']})" + (f"; serving instantiation (no lse) "
+                                          f"{x['serving_forward_ms']:.4f} ms"
+                                          if "serving_forward_ms" in x else ""), flush=True)
+        del q, k, v, do, o, o_r, dq, dq_r, dk, dk_r, dv, dv_r
+    out["plain_backward_ms"] = plain_backward_ms(dev)
+    return out
+
+
+def plain_backward_ms(dev) -> dict:
+    """The backward of rmsnorm and swiglu at the train step's shapes (8 x 512
+    rows of d_model 1024 and d_ff 2816, bf16): plain torch (autograd through
+    the plain version recomputed from the saved inputs) behind the Triton
+    forward, as the train step runs them."""
+    import torch
+
+    from repro_torch.kernels.rmsnorm import ops as rn
+    from repro_torch.kernels.swiglu import ops as sw
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    rows = TRAIN_BATCH * TRAIN_SEQ
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16).requires_grad_()
+
+    out = {}
+    for name, fn, args in (("rmsnorm", rn.rmsnorm, (rnd(rows, 1024), rnd(1024))),
+                           ("swiglu", sw.swiglu, (rnd(rows, 2816), rnd(rows, 2816)))):
+        y = fn(*args)
+        gy = torch.randn(y.shape, generator=g, device=dev).to(y.dtype)
+        out[name] = {"shape": list(args[0].shape),
+                     "ms": cuda_ms(lambda: torch.autograd.grad(y, args, gy, retain_graph=True),
+                                   20)}
+    print(f"[phase5a] plain-torch backward behind the Triton forward: {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def _train_batch(dev, vocab: int) -> dict:
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    seq = torch.randint(0, vocab, (TRAIN_BATCH, TRAIN_SEQ + 1), generator=g, device=dev)
+    return {"tokens": seq[:, :-1].contiguous(), "labels": seq[:, 1:].contiguous()}
+
+
+def _step_profile(fn) -> tuple[object, dict]:
+    """Run ``fn`` once under torch.profiler, tracing the device only (no
+    host op records, which would slow the host): its result, the
+    synchronised wall ms of that run, the device busy ms in it and their
+    ratio, and device time by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    return result, {"wall_ms_profiled": wall_ms, "device_busy_ms": busy,
+                    "device_busy_share": busy / wall_ms, "launches": len(kernels),
+                    "by_kernel_ms": by_name}     # busy 0: the profiler saw no device
+
+
+def train_phase(dev, gpu: str) -> dict:
+    """Phase 5: the training kernels (5a), full-width gradients through the
+    kernels vs the plain versions (5b), and 5 AdamW steps both ways (5c)."""
+    import torch
+
+    from repro_torch import gates
+    from repro_torch.configs import get_config
+    from repro_torch.nn.model import build_model
+    from repro_torch.train import (OptConfig, init_opt_state, init_train_state,
+                                   loss_and_grads, make_train_step)
+    from repro_torch.train.optimizer import tree_items, tree_map
+
+    t_phase = time.perf_counter()
+    cases = train_kernel_cases(dev)
+
+    cfg = get_config(ARCH)
+    model = build_model(cfg, device=dev)
+    plain = build_model(cfg, device=dev, target="torch_cpu")
+    assert model.lib.TARGET_NAME == "h100" and plain.lib.TARGET_NAME == "torch_cpu"
+    opt_cfg = OptConfig(**TRAIN_OPT)
+    state = init_train_state(model, opt_cfg, seed=0)
+    batch = _train_batch(dev, cfg.vocab)
+
+    # 5b: one batch, loss and every gradient both ways
+    loss_k, _, grads_k = loss_and_grads(model, state["params"], batch)
+    loss_p, _, grads_p = loss_and_grads(plain, state["params"], batch)
+    grads = {"loss_kernels": loss_k.item(), "loss_plain": loss_p.item(), "leaves": {}}
+    if abs(grads["loss_kernels"] - grads["loss_plain"]) > gates.LOSS_REL * grads["loss_plain"]:
+        raise AssertionError(f"full-width loss: kernels {grads['loss_kernels']} vs plain "
+                             f"{grads['loss_plain']}")
+    plain_grads, kernel_grads = dict(tree_items(grads_p)), dict(tree_items(grads_k))
+    for name, gk in kernel_grads.items():
+        gp = plain_grads[name]
+        if not bool((gk != 0).any()) or not bool((gp != 0).any()):
+            raise AssertionError(f"full-width grad {name}: all zeros (kernels "
+                                 f"{bool((gk != 0).any())}, plain {bool((gp != 0).any())})")
+        grads["leaves"][name] = gates.check(gk, gp, "full_width_bf16", f"grad {name}")["rel"]
+    # the same with float32 params (gate full_width_f32): no bf16 rounding
+    # carried through 24 layers to hide a fault in the kernels or their glue
+    f32_cfg = cfg.replace(dtype="float32")
+    f32_kernels = build_model(f32_cfg, device=dev)
+    f32_plain = build_model(f32_cfg, device=dev, target="torch_cpu")
+    params_f32 = tree_map(lambda t: t.float(), state["params"])
+    loss_f, _, grads_f = loss_and_grads(f32_plain, params_f32, batch)
+    loss_fk, _, grads_fk = loss_and_grads(f32_kernels, params_f32, batch)
+    grads.update(loss_f32_plain=loss_f.item(), loss_f32_kernels=loss_fk.item(),
+                 leaves_f32={})
+    if abs(loss_fk.item() - loss_f.item()) > gates.LOSS_REL_F32 * abs(loss_f.item()):
+        raise AssertionError(f"full-width float32 loss: kernels {loss_fk.item()} vs plain "
+                             f"{loss_f.item()}")
+    f32_plain_grads = dict(tree_items(grads_f))
+    for name, gk in tree_items(grads_fk):
+        if not bool((gk != 0).any()):
+            raise AssertionError(f"full-width float32 grad {name}: all zeros (kernels)")
+        grads["leaves_f32"][name] = gates.check(gk, f32_plain_grads[name], "full_width_f32",
+                                                f"float32 grad {name}")["rel"]
+    # information: how far each bf16 path is from the float32 plain path on
+    # the same params (the bf16 rounding both paths carry)
+    grads["vs_f32"] = {
+        name: {path: gates.measure(g, gf, "full_width_bf16")["rel"]
+               for path, g in (("kernels", kernel_grads[name]), ("plain", plain_grads[name]))}
+        for name, gf in f32_plain_grads.items()}
+    del grads_k, grads_p, plain_grads, kernel_grads, grads_f, grads_fk, f32_plain_grads, \
+        params_f32
+    worst_leaf = max(grads["leaves"], key=grads["leaves"].get)
+    worst_f32 = max(grads["leaves_f32"], key=grads["leaves_f32"].get)
+    print(f"[phase5b] {ARCH} loss kernels {grads['loss_kernels']:.6f} plain "
+          f"{grads['loss_plain']:.6f}; float32 kernels {grads['loss_f32_kernels']:.8f} plain "
+          f"{grads['loss_f32_plain']:.8f}; grad rel L2 per leaf, kernels vs plain, bf16 "
+          f"(gate 5e-2): {json.dumps(grads['leaves'])}; worst {worst_leaf}; float32 (gate "
+          f"1e-4): {json.dumps(grads['leaves_f32'])}; worst {worst_f32}; each bf16 path vs "
+          f"float32 plain (information): {json.dumps(grads['vs_f32'])}", flush=True)
+
+    # 5c: 5 AdamW steps through the kernels (counted), then through the plain versions
+    for fn in counters().values():
+        fn.launches = 0
+    step = make_train_step(model, opt_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps, s = [], state
+    for i in range(TRAIN_STEPS):
+        if i == TRAIN_STEPS - 1:           # one profiled step: where the device time goes
+            (s, metrics), prof = _step_profile(lambda: step(s, batch))
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s, metrics = step(s, batch)
+            torch.cuda.synchronize()
+            prof = {"wall_ms": (time.perf_counter() - t0) * 1e3}
+        steps.append({"loss": metrics["loss"].item(), "grad_norm": metrics["grad_norm"].item(),
+                      "lr": metrics["lr"], **prof})
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    launched = read_counts()
+    per_step = {k: n / TRAIN_STEPS for k, n in launched.items()}
+    want = {"flash_attention_fwd_lse": 2 * cfg.n_layers, "flash_attention_bwd_dq": cfg.n_layers,
+            "flash_attention_bwd_dkv": cfg.n_layers, "rmsnorm": 4 * cfg.n_layers + 1,
+            "swiglu": 2 * cfg.n_layers}
+    bad = {k: per_step[k] for k, n in want.items() if per_step[k] != n}
+    if bad:
+        raise AssertionError(f"launches per train step {bad}, want {want}")
+    losses = [x["loss"] for x in steps]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train losses {losses}: not finite, or not falling")
+    del s
+    s = state
+    plain_step = make_train_step(plain, opt_cfg)
+    plain_losses = []
+    for _ in range(TRAIN_STEPS):
+        s, metrics = plain_step(s, batch)
+        plain_losses.append(metrics["loss"].item())
+    for i, (a, p) in enumerate(zip(losses, plain_losses)):
+        if abs(a - p) > gates.LOSS_REL * abs(p):
+            raise AssertionError(f"train step {i + 1}: loss kernels {a} vs plain {p}")
+    # the same 5 steps with float32 params, both ways (LOSS_REL_F32)
+    params_f32 = tree_map(lambda t: t.float(), state["params"])
+    del s, state
+    curves_f32 = {}
+    for name, m in (("kernels", f32_kernels), ("plain", f32_plain)):
+        s = {"params": params_f32, "opt": init_opt_state(opt_cfg, params_f32)}
+        f32_step, curves_f32[name] = make_train_step(m, opt_cfg), []
+        for _ in range(TRAIN_STEPS):
+            s, metrics = f32_step(s, batch)
+            curves_f32[name].append(metrics["loss"].item())
+    del s, params_f32
+    for i, (a, p) in enumerate(zip(curves_f32["kernels"], curves_f32["plain"])):
+        if abs(a - p) > gates.LOSS_REL_F32 * abs(p):
+            raise AssertionError(f"float32 train step {i + 1}: loss kernels {a} vs plain {p}")
+
+    # where the profiled step's device time goes
+    prof = steps[-1]
+    by = prof.pop("by_kernel_ms")
+    share = {"flash_fwd_kernel": 0.0, "flash_bwd_dq_kernel": 0.0,
+             "flash_bwd_dkv_kernel": 0.0, "gemm": 0.0}
+    for name, ms in by.items():
+        low = name.lower()
+        key = next((k for k in share if k in name), None)
+        if key is None and any(t in low for t in ("gemm", "cutlass", "xmma", "cublas",
+                                                  "nvjet")):
+            key = "gemm"
+        if key is not None:
+            share[key] += ms
+    busy = prof["device_busy_ms"]
+    logits = torch.randn(TRAIN_BATCH * TRAIN_SEQ, cfg.padded_vocab, device=dev,
+                         dtype=torch.bfloat16, requires_grad=True)
+    labels = batch["labels"].reshape(-1)
+
+    def xent():
+        loss = model.tsl.cross_entropy(logits, labels).mean()
+        torch.autograd.grad(loss, logits)
+
+    where = {"top_kernels_ms": dict(sorted(by.items(), key=lambda kv: -kv[1])[:12]),
+             "share_of_busy": ({k: v / busy for k, v in share.items()} if busy > 0 else
+                               "not measured (the profiler recorded no device time)"),
+             "ms": share, "cross_entropy_fwd_bwd_ms": cuda_ms(xent, 5)}
+    if busy > 0:
+        where["cross_entropy_share_of_busy"] = where["cross_entropy_fwd_bwd_ms"] / busy
+    del logits
+    out = {"kernel_cases": cases, "grads": grads, "steps": steps, "plain_losses": plain_losses,
+           "losses_f32": curves_f32, "peak_gib": peak_gib, "launches": launched,
+           "launches_per_step": per_step, "where": where, "seconds": time.perf_counter() - t_phase}
+    print(f"[phase5c] {ARCH} train {TRAIN_BATCH}x{TRAIN_SEQ} bf16 AdamW {TRAIN_OPT} on {gpu}: "
+          f"steps {json.dumps(steps)}; plain losses {plain_losses}; float32 losses "
+          f"{json.dumps(curves_f32)}; peak "
+          f"{peak_gib:.2f} GiB; launches per step {per_step}; where the profiled step's "
+          f"device time goes {json.dumps(where)}; phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 
 def main() -> int:
     try:
@@ -1170,6 +1549,28 @@ def main() -> int:
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} never launched on its main path")
     profile_phase(dev, lm, params, gpu)
+    train = train_phase(dev, gpu)
+    sources = {"flash_attention_fwd_lse": ("flash_attention.cu", "kernel.py:197"),
+               "flash_attention_bwd_dq": ("flash_attention_bwd.cu", "kernel.py:300"),
+               "flash_attention_bwd_dkv": ("flash_attention_bwd.cu", "kernel.py:333")}
+    for name, (src, line) in sources.items():
+        cs = train["kernel_cases"][name]
+        top = next(c for c in cs if c["main"])
+        row = {"name": name, "route": "cuda",
+               "source": f"src/repro_torch/kernels/flash_attention/csrc/{src}",
+               "replaces": f"src/repro/kernels/flash_attention/{line}",
+               "launches": train["launches"][name],
+               "max_abs_err": max(c["max_abs_err"] for c in cs),
+               "tolerance_used": max(c["worst_of_limit"] for c in cs),
+               **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms", "shape")},
+               "cases": cs}
+        if row["launches"] <= 0:
+            raise AssertionError(f"{name} never launched on its main path")
+        kernels.append(row)
+    for row in kernels:
+        if row["name"] in train["kernel_cases"]["plain_backward_ms"]:
+            row["plain_backward_ms"] = train["kernel_cases"]["plain_backward_ms"][row["name"]]
     print(f"[done] main-path launches {counts}, paged path {paged['launches']}, app "
           f"{app['launches']}, generated suite {suite['launches']} "
           f"({suite['passed']}/{suite['tests']} passed); per prefill "
@@ -1177,8 +1578,10 @@ def main() -> int:
           f"per prefill chunk {model['prefill_chunk_launches']}; "
           f"serve decode_tokens_per_s {serve['decode_tokens_per_s']:.1f} ttft_s_mean "
           f"{serve['ttft_s_mean']:.3f}, paged serve decode_tokens_per_s "
-          f"{paged['decode_tokens_per_s']:.1f} ttft_s_mean {paged['ttft_s_mean']:.3f} "
-          f"on {gpu}; total {time.perf_counter() - t_start:.1f} s",
+          f"{paged['decode_tokens_per_s']:.1f} ttft_s_mean {paged['ttft_s_mean']:.3f}, "
+          f"train launches {train['launches']}, train losses "
+          f"{[x['loss'] for x in train['steps']]} on {gpu}; total "
+          f"{time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(gpu)
     print(json.dumps({"kernels": kernels}))

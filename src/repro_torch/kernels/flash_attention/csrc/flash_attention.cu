@@ -1,7 +1,14 @@
 // Flash-attention forward for Hopper (sm_90a), written by hand in CUDA C++.
 //
 // Replaces repro/kernels/flash_attention/kernel.py:flash_attention_4d
-// (_fa_call / _flash_kernel), the Pallas TPU online-softmax kernel.
+// (_fa_call / _flash_kernel), the Pallas TPU online-softmax kernel, and,
+// with a non-null lse, flash_attention_fwd_4d (the same kernel with
+// emit_lse): the training forward that also writes the (B,H,Sq) f32
+// logsumexp m + log(l) the backward kernels (flash_attention_bwd.cu)
+// recompute the probabilities from, 0 on a row that sees no key (so the
+// backward's p = exp(s - lse) is 0 there, never NaN). The lse store is a
+// template flag (LSE): serving passes a null lse and runs the instantiation
+// without it, compiled as before the training slice.
 //
 // Contract (the same as the Pallas kernel and ref.attention):
 //   q (B,H,Sq,D), k/v (B,KH,Sk,D), contiguous; query head h reads KV head
@@ -57,12 +64,12 @@ constexpr size_t smem_bytes() {
          (TILE * D + TILE * (D + 1) + TILE * D + TILE * (TILE + 1) + 3 * TILE);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool LSE>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H, int KH,
-                 int Sq, int Sk, int kv_len, int q_offset, int causal,
-                 float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int H, int KH, int Sq, int Sk,
+                 int kv_len, int q_offset, int causal, float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;                        // [TILE][D]
   float* Ks = Qs + TILE * D;               // [TILE][D + 1]
@@ -178,44 +185,50 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       ob[static_cast<size_t>(qr) * D + e % D] = from_f32<T>(l > 0.f ? acc[j] / l : 0.f);
     }
   }
+  if (LSE && tid < TILE && q0 + tid < Sq) {
+    const float l = row_l[tid];
+    lse[(static_cast<size_t>(b) * H + h) * Sq + q0 + tid] =
+        l > 0.f ? row_m[tid] + logf(l) : 0.f;
+  }
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int H, int KH, int Sq, int Sk, int kv_len, int q_offset,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                   int B, int H, int KH, int Sq, int Sk, int kv_len, int q_offset,
                    int causal, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  auto kern = flash_fwd_kernel<T, D>;
+  auto kern = lse != nullptr ? flash_fwd_kernel<T, D, true> : flash_fwd_kernel<T, D, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + TILE - 1) / TILE, H, B);
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, KH, Sq, Sk, kv_len, q_offset, causal, scale);
+      static_cast<T*>(o), lse, H, KH, Sq, Sk, kv_len, q_offset, causal, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// Returns a cudaError_t (0 on success); the launch does not synchronise.
+// C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16; lse is
+// a (B,H,Sq) float32 output or null. Returns a cudaError_t (0 on success);
+// the launch does not synchronise.
 extern "C" int tsl_flash_attention_fwd(const void* q, const void* k, const void* v,
-                                       void* o, int B, int H, int KH, int Sq,
+                                       void* o, float* lse, int B, int H, int KH, int Sq,
                                        int Sk, int D, int kv_len, int q_offset,
                                        int causal, float scale, int dtype,
                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (H <= 0 || KH <= 0 || H % KH != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, o, B, H, KH, Sq, Sk, kv_len, q_offset, causal, scale, s);
+    return launch<float, 64>(q, k, v, o, lse, B, H, KH, Sq, Sk, kv_len, q_offset, causal, scale, s);
   if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, o, B, H, KH, Sq, Sk, kv_len, q_offset, causal, scale, s);
+    return launch<float, 128>(q, k, v, o, lse, B, H, KH, Sq, Sk, kv_len, q_offset, causal, scale, s);
   if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, B, H, KH, Sq, Sk, kv_len, q_offset, causal,
+    return launch<__nv_bfloat16, 64>(q, k, v, o, lse, B, H, KH, Sq, Sk, kv_len, q_offset, causal,
                                      scale, s);
   if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, B, H, KH, Sq, Sk, kv_len, q_offset, causal,
+    return launch<__nv_bfloat16, 128>(q, k, v, o, lse, B, H, KH, Sq, Sk, kv_len, q_offset, causal,
                                       scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,8 +1,16 @@
 """Plain PyTorch attention (mirrors ``repro/kernels/flash_attention/ref.py``):
 ``attention`` is the ``torch_cpu`` flash_attention definition and what the
-Hopper kernel is held against; ``attention_chunked`` and
+Hopper forward kernel is held against; ``attention_chunked`` and
 ``attention_decode`` are the prefill-chunk and decode primitives on both
 targets (jnp on every target in the JAX package too).
+
+``attention_fwd_lse``, ``attention_bwd_dq`` and ``attention_bwd_dkv`` are the
+plain versions of the training kernels (the forward that also returns the
+logsumexp, and the two recomputation backward kernels): the explicit
+formulas of the reference's Pallas kernels
+(``repro/kernels/flash_attention/kernel.py:208-297``), not torch autograd.
+``ops.FlashAttention`` runs them on CPU tensors, and the kernels are held
+against them on the card.
 """
 
 from __future__ import annotations
@@ -46,6 +54,77 @@ def attention(q, k, v, *, causal: bool = True, scale: float | None = None,
     o = torch.einsum("bhqk,bhkd->bhqd", p / l.clamp_min(1e-30), v.float())
     o = torch.where(m > -1e29, o, 0.0)
     return o.to(q.dtype)
+
+
+def visible(sq: int, sk: int, *, causal: bool, kv_len: int | None, device) -> torch.Tensor:
+    """(Sq, Sk) bool: row i sees key j iff j < kv_len (default Sk) and, when
+    causal, j <= i + kv_len - Sq (ends-aligned, as :func:`attention`)."""
+    end = sk if kv_len is None else kv_len
+    kj = torch.arange(sk, device=device)[None, :]
+    seen = kj < end
+    if causal:
+        seen = seen & (kj <= torch.arange(sq, device=device)[:, None] + (end - sq))
+    return seen.expand(sq, sk)
+
+
+def _per_query_head(t: torch.Tensor, h: int) -> torch.Tensor:
+    """k or v (B,KH,S,D) as float32 (B,H,S,D): KV head h // (H/KH) per query head."""
+    return (_expand_kv(t, h // t.shape[1]) if h != t.shape[1] else t).float()
+
+
+def _scale(scale, d: int) -> float:
+    return scale if scale is not None else 1.0 / (d ** 0.5)
+
+
+def _probs_and_ds(q, k, v, do, lse, delta, *, causal, scale, kv_len):
+    """f32 (B,H,Sq,Sk) p = exp(scale q.k - lse), exactly 0 where masked, and
+    ds = p (dO.v - delta)."""
+    h = q.shape[1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), _per_query_head(k, h)) * scale
+    seen = visible(q.shape[2], k.shape[2], causal=causal, kv_len=kv_len, device=q.device)
+    p = torch.where(seen, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), _per_query_head(v, h))
+    return p, p * (dp - delta[..., None])
+
+
+def attention_fwd_lse(q, k, v, *, causal: bool = True, scale: float | None = None,
+                      kv_len: int | None = None):
+    """:func:`attention` that also returns the (B,H,Sq) f32 logsumexp of the
+    masked scaled scores, m + log(l): 0 on a row that sees no key (whose
+    output is 0), as the reference kernel writes it (kernel.py:123-129)."""
+    h = q.shape[1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), _per_query_head(k, h)) \
+        * _scale(scale, q.shape[3])
+    seen = visible(q.shape[2], k.shape[2], causal=causal, kv_len=kv_len, device=q.device)
+    s = torch.where(seen, s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(seen, torch.exp(s - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bhqk,bhkd->bhqd", p / l.clamp_min(1e-30), _per_query_head(v, h))
+    o = torch.where(l > 0.0, o, 0.0)
+    lse = torch.where(l > 0.0, m + torch.log(l.clamp_min(1e-30)), 0.0)[..., 0]
+    return o.to(q.dtype), lse
+
+
+def attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
+                     scale: float | None = None, kv_len: int | None = None):
+    """dq = scale * sum_j p (dO.v_j - delta) k_j in q's dtype, from the
+    forward's (B,H,Sq) f32 ``lse`` and ``delta`` = rowsum(dO * O) in f32."""
+    sc = _scale(scale, q.shape[3])
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, causal=causal, scale=sc, kv_len=kv_len)
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, _per_query_head(k, q.shape[1]))
+            * sc).to(q.dtype)
+
+
+def attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
+                      scale: float | None = None, kv_len: int | None = None):
+    """f32 (dk, dv) per QUERY head, (B,H,Sk,D) each: dv = p^T dO and
+    dk = scale * ds^T q; the caller sums each head group onto its KV head."""
+    sc = _scale(scale, q.shape[3])
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal=causal, scale=sc, kv_len=kv_len)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * sc
+    return dk, dv
 
 
 def _kv_vector(kv_len, b: int, sk: int, device) -> torch.Tensor:

@@ -2,14 +2,18 @@
 
 Layer params stay stacked along a leading L axis — the reference's layout,
 so its params load 1:1 — and a Python loop over the layers replaces
-``lax.scan``. Decode and prefill-chunk write the KV cache state IN PLACE
-(see ``nn/attention.py``) and return it; the fused paged decode writes the
-page pools in place the same way.
+``lax.scan``. For training, ``lm_forward(..., remat=True)`` wraps each block
+in ``torch.utils.checkpoint`` as the reference wraps its scan body in
+``jax.checkpoint``: a block's activations are recomputed in the backward.
+Decode and prefill-chunk write the KV cache state IN PLACE (see
+``nn/attention.py``) and return it; the fused paged decode writes the page
+pools in place the same way.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .attention import (attention_decode, attention_forward, attention_prefill_chunk,
                         attention_span_paged, init_attention)
@@ -35,10 +39,14 @@ def lm_params(cfg, make):
     return params
 
 
-def layer_params(blocks: dict, i: int) -> dict:
-    """Layer ``i``'s slice of the stacked block params (views, no copy)."""
-    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+def unstack_layers(blocks: dict, n: int) -> list[dict]:
+    """Every layer's slice of the stacked block params (views, no copy),
+    one ``unbind`` per leaf: autograd then stacks the layers' gradients in
+    one op per leaf, where ``n`` separate slices would each add a zero-filled
+    (L, ...) gradient into the leaf's."""
+    cols = {k: unstack_layers(v, n) if isinstance(v, dict) else v.unbind(0)
             for k, v in blocks.items()}
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
 def _block_forward(tsl, bp, x, cfg, positions):
@@ -51,18 +59,23 @@ def _block_forward(tsl, bp, x, cfg, positions):
 
 
 def lm_forward(tsl, params, tokens, cfg, *, collect_cache: bool = False,
-               last_only: bool = False):
+               last_only: bool = False, remat: bool = False):
     """tokens (B,S) -> (logits (B,S,V), caches | None).
 
     ``collect_cache``: also return each layer's (k, v), (B,KH,S,hd).
     ``last_only``: logits for the final position only (prefill path —
-    avoids materializing the (B,S,V) tensor)."""
+    avoids materializing the (B,S,V) tensor).
+    ``remat``: recompute each block's activations in the backward
+    (``torch.utils.checkpoint``, non-reentrant) instead of keeping them."""
     x = tsl.embed_lookup(params["embed"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     kvs = []
-    for i in range(cfg.n_layers):
-        x, kv = _block_forward(tsl, layer_params(params["blocks"], i), x, cfg,
-                               positions)
+    for bp in unstack_layers(params["blocks"], cfg.n_layers):
+        if remat:
+            x, kv = checkpoint(_block_forward, tsl, bp, x, cfg, positions,
+                               use_reentrant=False)
+        else:
+            x, kv = _block_forward(tsl, bp, x, cfg, positions)
         if collect_cache:
             kvs.append(kv)
     x = apply_norm_params(tsl, cfg, params["final_norm"], x)
@@ -124,8 +137,7 @@ def lm_prefill_chunk(tsl, params, state, tokens, pos: int, cfg):
 
     Returns (logits (B, C, V), state)."""
     x = tsl.embed_lookup(params["embed"], tokens)
-    for i in range(cfg.n_layers):
-        bp = layer_params(params["blocks"], i)
+    for i, bp in enumerate(unstack_layers(params["blocks"], cfg.n_layers)):
         h, _, _ = attention_prefill_chunk(
             tsl, bp["attn"], apply_norm_params(tsl, cfg, bp["attn_norm"], x),
             state["k"][i], state["v"][i], pos, cfg)
@@ -141,8 +153,7 @@ def lm_decode_step(tsl, params, state, tokens_t, pos, cfg):
     indices (continuous batching — see attention_decode). Updates ``state``
     in place; returns (logits (B,V), state)."""
     x = tsl.embed_lookup(params["embed"], tokens_t)
-    for i in range(cfg.n_layers):
-        bp = layer_params(params["blocks"], i)
+    for i, bp in enumerate(unstack_layers(params["blocks"], cfg.n_layers)):
         h, _, _ = attention_decode(
             tsl, bp["attn"], apply_norm_params(tsl, cfg, bp["attn_norm"], x),
             state["k"][i], state["v"][i], pos, cfg)
@@ -161,8 +172,7 @@ def _lm_paged_span(tsl, params, pools, tables, tokens, pos, cfg, span_op):
     Returns (logits (B,C,V), pools)."""
     x = tsl.embed_lookup(params["embed"], tokens)
     kv_len = (pos + tokens.shape[1]).to(torch.int32)
-    for i in range(cfg.n_layers):
-        bp = layer_params(params["blocks"], i)
+    for i, bp in enumerate(unstack_layers(params["blocks"], cfg.n_layers)):
         h, _, _ = attention_span_paged(
             tsl, bp["attn"], apply_norm_params(tsl, cfg, bp["attn_norm"], x),
             pools["k"][i, 0], pools["v"][i, 0], tables, pos, cfg, span_op,

@@ -6,6 +6,10 @@ generated library for its device (``h100`` kernels on the card,
 
     init(seed) -> params                 (seeded torch.Generator on the device)
     forward_logits(params, batch) -> logits (B,S,V)
+    loss(params, batch, *, remat=True) -> (scalar, {"ce", "aux"})
+        (mean next-token cross-entropy of ``batch["labels"]`` plus 0.01·aux,
+         aux 0 for the dense family; differentiable: a train step makes the
+         params leaves that require grad, serving keeps inference mode)
     prefill(params, batch, max_len) -> (last_logits (B,V), state)
     prefill_chunk(params, state, tokens, pos) -> (logits (B,C,V), state)
         (continuation prefill of one chunk at cache fill ``pos``; trailing
@@ -77,6 +81,13 @@ class Model:
     def forward_logits(self, params, batch):
         logits, _ = lm.lm_forward(self.tsl, params, batch["tokens"], self.cfg)
         return logits
+
+    def loss(self, params, batch, *, remat: bool = True):
+        logits, _ = lm.lm_forward(self.tsl, params, batch["tokens"], self.cfg,
+                                  remat=remat)
+        ce = self.tsl.cross_entropy(logits, batch["labels"]).mean()
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     def prefill(self, params, batch, max_len: int):
         return lm.lm_prefill(self.tsl, params, batch["tokens"], self.cfg,

@@ -7,6 +7,14 @@ on the machine with the card:
 The paged cases draw their tables as permutations of the pool with the
 scratch page (0) padding each row past its coverage.
 
+The training kernels (flash forward with lse, dq, dk/dv) and the gradients
+of the rmsnorm / swiglu / flash wrappers are held to the scale-relative
+card gates of repro_torch.gates (card_bf16: rel 1e-2, 2e-2 rms + 2^-7
+|plain|; card_f32: rel 1e-5, 1e-4 rms + 1e-5 |plain|; the lse within 1e-5
+max(1, |lse|) and exactly 0 on rows that see no key); the planted-fault
+tests build faulted copies of the CUDA sources in a temporary directory and
+show that each of those gates fails on them.
+
 Tolerance: bf16 |kernel - plain| <= 1e-2 + 1e-2 |plain| (one bf16 rounding
 step where f32 sums round differently); f32 1e-4 + 1e-4 |plain|. Softmax
 compares d·softmax on rows of width d (mean 1), so its absolute term is
@@ -292,3 +300,327 @@ def test_h100_library_creates_tensors_on_the_card_and_runs_the_app_there(dev):
     data = quickstart.make_data(1 << 20, "float32", dev)
     counts = quickstart.count_four_ways(ops, data, 5.0, 15.0)
     assert counts["fused"] == int(rc.ref.range_count(data.cpu(), 5.0, 15.0))
+
+
+# the training kernels: phase 5a's shapes, then the seven cases of
+# tests/test_flash_attention_grad.py at D 64 (b, h, kh, sq, sk, d, causal, kv_len)
+TRAIN_CASES = [
+    (8, 16, 16, 512, 512, 64, True, None),
+    (2, 40, 8, 512, 512, 128, True, None),
+    (2, 16, 16, 64, 320, 64, True, 300),
+    (1, 8, 4, 200, 72, 64, True, None),
+    (1, 2, 2, 64, 64, 64, True, None),
+    (2, 4, 2, 96, 160, 64, True, None),
+    (1, 2, 1, 64, 64, 64, False, None),
+    (1, 2, 2, 40, 64, 64, False, 48),
+    (1, 4, 2, 1, 64, 64, True, 40),
+    (1, 2, 2, 16, 64, 64, True, 40),
+]
+CARD_GATE = {torch.bfloat16: "card_bf16", torch.float32: "card_f32"}
+
+
+def _train_check(dev, case, dtype, seed=0):
+    """The three training kernels against their plain versions on the same
+    inputs (the plain lse and delta feed both backward versions); raises
+    AssertionError on the first gate that fails."""
+    from repro_torch import gates
+
+    b, h, kh, sq, sk, d, causal, kv_len = case
+    rand = _draws(dev, dtype, seed)
+    q, k, v, do = rand(b, h, sq, d), rand(b, kh, sk, d), rand(b, kh, sk, d), rand(b, h, sq, d)
+    kw = dict(causal=causal, kv_len=kv_len)
+    gate = CARD_GATE[dtype]
+    ref = fa.ref
+    no_key = ~ref.visible(sq, sk, device=dev, **kw).any(-1)
+    before = [f.launches for f in (fa.flash_attention_fwd_lse, fa.flash_attention_bwd_dq,
+                                   fa.flash_attention_bwd_dkv)]
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
+    out_r, lse_r = ref.attention_fwd_lse(q, k, v, **kw)
+    delta = (do.float() * out_r.float()).sum(-1)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse_r, delta, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse_r, delta, **kw)
+    torch.cuda.synchronize()
+    after = [f.launches for f in (fa.flash_attention_fwd_lse, fa.flash_attention_bwd_dq,
+                                  fa.flash_attention_bwd_dkv)]
+    assert after == [n + 1 for n in before]
+    gates.check(out, out_r, gate, "out")
+    gates.check_lse(lse, lse_r, no_key, "lse")
+    gates.check(dq, ref.attention_bwd_dq(q, k, v, do, lse_r, delta, **kw), gate, "dq")
+    assert torch.count_nonzero(dq[:, :, no_key]) == 0
+    dk_r, dv_r = ref.attention_bwd_dkv(q, k, v, do, lse_r, delta, **kw)
+    gates.check(dk, dk_r, gate, "dk")
+    gates.check(dv, dv_r, gate, "dv")
+
+
+def _glue_check(dev, case, dtype, seed=0):
+    """FlashAttention on the card (kernels + delta + head-group sum + casts)
+    against autograd through the plain attention: card_f32 in f32, the
+    full-width gate (rel 5e-2) in bf16, where autograd rounds elsewhere."""
+    from repro_torch import gates
+
+    b, h, kh, sq, sk, d, causal, kv_len = case
+    rand = _draws(dev, dtype, seed)
+    q, k, v, do = rand(b, h, sq, d), rand(b, kh, sk, d), rand(b, kh, sk, d), rand(b, h, sq, d)
+    kw = dict(causal=causal, kv_len=kv_len)
+    got = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*got, **kw)
+    assert out.grad_fn is not None
+    out.backward(do)
+    want = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.ref.attention(*want, **kw).backward(do)
+    gate = "card_f32" if dtype == torch.float32 else "full_width_bf16"
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.grad.dtype == dtype
+        gates.check(a.grad, w.grad, gate, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", TRAIN_CASES)
+def test_flash_attention_training_kernels(dev, case, dtype):
+    _train_check(dev, case, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", [TRAIN_CASES[1], TRAIN_CASES[3], TRAIN_CASES[5]])
+def test_flash_attention_function_matches_autograd_of_plain(dev, case, dtype):
+    _glue_check(dev, case, dtype)
+
+
+def test_flash_attention_training_kernels_reject_what_they_do_not_take(dev):
+    rand = _draws(dev, torch.bfloat16)
+    q = rand(1, 2, 8, 32)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_fwd_lse(q, q, q)
+    q = rand(1, 2, 8, 64)
+    lse = torch.zeros(1, 2, 8, device=dev)
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_attention_bwd_dq(q, q, q, q, lse.double(), lse)
+    with pytest.raises(ValueError, match="delta"):
+        fa.flash_attention_bwd_dkv(q, q, q, q, lse, lse[:, :1])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wrappers_keep_the_graph_and_match_plain_gradients(dev, dtype):
+    """rmsnorm, swiglu and flash attention on the card return tensors with a
+    grad_fn when an input requires grad (their kernels still launch), and
+    their gradients equal the plain versions' under the card gates."""
+    from repro_torch import gates
+
+    rand = _draws(dev, dtype)
+    gate = CARD_GATE[dtype]
+    x, w, up, gy = rand(64, 1024), rand(1024), rand(64, 1024), rand(64, 1024)
+    for name, wrapper, plain, args in (("rmsnorm", rn.rmsnorm, rn.ref.rmsnorm, (x, w)),
+                                       ("swiglu", sw.swiglu, sw.ref.swiglu, (x, up))):
+        got_in = [t.clone().requires_grad_() for t in args]
+        want_in = [t.clone().requires_grad_() for t in args]
+        before = wrapper.launches
+        y = wrapper(*got_in)
+        assert wrapper.launches == before + 1, name
+        assert y.grad_fn is not None, name
+        y.backward(gy)
+        plain(*want_in).backward(gy)
+        for a, b_ in zip(got_in, want_in):
+            gates.check(a.grad, b_.grad, gate, f"{name} grad")
+    before = fa.flash_attention_fwd_lse.launches
+    _glue_check(dev, (2, 4, 2, 128, 128, 64, True, None), dtype)
+    assert fa.flash_attention_fwd_lse.launches == before + 1
+
+
+# planted faults in copies of the CUDA sources: (file, old, new). Each must
+# make the card gates fail; the copies are built from a temporary directory.
+CUDA_FAULTS = {
+    "dk_one_head_zeroed": [("flash_attention_bwd.cu", "dk[at] = acc_k[j] * scale;",
+                            "dk[at] = h == H - 1 ? 0.f : acc_k[j] * scale;")],
+    "dq_scale_dropped": [("flash_attention_bwd.cu", "from_f32<T>(acc[j] * scale)",
+                          "from_f32<T>(acc[j])")],
+    "lse_not_zeroed_on_rows_without_keys": [("flash_attention.cu",
+                                             "l > 0.f ? row_m[tid] + logf(l) : 0.f;",
+                                             "row_m[tid] + logf(l);")],
+    "causal_diagonal_off_by_one": [
+        ("flash_attention.cu", "kpos <= q0 + r + q_offset", "kpos < q0 + r + q_offset"),
+        ("flash_attention_bwd.cu", "kpos <= qpos + q_offset", "kpos < qpos + q_offset")],
+}
+
+
+def _plant_cuda_fault(tmp_path, monkeypatch, fault):
+    """Build copies of the CUDA sources with ``fault`` and make the kernel
+    launchers call them for the rest of the test."""
+    from repro_torch.kernels.common import load_shared_library
+    from repro_torch.kernels.flash_attention import kernel
+
+    for src in kernel.SOURCES + kernel.BWD_SOURCES:
+        text = src.read_text()
+        for name, old, new in CUDA_FAULTS[fault]:
+            if name == src.name:
+                assert old in text, (fault, old)
+                text = text.replace(old, new)
+        (tmp_path / src.name).write_text(text)
+    fwd = kernel.bind_fwd(load_shared_library(f"fault_{fault}_fwd",
+                                              [tmp_path / "flash_attention.cu"]))
+    bwd = kernel.bind_bwd(load_shared_library(f"fault_{fault}_bwd",
+                                              [tmp_path / "flash_attention_bwd.cu"]))
+    monkeypatch.setattr(kernel, "_fn", lambda: fwd)
+    monkeypatch.setattr(kernel, "_bwd_fns", lambda: bwd)
+
+
+def _faulted_ops(fault):
+    """A fresh ops module with the glue ``fault`` (GLUE_FAULTS) in its source."""
+    import types
+    from pathlib import Path
+
+    old, new = GLUE_FAULTS[fault]
+    src = Path(fa.__file__).read_text()
+    assert old in src
+    mod = types.ModuleType("repro_torch.kernels.flash_attention.ops_faulted")
+    mod.__package__ = "repro_torch.kernels.flash_attention"
+    exec(compile(src.replace(old, new), "<ops.py faulted>", "exec"), mod.__dict__)
+    return mod
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("fault", list(CUDA_FAULTS))
+def test_card_gates_fail_on_planted_kernel_fault(dev, tmp_path, monkeypatch, fault, dtype):
+    """A copy of the kernels with ``fault`` must fail a card gate on at
+    least one of the training cases (and the unfaulted kernels pass them:
+    test_flash_attention_training_kernels)."""
+    _plant_cuda_fault(tmp_path, monkeypatch, fault)
+    caught = []
+    for case in TRAIN_CASES[1:]:
+        try:
+            _train_check(dev, case, dtype)
+        except AssertionError as e:
+            caught.append(f"{case}: {e}")
+    print(f"\n[fault] {fault} {dtype}: {len(caught)} of {len(TRAIN_CASES) - 1} cases fail "
+          f"a card gate; first: {caught[0][:200] if caught else '-'}")
+    assert caught, f"no card gate fails on {fault}"
+
+
+# planted faults in the Python glue around the kernels (ops.py): the
+# delta, the head-group sum. The kernels' own gates cannot see them (both
+# sides get the same lse and delta); FlashAttention vs autograd of the
+# plain attention does, at a GQA shape.
+GLUE_FAULTS = {
+    "gqa_sum_group_0_only": (".sum(2).to(", "[:, :, 0].to("),
+    "delta_from_bf16_product": ("delta = (g.float() * out.float()).sum(-1)",
+                                "delta = (g.float() * out.float()).bfloat16().float().sum(-1)"),
+}
+
+
+# delta from the bf16-rounded product is run in f32 only, where card_f32
+# sees it. In bf16 no gate here can: the rounding it adds (2^-9 of each term
+# of delta) is the size of the rounding the sound glue already carries
+# (delta from the bf16 forward output), so no fixed tolerance on the bf16
+# glue separates the two; the host_bf16 gate catches it on the host's
+# inputs, and full_width_f32 at full width
+@pytest.mark.parametrize("fault,dtype", [("gqa_sum_group_0_only", torch.bfloat16),
+                                         ("gqa_sum_group_0_only", torch.float32),
+                                         ("delta_from_bf16_product", torch.float32)])
+def test_card_glue_gate_fails_on_planted_fault(dev, monkeypatch, fault, dtype):
+    monkeypatch.setattr(fa, "flash_attention", _faulted_ops(fault).flash_attention)
+    caught = []
+    for case in (TRAIN_CASES[1], TRAIN_CASES[3], TRAIN_CASES[5]):
+        try:
+            _glue_check(dev, case, dtype)
+        except AssertionError as e:
+            caught.append(f"{case}: {e}")
+    print(f"\n[fault] {fault} {dtype}: {len(caught)} of 3 cases fail the glue gate; "
+          f"first: {caught[0][:200] if caught else '-'}")
+    assert caught, f"no card gate fails on {fault}"
+
+
+# The full-width gates (qwen1.5-0.5b, 24 layers, batch 2 x 512), kernels vs
+# plain versions under each planted fault: with bf16 params the bf16
+# gates (every grad leaf within rel 5e-2, the 5-step loss curve within 5e-3
+# of the loss), with float32 params full_width_f32 (every leaf within rel
+# 1e-4) and LOSS_REL_F32 (1e-4), where no bf16 rounding hides a fault.
+#
+# Two faults change nothing at this configuration, by construction: qwen1.5
+# is MHA, so a head-group "sum" over one head is that head
+# (gqa_sum_group_0_only), and causal self-attention with Sq = Sk has no row
+# without keys (lse_not_zeroed_on_rows_without_keys). Every gate must pass
+# them. Every other fault must fail the float32 grads gate. NOT_SEEN lists
+# the (fault, gate) pairs that pass although the fault is live: each is a
+# fault that gate does not show. They are printed, not asserted.
+# Measured on the card (H100 80GB HBM3, 700 W) with bf16 params: the delta
+# fault moves the worst leaf to rel 0.0269 where the sound run reads 0.0256,
+# and the loss curve by 3.96e-4 of the loss; one head's dk zeroed moves the
+# loss curve by 5.6e-4, while the sound run's own curve differs by 1.05e-3.
+# With float32 params the delta fault moves the loss curve by 9.66e-5 of the
+# loss, just inside LOSS_REL_F32, and the worst leaf to rel 3.3e-3.
+NO_OP_AT_FULL_WIDTH = {"gqa_sum_group_0_only", "lse_not_zeroed_on_rows_without_keys"}
+NOT_SEEN = {("delta_from_bf16_product", "grads_bf16"), ("delta_from_bf16_product", "loss_bf16"),
+            ("delta_from_bf16_product", "loss_f32"), ("dk_one_head_zeroed", "loss_bf16")}
+_FULL_WIDTH_PLAIN = {}
+
+
+def _full_width_run(model, state, batch, steps=5):
+    """Every grad leaf at ``state`` and the loss at each of ``steps`` steps."""
+    from repro_torch.train import OptConfig, loss_and_grads, make_train_step
+    from repro_torch.train.optimizer import tree_leaves
+
+    grads = tree_leaves(loss_and_grads(model, state["params"], batch)[2])
+    step, losses, s = make_train_step(model, OptConfig(lr=3e-4, warmup_steps=0)), [], state
+    for _ in range(steps):
+        s, m = step(s, batch)
+        losses.append(m["loss"].item())
+    return grads, losses
+
+
+def _full_width_setup(dev):
+    """The models, states and batch of the full-width fault test, and the
+    plain versions' grads and loss curves (computed once)."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn.model import build_model
+    from repro_torch.train import OptConfig, init_opt_state, init_train_state
+    from repro_torch.train.optimizer import tree_map
+
+    if not _FULL_WIDTH_PLAIN:
+        cfg = get_config("qwen1.5-0.5b")
+        state = init_train_state(build_model(cfg, device=dev),
+                                 OptConfig(lr=3e-4, warmup_steps=0), seed=0)
+        params_f32 = tree_map(lambda t: t.float(), state["params"])
+        g = torch.Generator(device=dev).manual_seed(21)
+        seq = torch.randint(0, cfg.vocab, (2, 513), generator=g, device=dev)
+        batch = {"tokens": seq[:, :-1].contiguous(), "labels": seq[:, 1:].contiguous()}
+        for dtype, st in (("bf16", state),
+                          ("f32", {"params": params_f32, "opt": init_opt_state(
+                              OptConfig(lr=3e-4, warmup_steps=0), params_f32)})):
+            c = cfg if dtype == "bf16" else cfg.replace(dtype="float32")
+            _FULL_WIDTH_PLAIN[dtype] = {
+                "state": st, "batch": batch, "kernels": build_model(c, device=dev),
+                "plain": _full_width_run(build_model(c, device=dev, target="torch_cpu"),
+                                         st, batch)}
+    return _FULL_WIDTH_PLAIN
+
+
+@pytest.mark.parametrize("fault", list(CUDA_FAULTS) + list(GLUE_FAULTS))
+def test_full_width_gates_on_planted_fault(dev, tmp_path, monkeypatch, fault):
+    from repro_torch import gates
+
+    runs = _full_width_setup(dev)
+    if fault in CUDA_FAULTS:
+        _plant_cuda_fault(tmp_path, monkeypatch, fault)
+    else:
+        monkeypatch.setattr(fa, "_backward", _faulted_ops(fault)._backward)
+    fails = {}
+    for dtype, run in runs.items():
+        want, losses_plain = run["plain"]
+        got, losses = _full_width_run(run["kernels"], run["state"], run["batch"])
+        gate, loss_rel = (("full_width_bf16", gates.LOSS_REL) if dtype == "bf16" else
+                          ("full_width_f32", gates.LOSS_REL_F32))
+        worst_rel = max(gates.measure(a, w, gate)["rel"] for a, w in zip(got, want))
+        zero = any(not bool((a != 0).any()) for a in got)
+        worst_loss = max(abs(a - p) / abs(p) for a, p in zip(losses, losses_plain))
+        fails[f"grads_{dtype}"] = zero or not worst_rel <= gates.GATES[gate][0]
+        fails[f"loss_{dtype}"] = not worst_loss <= loss_rel
+        print(f"\n[fault] {fault} full width {dtype}: grads gate "
+              f"{'FAILS' if fails[f'grads_{dtype}'] else 'passes'} (worst leaf rel "
+              f"{worst_rel:.3g}, all-zero leaf {zero}), loss-curve gate "
+              f"{'FAILS' if fails[f'loss_{dtype}'] else 'passes'} (worst |dloss|/loss "
+              f"{worst_loss:.3g})")
+    if fault in NO_OP_AT_FULL_WIDTH:
+        assert not any(fails.values()), (fault, fails)
+        return
+    assert fails["grads_f32"], fault
+    for gate, failed in fails.items():
+        assert failed or (fault, gate) in NOT_SEEN, (fault, gate)

@@ -29,10 +29,13 @@ SLICE_PRIMITIVES = ("load", "set1", "embed_lookup", "cache_update", "matmul", "r
                     "cache_page_write", "attention_decode_paged",
                     # the range-count app (Fig 8) and the suite's softmax
                     "set", "select", "between_inclusive", "hadd", "to_integral",
-                    "range_count", "range_count_popcnt", "softmax")
+                    "range_count", "range_count_popcnt", "softmax",
+                    # training: the loss and the attention backward
+                    "cross_entropy", "flash_attention_bwd")
 KERNEL_MODULES = {"rmsnorm": "repro_torch.kernels.rmsnorm.ops",
                   "swiglu": "repro_torch.kernels.swiglu.ops",
                   "flash_attention": "repro_torch.kernels.flash_attention.ops",
+                  "flash_attention_bwd": "repro_torch.kernels.flash_attention.ops",
                   "attention_decode_paged": "repro_torch.kernels.paged.ops",
                   "range_count": "repro_torch.kernels.range_count.ops",
                   "hadd": "repro_torch.kernels.hadd.ops",
@@ -195,6 +198,12 @@ def _args(prim, rng):
         tables = np.asarray([[3, 1, 0], [2, 4, 5]], np.int32)
         return (_rand(rng, 2, 4, 1, 8), _rand(rng, 2, 6, 8, 8), _rand(rng, 2, 6, 8, 8),
                 tables), {"kv_len": np.asarray([13, 24], np.int32)}
+    if prim == "cross_entropy":
+        return (_rand(rng, 2, 5, 40, lo=-3, hi=3),
+                rng.integers(0, 40, (2, 5)).astype(np.int32)), {}
+    if prim == "flash_attention_bwd":
+        return (_rand(rng, 1, 4, 9, 8), _rand(rng, 1, 2, 9, 8), _rand(rng, 1, 2, 9, 8),
+                _rand(rng, 1, 4, 9, 8)), {"causal": True}
     raise KeyError(prim)
 
 
@@ -206,7 +215,12 @@ def test_torch_cpu_library_matches_cpu_xla(prim, libs):
                                 for a in args], **kwargs)
     got = getattr(port, prim)(*[torch.from_numpy(a.copy()) if isinstance(a, np.ndarray)
                                 else a for a in args], **kwargs)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=RTOL)
+    if isinstance(want, tuple):                 # flash_attention_bwd: (dq, dk, dv)
+        assert isinstance(got, tuple) and len(got) == len(want)
+    else:
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL, rtol=RTOL)
 
 
 @pytest.mark.parametrize("prim,term,shapes", [
