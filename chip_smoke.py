@@ -14,12 +14,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    plain version and the one PyTorch library call that computes the same
    function (a yardstick only: the port never calls it) with CUDA events,
    and computes each case's bound from the bytes and operations its inputs
-   need against the H100 SXM datasheet peaks. No single PyTorch call
+   need against the H100 SXM datasheet peaks. The flash-attention cases
+   (here and in 5a) time kernel, plain version and yardstick by device
+   time only, CUDA events around replays of a CUDA graph that captured the
+   calls (DEVICE_TIMING), since a kernel shorter than the host's enqueue
+   leaves events around a loop of calls timing the host; the events time
+   and the host enqueue stand beside it. Phase 1 also counts, from cuobjdump -sass of the built flash
+   library, the tensor-core (HMMA / HGMMA) instructions of each forward
+   instantiation, and fails if a bf16 one has none. No single PyTorch call
    computes paged attention: its yardstick is scaled_dot_product_attention
    on the same rows already gathered into contiguous lanes (gather not
-   timed); none computes a range count or packs a mask (library "—").
-   For the paged serving shape it also times the host's enqueue of
-   one call: wrapper, bare launcher and the yardstick. The app's kernels
+   timed). torch.histc(x, bins=1, min=lo, max=hi) counts a range (both ends
+   inclusive, NaN ignored): the range count's yardstick on float32 data,
+   and on int32 data with whole bounds (it casts its bounds to the data's
+   type); none packs a mask
+   (library "—"). For the paged serving shape it also times the host's
+   enqueue of one call: wrapper, bare launcher and the yardstick. The app's kernels
    run at the app's sizes (2^30 float32, 2^28 int32, the (2^25, 32) mask)
    and at edge lengths (0, 1, 31, 33, 2^20 + 7; bit 31; a view off 16-byte
    alignment; fractional bounds on int32 data; NaN data); their integer
@@ -65,9 +75,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    plain versions at the train shape (8, 16, 512, 64) causal bf16, the GQA
    case (2, 40 over 8 KV heads, 512, 128), a kv_len < Sk and an Sq > Sk case
    (rows that see no key: lse and dq exactly 0) and float32, under the
-   scale-relative gates of repro_torch.gates; each timed beside its plain
-   version, its bound and its library yardstick (the forward:
-   aten._scaled_dot_product_flash_attention, which returns a logsumexp;
+   scale-relative gates of repro_torch.gates; each timed by device time
+   only beside its plain version, its bound and its library yardstick (the
+   forward: aten._scaled_dot_product_flash_attention, which returns a logsumexp;
    dq + dk/dv: the backward of F.scaled_dot_product_attention through
    autograd, one number for the three gradients).
 5b. The loss and every parameter's gradient on one batch, through the h100
@@ -182,6 +192,93 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+DEVICE_TIMING = "CUDA events around replays of a CUDA graph that captured the calls"
+_CAPTURE_STREAM = []
+
+
+def capture_stream():
+    """The side stream every CUDA graph here is captured on (an op whose
+    backward is captured must run its forward on it too)."""
+    import torch
+
+    if not _CAPTURE_STREAM:
+        _CAPTURE_STREAM.append(torch.cuda.Stream())
+    return _CAPTURE_STREAM[0]
+
+
+def graph_ms(fn, iters: int, replays: int = 5) -> float:
+    """Mean device time of one call (DEVICE_TIMING): ``iters`` calls are
+    captured in one CUDA graph, after a warm-up on the capture stream, and
+    CUDA events time ``replays`` replays of it. The device runs the calls
+    back to back, so unlike events around a loop of calls the time holds
+    no wait for the host's enqueue."""
+    import torch
+
+    s = capture_stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del g
+    return start.elapsed_time(end) / (replays * iters)
+
+
+def _timed_device(case: dict, kernel_fn, plain_fn, library_fn, iters: int) -> dict:
+    """Kernel, plain version and yardstick by device time only (``ms``,
+    ``plain_ms``, ``library_ms``), with the events time of each and the
+    kernel's host enqueue beside them. The plain version, which holds the
+    (Sq, Sk) scores, is captured 3 calls at a time."""
+    case["ms"], case["events_ms"] = graph_ms(kernel_fn, iters), cuda_ms(kernel_fn, iters)
+    case["host_us"] = host_us(kernel_fn, 50)
+    case["plain_ms"], case["plain_events_ms"] = graph_ms(plain_fn, 3), cuda_ms(plain_fn, iters)
+    case["library_ms"] = case["library_events_ms"] = None
+    if library_fn is not None:
+        case["library_ms"] = graph_ms(library_fn, iters)
+        case["library_events_ms"] = cuda_ms(library_fn, iters)
+    case["timing"] = DEVICE_TIMING
+    return case
+
+
+def tensor_core_counts(lib_path: Path) -> dict | None:
+    """HMMA / HGMMA instructions per flash forward kernel instantiation in
+    the library's SASS (cuobjdump -sass), keyed "bf16|f32 D<d> lse|serving";
+    None when the toolkit has no cuobjdump."""
+    import re
+
+    from repro_torch.kernels.common import nvcc
+
+    tool = Path(nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)], check=True, capture_output=True,
+                          text=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"flash_fwd_(mma|f32)_kernelILi(\d+)ELb([01])E", line)
+            name = None if m is None else (f"{'bf16' if m[1] == 'mma' else 'f32'} D{m[2]} "
+                                           f"{'lse' if m[3] == '1' else 'serving'}")
+            if name is not None:
+                counts[name] = 0
+        elif name is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[name] += 1
+    return counts
+
+
 def host_us(fn, iters: int = 200) -> float:
     """Mean host time of one call in microseconds, enqueue only: the loop
     does not synchronise (the device drains it afterwards)."""
@@ -256,7 +353,7 @@ def kernel_phase(dev) -> list[dict]:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.common import KERNEL_BUILD_ROOT
+    from repro_torch.kernels.common import KERNEL_BUILD_ROOT, build_shared_library
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.hadd import kernel as ha_kernel
@@ -282,6 +379,17 @@ def kernel_phase(dev) -> list[dict]:
             regs = [ln.strip() for ln in log.read_text().splitlines()
                     if "registers" in ln or "spill" in ln]
             print(f"[phase1] ptxas {name}:", "; ".join(regs), flush=True)
+    mma = tensor_core_counts(build_shared_library("flash_attention", fa_kernel.SOURCES))
+    if mma is None:
+        print("[phase1] SASS: the toolkit has no cuobjdump; HMMA / HGMMA not counted",
+              flush=True)
+    else:
+        print(f"[phase1] SASS HMMA / HGMMA instructions per flash forward instantiation: "
+              f"{json.dumps(mma)}", flush=True)
+        bf16 = {k: n for k, n in mma.items() if k.startswith("bf16")}
+        if len(bf16) != 4 or not all(bf16.values()):
+            raise AssertionError(f"bf16 flash forward instantiations without tensor-core "
+                                 f"instructions: {mma}")
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -340,19 +448,18 @@ def kernel_phase(dev) -> list[dict]:
         shape = [b, h, kh, sq, sk, d]
         c = {"shape": shape, "dtype": str(dt).removeprefix("torch."),
              "kv_len": kv_len, **check_case("flash_attention", shape, got, want, dt)}
-        c["ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
-                                                     kv_len=kv_len), 20)
-        c["plain_ms"] = cuda_ms(lambda: fa.ref.attention(q, k, v, causal=causal,
-                                                         kv_len=kv_len), 20)
         kvl = sk if kv_len is None else kv_len
         qi = torch.arange(sq, device=dev)[:, None] + (kvl - sq)
         kj = torch.arange(sk, device=dev)[None, :]
         allowed = (kj < kvl) & ((kj <= qi) if causal else True)
         pairs = int(allowed.sum())                   # what this data needs
         mask = None if (kv_len is None and sq == sk) else allowed
-        c["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, is_causal=causal and mask is None,
-            enable_gqa=h != kh), 20)
+        _timed_device(
+            c, lambda: fa.flash_attention(q, k, v, causal=causal, kv_len=kv_len),
+            lambda: fa.ref.attention(q, k, v, causal=causal, kv_len=kv_len),
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=h != kh), 20)
         itemsize = q.element_size()
         c["bound_ms"], c["bound_by"] = bound(
             (2 * b * h * sq * d + 2 * b * kh * sk * d) * itemsize,
@@ -398,6 +505,9 @@ def kernel_phase(dev) -> list[dict]:
                   f"library {lib} bound {c['bound_ms']:.4f} ms "
                   f"({c['bound_by']})"
                   + (f" {c['note']}" if "note" in c else "")
+                  + (f"; events: kernel {c['events_ms']:.4f} ms library "
+                     f"{c['library_events_ms']:.4f} ms; device times by {c['timing']}"
+                     if "timing" in c else "")
                   + (f"; host enqueue us {json.dumps(c['host_us'])}" if "host_us" in c
                      else ""), flush=True)
     return rows
@@ -496,7 +606,10 @@ def range_count_cases(dev) -> list[dict]:
     """Phase 1, range_count: the app's 2^30 float32 uniforms (the main
     case) and 2^28 int32, edge lengths (0, 1, 31, 33, 2^20 + 7, a view off
     16-byte alignment), a fractional bound on int32 data and NaN data.
-    Counts must be equal. No single PyTorch call computes a range count."""
+    Counts must be equal. The yardstick is torch.histc(x, bins=1, min=lo,
+    max=hi), which counts [lo, hi] with NaN ignored: on float32 data, and on
+    int32 data with whole bounds (histc casts its bounds to the data's type;
+    fractional bounds keep "—")."""
     import torch
 
     from repro_torch.kernels.range_count import ops as rc
@@ -525,8 +638,13 @@ def range_count_cases(dev) -> list[dict]:
              **check_exact("range_count", shape, rc.range_count(data, lo, hi),
                            rc.ref.range_count(data, lo, hi))}
         iters = 10 if n >= APP_I32_N else 50
+        # histc casts its bounds to the data's type: on int32 data only whole
+        # bounds count what the kernel counts; an empty input is not timed
+        histc = n > 0 and (data.dtype == torch.float32
+                           or isinstance(lo, int) and isinstance(hi, int))
         _timed(c, lambda: rc.range_count(data, lo, hi),
-               lambda: rc.ref.range_count(data, lo, hi), None, iters)
+               lambda: rc.ref.range_count(data, lo, hi),
+               (lambda: torch.histc(data, bins=1, min=lo, max=hi)) if histc else None, iters)
         c["bound_ms"], c["bound_by"] = bound(n * data.element_size() + 4, 3 * n,
                                              torch.int32 if data.dtype == torch.int32
                                              else torch.float32)
@@ -1208,10 +1326,10 @@ def train_kernel_cases(dev) -> dict[str, list[dict]]:
             ke, ve = (t.repeat_interleave(h // kh, 1) for t in (k, v))
             library = lambda: torch.ops.aten._scaled_dot_product_flash_attention(  # noqa: E731
                 q, ke, ve, 0.0, causal)
-        _timed(c, lambda: fa.flash_attention_fwd_lse(q, k, v, **kw),
-               lambda: ref.attention_fwd_lse(q, k, v, **kw), library, 10)
+        _timed_device(c, lambda: fa.flash_attention_fwd_lse(q, k, v, **kw),
+                      lambda: ref.attention_fwd_lse(q, k, v, **kw), library, 10)
         if main:   # the same kernel's serving instantiation, which stores no lse
-            c["serving_forward_ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), 10)
+            c["serving_forward_ms"] = graph_ms(lambda: fa.flash_attention(q, k, v, **kw), 10)
         c["bound_ms"], c["bound_by"] = bound(2 * qbytes + 2 * kvbytes + 4 * rows,
                                              4 * b * h * pairs * d, dt)
         out["flash_attention_fwd_lse"].append(c)
@@ -1235,15 +1353,18 @@ def train_kernel_cases(dev) -> dict[str, list[dict]]:
         library = None
         if kv_len is None and sq == sk:
             qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
-            o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
-                                                   enable_gqa=h != kh)
+            with torch.cuda.stream(capture_stream()):   # its backward is captured there
+                o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                                       enable_gqa=h != kh)
+            torch.cuda.current_stream().wait_stream(capture_stream())
             library = lambda: torch.autograd.grad(o_lib, (qs, ks, vs), do,  # noqa: E731
                                                   retain_graph=True)
-        _timed(c, lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse_r, delta, **kw),
-               lambda: ref.attention_bwd_dq(q, k, v, do, lse_r, delta, **kw), library, 10)
-        _timed(c2, lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse_r, delta, **kw),
-               lambda: ref.attention_bwd_dkv(q, k, v, do, lse_r, delta, **kw), None, 10)
-        c2["library_ms"] = c["library_ms"]
+        _timed_device(c, lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse_r, delta, **kw),
+                      lambda: ref.attention_bwd_dq(q, k, v, do, lse_r, delta, **kw), library,
+                      10)
+        _timed_device(c2, lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse_r, delta, **kw),
+                      lambda: ref.attention_bwd_dkv(q, k, v, do, lse_r, delta, **kw), None, 10)
+        c2["library_ms"], c2["library_events_ms"] = c["library_ms"], c["library_events_ms"]
         if library is not None:
             c["note"] = c2["note"] = ("library: SDPA's whole backward (dq, dk and dv), "
                                       "beside dq + dk/dv")
@@ -1266,7 +1387,9 @@ def train_kernel_cases(dev) -> dict[str, list[dict]]:
                   f"{x['plain_ms']:.4f} ms library {lib} bound {x['bound_ms']:.4f} ms "
                   f"({x['bound_by']})" + (f"; serving instantiation (no lse) "
                                           f"{x['serving_forward_ms']:.4f} ms"
-                                          if "serving_forward_ms" in x else ""), flush=True)
+                                          if "serving_forward_ms" in x else "")
+                  + f"; events: kernel {x['events_ms']:.4f} ms; host enqueue "
+                    f"{x['host_us']:.1f} us; device times by {x['timing']}", flush=True)
         del q, k, v, do, o, o_r, dq, dq_r, dk, dk_r, dv, dv_r
     out["plain_backward_ms"] = plain_backward_ms(dev)
     return out
@@ -1464,7 +1587,7 @@ def train_phase(dev, gpu: str) -> dict:
     # where the profiled step's device time goes
     prof = steps[-1]
     by = prof.pop("by_kernel_ms")
-    share = {"flash_fwd_kernel": 0.0, "flash_bwd_dq_kernel": 0.0,
+    share = {"flash_fwd": 0.0, "flash_bwd_dq_kernel": 0.0,
              "flash_bwd_dkv_kernel": 0.0, "gemm": 0.0}
     for name, ms in by.items():
         low = name.lower()

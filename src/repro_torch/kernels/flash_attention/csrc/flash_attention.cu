@@ -8,7 +8,7 @@
 // recompute the probabilities from, 0 on a row that sees no key (so the
 // backward's p = exp(s - lse) is 0 there, never NaN). The lse store is a
 // template flag (LSE): serving passes a null lse and runs the instantiation
-// without it, compiled as before the training slice.
+// without it.
 //
 // Contract (the same as the Pallas kernel and ref.attention):
 //   q (B,H,Sq,D), k/v (B,KH,Sk,D), contiguous; query head h reads KV head
@@ -19,59 +19,397 @@
 //   ints, not compile-time constants. A row that sees no key outputs exactly
 //   0. Softmax statistics and the output accumulator are f32.
 //
-// What bounds it on the H100: at the model's prefill shape (D = 64,
-// S = 512, causal, bf16) a head does 4*(S*(S+1)/2)*D flops on 4*S*D*2
-// bytes, ~128 flop/byte, under the card's ~295 flop/byte ridge — so the
-// datasheet floor is the bytes; from S ~ 1.2k on it is the tensor-core
-// operations. This first version does its products with scalar f32 FMAs out
-// of shared memory, so in practice the FMA pipe and shared-memory bandwidth
-// bound it, far above either floor; mma.sync / wgmma tiles fed by TMA are
-// later work.
+// What bounds it on the H100: at the model's shapes (D = 64, S = 512,
+// causal, bf16) a head does 4*(S*(S+1)/2)*D flops on 4*S*D*2 bytes, ~128
+// flop/byte, under the card's ~295 flop/byte ridge — so the datasheet floor
+// is the bytes; from S ~ 1.2k on it is the tensor-core operations. In
+// practice a kernel of this size is held by how fast its products issue
+// and by the latency of each tile's loads.
 //
-// What the design does about it: one block per (64-row q tile, head,
-// batch); the q tile is staged in shared memory once and the block walks
-// 64-row k/v tiles, each staged once and shared by all 64 query rows (and
-// never replicated per query head in device memory: GQA is an index map).
-// Tiles past min(kv_len, Sk) or wholly above the causal diagonal are never
-// loaded (causal tile skip). Shared-memory rows are padded (D+1, 64+1) so
-// the score and softmax loops are free of bank conflicts.
+// What the design does about it (bf16, the main path):
+//   * one block of 4 warps per (64-row q tile, head, batch); each warp owns
+//     16 query rows. The q tiles are launched last-first, so under causality
+//     the blocks with the most key tiles start first;
+//   * Q, K and V stay bf16 in shared memory, copied with 16-byte cp.async
+//     (zero-filled past Sq, Sk and kv_len) into rows whose 16-byte chunks
+//     are XOR-swizzled by row, so every ldmatrix is free of bank conflicts.
+//     K/V tiles go through a ring of 2 stages: tile t+1's copy is in flight
+//     while tile t is computed, one __syncthreads per tile;
+//   * S = Q K^T and O += P V on the tensor cores (mma.sync m16n8k16, bf16 in,
+//     f32 accumulate): Q's fragments are loaded once by ldmatrix and kept in
+//     registers, K's by ldmatrix, V's by ldmatrix.trans. P goes into the
+//     A operand straight from the registers (the m16n8k16 accumulator
+//     layout is the A layout), split into its bf16 rounding and the bf16
+//     rounding of the remainder, two products against the same V
+//     fragments: P rounded once to bf16 (2^-9), the usual flash design,
+//     reads over the card_bf16 limit on a training case, P carried to
+//     ~16 bits stays inside it (tools/flash_p_rounding.py measures both);
+//   * the online softmax runs in registers: row max and row sum over the
+//     four threads that share a row by __shfl_xor_sync, exp2f with
+//     scale*log2(e) folded into the scores; masking (causal diagonal,
+//     kv_len edge) only on the tiles that cross it, masked entries weigh
+//     exactly 0; tiles wholly above the diagonal or past kv_len are never
+//     loaded (causal tile skip);
+//   * the epilogue stages O/l as bf16 through the warp's own rows of the Q
+//     tile and writes it with coalesced 16-byte stores; the lse is stored by
+//     the threads that own the row;
+//   * the shared-memory limit is raised once per instantiation and card,
+//     not on every launch.
+// Shared memory: (1 + 2 + 2) * 64 * D * 2 bytes = 40 KB at D 64, 80 KB at
+// D 128.
+//
+// float32 is the exact oracle path, not the main path: the card_f32 gates
+// (rel 1e-5) cannot be met through TF32 or bf16 tensor cores, so the
+// float32 instantiations keep scalar f32 FMAs out of shared memory (rows
+// padded to D+1 / 64+1 against bank conflicts). The C entry point picks the
+// path by dtype; a bf16 input never reaches the scalar code.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
+#include <cmath>
+#include <cstdint>
+
 namespace {
 
 constexpr int TILE = 64;        // q rows per block, k rows per tile
-constexpr int NT = 128;         // threads per block
-constexpr float NEG = -1e30f;   // masked score (same sentinel as the refs)
+constexpr int NT = 128;         // threads per block (4 warps)
+constexpr float NEG = -1e30f;   // masked score of the float32 path (the refs' sentinel)
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// Raise a kernel's dynamic shared-memory limit once per card: `done` holds
+// one bit per device ordinal the attribute was set on.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kern, int bytes, std::atomic<uint32_t>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint32_t bit = 1u << (dev & 31);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
 }
 
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (mma.sync m16n8k16) fed by cp.async
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+// byte offset of 16-byte chunk c of row r in a [TILE][D] bf16 tile; the
+// chunk index is XOR-ed with the row's low 3 bits, so the 8 rows an
+// ldmatrix phase reads land on 8 different groups of 4 banks
+template <int D>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return static_cast<uint32_t>((r * (D / 8) + (c ^ (r & 7))) * 16);
+}
+
+// 16 bytes global -> shared, asynchronously; zero-fills when !valid (src
+// is then not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r1,
+                                        uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0, uint32_t& r1,
+                                              uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(addr));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats -> one register of two bf16, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// two floats -> their bf16 roundings (hi) and the bf16 roundings of what
+// those leave over (lo): hi + lo carries each value to ~16 bits
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = *reinterpret_cast<uint32_t*>(&l);
+}
+
+// copy rows [row0, row0 + TILE) of a (rows, D) bf16 matrix into a swizzled
+// tile, zero-filling rows >= lim; every thread issues TILE*D/8/NT copies
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src, int row0,
+                                          int lim, int tid) {
+  constexpr int CH = D / 8;
+#pragma unroll
+  for (int j = 0; j < TILE * CH / NT; ++j) {
+    const int i = tid + j * NT, r = i / CH, c = i % CH;
+    const bool ok = row0 + r < lim;
+    cp_async16(dst + swz<D>(r, c), ok ? src + static_cast<size_t>(row0 + r) * D + c * 8 : src,
+               ok);
+  }
+}
+
+template <int D, bool LSE>
+__global__ void __launch_bounds__(NT)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                     float* __restrict__ lse, int H, int KH, int Sq, int Sk, int kv_len,
+                     int q_offset, int causal, float scale) {
+  constexpr int CH = D / 8;                    // 16-byte chunks per row
+  constexpr int KS = D / 16;                   // k-steps of S = Q K^T
+  constexpr int NS = TILE / 8;                 // 8-key column tiles of S
+  constexpr int ND = D / 8;                    // 8-wide column tiles of O
+  constexpr uint32_t TILE_BYTES = TILE * D * 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sQ = smem_addr(smem);         // [TILE][D], later O's staging
+  const uint32_t sK = sQ + TILE_BYTES;         // 2 stages
+  const uint32_t sV = sK + 2 * TILE_BYTES;     // 2 stages
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TILE;   // heaviest causal tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kh = h / (H / KH);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int mi = lane >> 3;                    // which 8x8 matrix this lane addresses
+
+  const __nv_bfloat16* qb = q + (static_cast<size_t>(b) * H + h) * Sq * D;
+  const __nv_bfloat16* kb = k + (static_cast<size_t>(b) * KH + kh) * Sk * D;
+  const __nv_bfloat16* vb = v + (static_cast<size_t>(b) * KH + kh) * Sk * D;
+  __nv_bfloat16* ob = o + (static_cast<size_t>(b) * H + h) * Sq * D;
+
+  // keys this q tile can see: [0, k_end)
+  const int kv_lim = min(kv_len, Sk);
+  int k_end = kv_lim;
+  if (causal) k_end = min(k_end, min(q0 + TILE, Sq) + q_offset);
+  const int n_kt = k_end > 0 ? (k_end + TILE - 1) / TILE : 0;
+
+  load_tile<D>(sQ, qb, q0, Sq, tid);
+  if (n_kt > 0) {
+    load_tile<D>(sK, kb, 0, kv_lim, tid);
+    load_tile<D>(sV, vb, 0, kv_lim, tid);
+  }
+  cp_async_commit();
+
+  // this thread's rows: g and g + 8 of the warp's 16 (accumulator rows 0, 1)
+  const int row_a = q0 + warp * 16 + (lane >> 2);
+  const float scale_log2 = scale * kLog2e;
+  uint32_t qf[KS][4];
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};     // running max, log2 units
+  float l_run[2] = {0.f, 0.f};                 // this thread's part of the denominator
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait_all();
+    __syncthreads();   // tile kt landed; every warp is done with tile kt - 1's stage
+    if (kt == 0) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        ldsm_x4(sQ + swz<D>(warp * 16 + (lane & 7) + ((mi & 1) << 3), ks * 2 + (mi >> 1)),
+                qf[ks][0], qf[ks][1], qf[ks][2], qf[ks][3]);
+    }
+    if (kt + 1 < n_kt) {
+      const uint32_t nxt = ((kt + 1) & 1) * TILE_BYTES;
+      load_tile<D>(sK + nxt, kb, (kt + 1) * TILE, kv_lim, tid);
+      load_tile<D>(sV + nxt, vb, (kt + 1) * TILE, kv_lim, tid);
+      cp_async_commit();
+    }
+    const uint32_t sKt = sK + (kt & 1) * TILE_BYTES;
+    const uint32_t sVt = sV + (kt & 1) * TILE_BYTES;
+    const int k0 = kt * TILE;
+
+    // S = Q K^T: 16 rows x 64 keys per warp
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int n2 = 0; n2 < NS / 2; ++n2) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4(sKt + swz<D>(n2 * 16 + (lane & 7) + ((mi >> 1) << 3), ks * 2 + (mi & 1)),
+                b0, b1, b2, b3);
+        mma_bf16(s[2 * n2], qf[ks], b0, b1);
+        mma_bf16(s[2 * n2 + 1], qf[ks], b2, b3);
+      }
+    }
+
+    // scale into log2 units; mask only on a tile that crosses the kv_len
+    // edge or the causal diagonal of the block's first row
+    const bool edge = k0 + TILE > kv_lim || (causal && k0 + TILE - 1 > q0 + q_offset);
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale_log2;
+        if (edge) {
+          const int kpos = k0 + n * 8 + (lane & 3) * 2 + (e & 1);
+          const int qpos = row_a + (e >> 1) * 8;
+          if (kpos >= kv_lim || (causal && kpos > qpos + q_offset)) x = -INFINITY;
+        }
+        s[n][e] = x;
+      }
+    }
+
+    // online softmax in registers; a row that has seen no key yet keeps
+    // m = -inf and subtracts 0, so its masked entries weigh exp2(-inf) = 0
+    float m_sub[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[r], mx);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = exp2f(m_run[r] - m_use);
+      m_run[r] = m_new;
+      m_sub[r] = m_use;
+      l_run[r] *= corr;
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        acc[j][2 * r] *= corr;
+        acc[j][2 * r + 1] *= corr;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[n][e] - m_sub[e >> 1]);
+        l_run[e >> 1] += p;
+        s[n][e] = p;
+      }
+    }
+
+    // O += P V, 16 keys per step: P split in registers into its bf16 part
+    // and the bf16 remainder, both A operands against the same V fragments
+#pragma unroll
+    for (int kk = 0; kk < TILE / 16; ++kk) {
+      uint32_t a[4], a_lo[4];
+      split_bf16(s[2 * kk][0], s[2 * kk][1], a[0], a_lo[0]);
+      split_bf16(s[2 * kk][2], s[2 * kk][3], a[1], a_lo[1]);
+      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], a[2], a_lo[2]);
+      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], a[3], a_lo[3]);
+#pragma unroll
+      for (int d2 = 0; d2 < ND / 2; ++d2) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4_trans(sVt + swz<D>(kk * 16 + (lane & 7) + ((mi & 1) << 3), d2 * 2 + (mi >> 1)),
+                      b0, b1, b2, b3);
+        mma_bf16(acc[2 * d2], a, b0, b1);
+        mma_bf16(acc[2 * d2], a_lo, b0, b1);
+        mma_bf16(acc[2 * d2 + 1], a, b2, b3);
+        mma_bf16(acc[2 * d2 + 1], a_lo, b2, b3);
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();   // no copy into the Q tile is still in flight (n_kt == 0 too)
+
+  // epilogue: O / l as bf16 through the warp's own 16 rows of the Q tile
+  float l[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = l_run[r];
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const float inv0 = l[0] > 0.f ? 1.f / l[0] : 0.f;
+  const float inv1 = l[1] > 0.f ? 1.f / l[1] : 0.f;
+  unsigned char* stage = smem;
+  const int wr = warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    const uint32_t col = (lane & 3) * 4;
+    *reinterpret_cast<uint32_t*>(stage + swz<D>(wr, j) + col) =
+        pack_bf16(acc[j][0] * inv0, acc[j][1] * inv0);
+    *reinterpret_cast<uint32_t*>(stage + swz<D>(wr + 8, j) + col) =
+        pack_bf16(acc[j][2] * inv1, acc[j][3] * inv1);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int r = warp * 16 + i / CH, c = i % CH, qr = q0 + r;
+    if (qr < Sq)
+      *reinterpret_cast<uint4*>(ob + static_cast<size_t>(qr) * D + c * 8) =
+          *reinterpret_cast<const uint4*>(stage + swz<D>(r, c));
+  }
+  if (LSE && (lane & 3) == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qr = row_a + r * 8;
+      if (qr < Sq)
+        lse[(static_cast<size_t>(b) * H + h) * Sq + qr] =
+            l[r] > 0.f ? m_run[r] * kLn2 + logf(l[r]) : 0.f;
+    }
+  }
+}
+
+template <int D, bool LSE>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
+                       int B, int H, int KH, int Sq, int Sk, int kv_len, int q_offset,
+                       int causal, float scale, cudaStream_t stream) {
+  constexpr int smem = 5 * TILE * D * 2;   // Q + 2 K stages + 2 V stages
+  static std::atomic<uint32_t> done{0};
+  cudaError_t err = allow_smem(flash_fwd_mma_kernel<D, LSE>, smem, done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + TILE - 1) / TILE, H, B);
+  flash_fwd_mma_kernel<D, LSE><<<grid, NT, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, H, KH, Sq,
+      Sk, kv_len, q_offset, causal, scale);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// float32: the exact scalar path
+// ---------------------------------------------------------------------------
 
 template <int D>
-constexpr size_t smem_bytes() {
+constexpr size_t smem_bytes_f32() {
   // Qs[TILE][D] + Ks[TILE][D+1] + Vs[TILE][D] + Ps[TILE][TILE+1] + m,l,corr
   return sizeof(float) *
          (TILE * D + TILE * (D + 1) + TILE * D + TILE * (TILE + 1) + 3 * TILE);
 }
 
-template <typename T, int D, bool LSE>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int H, int KH, int Sq, int Sk,
-                 int kv_len, int q_offset, int causal, float scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                        // [TILE][D]
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int H, int KH, int Sq, int Sk,
+                     int kv_len, int q_offset, int causal, float scale) {
+  extern __shared__ float smem_f[];
+  float* Qs = smem_f;                      // [TILE][D]
   float* Ks = Qs + TILE * D;               // [TILE][D + 1]
   float* Vs = Ks + TILE * (D + 1);         // [TILE][D]
   float* Ps = Vs + TILE * D;               // [TILE][TILE + 1] scores, then probs
@@ -85,14 +423,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kh = h / (H / KH);
   const int tid = threadIdx.x;
 
-  const T* qb = q + (static_cast<size_t>(b) * H + h) * Sq * D;
-  const T* kb = k + (static_cast<size_t>(b) * KH + kh) * Sk * D;
-  const T* vb = v + (static_cast<size_t>(b) * KH + kh) * Sk * D;
-  T* ob = o + (static_cast<size_t>(b) * H + h) * Sq * D;
+  const float* qb = q + (static_cast<size_t>(b) * H + h) * Sq * D;
+  const float* kb = k + (static_cast<size_t>(b) * KH + kh) * Sk * D;
+  const float* vb = v + (static_cast<size_t>(b) * KH + kh) * Sk * D;
+  float* ob = o + (static_cast<size_t>(b) * H + h) * Sq * D;
 
   for (int i = tid; i < TILE * D; i += NT) {
     const int r = i / D, qr = q0 + r;
-    Qs[i] = qr < Sq ? to_f32(qb[static_cast<size_t>(qr) * D + i % D]) : 0.f;
+    Qs[i] = qr < Sq ? qb[static_cast<size_t>(qr) * D + i % D] : 0.f;
   }
   if (tid < TILE) {
     row_m[tid] = NEG;
@@ -119,8 +457,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = i / D, d = i % D, kr = k0 + r;
       float kx = 0.f, vx = 0.f;
       if (kr < Sk) {
-        kx = to_f32(kb[static_cast<size_t>(kr) * D + d]);
-        vx = to_f32(vb[static_cast<size_t>(kr) * D + d]);
+        kx = kb[static_cast<size_t>(kr) * D + d];
+        vx = vb[static_cast<size_t>(kr) * D + d];
       }
       Ks[r * (D + 1) + d] = kx;
       Vs[r * D + d] = vx;
@@ -182,7 +520,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int e = tid + j * NT, r = e / D, qr = q0 + r;
     if (qr < Sq) {
       const float l = row_l[r];
-      ob[static_cast<size_t>(qr) * D + e % D] = from_f32<T>(l > 0.f ? acc[j] / l : 0.f);
+      ob[static_cast<size_t>(qr) * D + e % D] = l > 0.f ? acc[j] / l : 0.f;
     }
   }
   if (LSE && tid < TILE && q0 + tid < Sq) {
@@ -192,43 +530,50 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
-                   int B, int H, int KH, int Sq, int Sk, int kv_len, int q_offset,
-                   int causal, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  auto kern = lse != nullptr ? flash_fwd_kernel<T, D, true> : flash_fwd_kernel<T, D, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+template <int D, bool LSE>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
+                       int B, int H, int KH, int Sq, int Sk, int kv_len, int q_offset,
+                       int causal, float scale, cudaStream_t stream) {
+  constexpr int smem = static_cast<int>(smem_bytes_f32<D>());
+  static std::atomic<uint32_t> done{0};
+  cudaError_t err = allow_smem(flash_fwd_f32_kernel<D, LSE>, smem, done);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + TILE - 1) / TILE, H, B);
-  kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, H, KH, Sq, Sk, kv_len, q_offset, causal, scale);
+  flash_fwd_f32_kernel<D, LSE><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, H, KH, Sq, Sk, kv_len, q_offset, causal, scale);
   return cudaGetLastError();
 }
 
+using Launch = cudaError_t (*)(const void*, const void*, const void*, void*, float*, int, int,
+                               int, int, int, int, int, int, float, cudaStream_t);
+
+template <int D>
+Launch pick(int dtype, bool with_lse) {
+  if (dtype == 0) return with_lse ? launch_f32<D, true> : launch_f32<D, false>;
+  return with_lse ? launch_mma<D, true> : launch_mma<D, false>;
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
 }  // namespace
 
-// C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16; lse is
-// a (B,H,Sq) float32 output or null. Returns a cudaError_t (0 on success);
-// the launch does not synchronise.
+// C interface, loaded with ctypes. dtype: 0 = float32 (scalar path), 1 =
+// bfloat16 (tensor cores; q, k, v and o 16-byte aligned); lse is a (B,H,Sq)
+// float32 output or null. Returns a cudaError_t (0 on success); the launch
+// does not synchronise.
 extern "C" int tsl_flash_attention_fwd(const void* q, const void* k, const void* v,
                                        void* o, float* lse, int B, int H, int KH, int Sq,
                                        int Sk, int D, int kv_len, int q_offset,
                                        int causal, float scale, int dtype,
                                        void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (H <= 0 || KH <= 0 || H % KH != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, o, lse, B, H, KH, Sq, Sk, kv_len, q_offset, causal, scale, s);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, o, lse, B, H, KH, Sq, Sk, kv_len, q_offset, causal, scale, s);
-  if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, lse, B, H, KH, Sq, Sk, kv_len, q_offset, causal,
-                                     scale, s);
-  if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, lse, B, H, KH, Sq, Sk, kv_len, q_offset, causal,
-                                      scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1 && !(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Launch fn = D == 64 ? pick<64>(dtype, lse != nullptr)
+              : D == 128 ? pick<128>(dtype, lse != nullptr) : nullptr;
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(fn(q, k, v, o, lse, B, H, KH, Sq, Sk, kv_len, q_offset, causal,
+                             scale, static_cast<cudaStream_t>(stream)));
 }

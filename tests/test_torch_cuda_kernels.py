@@ -109,6 +109,11 @@ def test_flash_attention_rejects_what_it_does_not_take(dev):
     q = rand(1, 2, 64, 8).transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(q, q, q)
+    # contiguous, but 2 bytes off the 16-byte alignment the bf16 path's
+    # cp.async copies need: the launch is refused, and the refusal raises
+    q = rand(2 * 64 * 64 + 1)[1:].view(1, 2, 64, 64)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa.flash_attention(q, q, q)
 
 
 def _paged_operands(dev, dtype, b, h, kh, d, page, sq, kv_lens, width, seed=0):
@@ -428,17 +433,31 @@ def test_wrappers_keep_the_graph_and_match_plain_gradients(dev, dtype):
 
 # planted faults in copies of the CUDA sources: (file, old, new). Each must
 # make the card gates fail; the copies are built from a temporary directory.
+# A forward fault is planted in both paths of flash_attention.cu, the bf16
+# tensor-core kernel and the float32 scalar one, so it shows in both dtypes.
+# tests/test_torch_kernel_sources.py checks on the host that every `old`
+# string is still in its source.
 CUDA_FAULTS = {
     "dk_one_head_zeroed": [("flash_attention_bwd.cu", "dk[at] = acc_k[j] * scale;",
                             "dk[at] = h == H - 1 ? 0.f : acc_k[j] * scale;")],
     "dq_scale_dropped": [("flash_attention_bwd.cu", "from_f32<T>(acc[j] * scale)",
                           "from_f32<T>(acc[j])")],
-    "lse_not_zeroed_on_rows_without_keys": [("flash_attention.cu",
-                                             "l > 0.f ? row_m[tid] + logf(l) : 0.f;",
-                                             "row_m[tid] + logf(l);")],
+    "lse_not_zeroed_on_rows_without_keys": [
+        ("flash_attention.cu", "l[r] > 0.f ? m_run[r] * kLn2 + logf(l[r]) : 0.f;",
+         "m_run[r] * kLn2 + logf(l[r]);"),
+        ("flash_attention.cu", "l > 0.f ? row_m[tid] + logf(l) : 0.f;",
+         "row_m[tid] + logf(l);")],
     "causal_diagonal_off_by_one": [
+        ("flash_attention.cu", "causal && kpos > qpos + q_offset",
+         "causal && kpos >= qpos + q_offset"),
         ("flash_attention.cu", "kpos <= q0 + r + q_offset", "kpos < q0 + r + q_offset"),
         ("flash_attention_bwd.cu", "kpos <= qpos + q_offset", "kpos < qpos + q_offset")],
+    # the online softmax's rescale of the running sum and output dropped
+    "softmax_rescale_dropped": [
+        ("flash_attention.cu", "const float corr = exp2f(m_run[r] - m_use);",
+         "const float corr = 1.f;"),
+        ("flash_attention.cu", "const float corr = expf(m_prev - m_new);",
+         "const float corr = 1.f;")],
 }
 
 
@@ -541,12 +560,13 @@ def test_card_glue_gate_fails_on_planted_fault(dev, monkeypatch, fault, dtype):
 # them. Every other fault must fail the float32 grads gate. NOT_SEEN lists
 # the (fault, gate) pairs that pass although the fault is live: each is a
 # fault that gate does not show. They are printed, not asserted.
-# Measured on the card (H100 80GB HBM3, 700 W) with bf16 params: the delta
-# fault moves the worst leaf to rel 0.0269 where the sound run reads 0.0256,
-# and the loss curve by 3.96e-4 of the loss; one head's dk zeroed moves the
-# loss curve by 5.6e-4, while the sound run's own curve differs by 1.05e-3.
-# With float32 params the delta fault moves the loss curve by 9.66e-5 of the
-# loss, just inside LOSS_REL_F32, and the worst leaf to rel 3.3e-3.
+# Measured on the card (H100 80GB HBM3, 700 W, the tensor-core forward) with
+# bf16 params: under the delta fault the worst leaf reads rel 0.0278, as the
+# sound run's does, and the loss curve 1.72e-3 of the loss; one head's dk
+# zeroed moves the loss curve by 1.35e-3, while the sound run's own curve
+# differs by 9.8e-4. With float32 params the delta fault moves the loss curve
+# by 9.66e-5 of the loss, just inside LOSS_REL_F32, and the worst leaf to rel
+# 3.3e-3.
 NO_OP_AT_FULL_WIDTH = {"gqa_sum_group_0_only", "lse_not_zeroed_on_rows_without_keys"}
 NOT_SEEN = {("delta_from_bf16_product", "grads_bf16"), ("delta_from_bf16_product", "loss_bf16"),
             ("delta_from_bf16_product", "loss_f32"), ("dk_one_head_zeroed", "loss_bf16")}
