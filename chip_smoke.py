@@ -12,16 +12,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    card at the main paths' shapes and holds it against its plain PyTorch
    version on the same inputs within the stated tolerance; times kernel,
    plain version and the one PyTorch library call that computes the same
-   function (a yardstick only: the port never calls it) with CUDA events,
-   and computes each case's bound from the bytes and operations its inputs
-   need against the H100 SXM datasheet peaks. The flash-attention cases
-   (here and in 5a) time kernel, plain version and yardstick by device
-   time only, CUDA events around replays of a CUDA graph that captured the
-   calls (DEVICE_TIMING), since a kernel shorter than the host's enqueue
-   leaves events around a loop of calls timing the host; the events time
-   and the host enqueue stand beside it. Phase 1 also counts, from cuobjdump -sass of the built flash
-   library, the tensor-core (HMMA / HGMMA) instructions of each forward
-   instantiation, and fails if a bf16 one has none. No single PyTorch call
+   function (a yardstick only: the port never calls it), and computes each
+   case's bound from the bytes and operations its inputs need against the
+   H100 SXM datasheet peaks. Every kernel row (here and in 5a) is timed by
+   one timer, _timed_device: device time, CUDA events around replays of a
+   CUDA graph that captured the calls (DEVICE_TIMING), since a kernel
+   shorter than the host's enqueue leaves events around a loop of calls
+   timing the host; the events time and the host enqueue stand beside it.
+   The paged plain version reads the block tables on the host, which a
+   graph cannot capture: it alone is timed by events. Phase 1 also prints,
+   per instantiation of the flash forward and backward libraries, ptxas's
+   registers and spills and the tensor-core (HMMA / HGMMA) instructions in
+   its SASS (cuobjdump -sass), and fails if a bf16 one (forward, dq, dk/dv
+   at D 64 and 128) spills or has none, or a float32 one has any. No single PyTorch call
    computes paged attention: its yardstick is scaled_dot_product_attention
    on the same rows already gathered into contiguous lanes (gather not
    timed). torch.histc(x, bins=1, min=lo, max=hi) counts a range (both ends
@@ -237,28 +240,46 @@ def graph_ms(fn, iters: int, replays: int = 5) -> float:
     return start.elapsed_time(end) / (replays * iters)
 
 
-def _timed_device(case: dict, kernel_fn, plain_fn, library_fn, iters: int) -> dict:
-    """Kernel, plain version and yardstick by device time only (``ms``,
-    ``plain_ms``, ``library_ms``), with the events time of each and the
-    kernel's host enqueue beside them. The plain version, which holds the
-    (Sq, Sk) scores, is captured 3 calls at a time."""
+def _timed_device(case: dict, kernel_fn, plain_fn, library_fn, iters: int,
+                  plain_in_graph: bool = True) -> dict:
+    """The one timer of every kernel row: kernel, plain version and
+    yardstick by device time (``ms``, ``plain_ms``, ``library_ms``;
+    DEVICE_TIMING), with the events time of each and the kernel's host
+    enqueue beside them. The plain version (the flash ones hold the (Sq, Sk)
+    scores) is captured 3 calls at a time; ``plain_in_graph=False`` times a
+    plain version that reads device data on the host, which a graph cannot
+    capture, by events only (``plain_timing`` says so)."""
     case["ms"], case["events_ms"] = graph_ms(kernel_fn, iters), cuda_ms(kernel_fn, iters)
     case["host_us"] = host_us(kernel_fn, 50)
-    case["plain_ms"], case["plain_events_ms"] = graph_ms(plain_fn, 3), cuda_ms(plain_fn, iters)
+    case["plain_events_ms"] = cuda_ms(plain_fn, iters)
+    case["plain_ms"] = graph_ms(plain_fn, 3) if plain_in_graph else case["plain_events_ms"]
     case["library_ms"] = case["library_events_ms"] = None
     if library_fn is not None:
         case["library_ms"] = graph_ms(library_fn, iters)
         case["library_events_ms"] = cuda_ms(library_fn, iters)
     case["timing"] = DEVICE_TIMING
+    if not plain_in_graph:
+        case["plain_timing"] = "CUDA events around a loop of calls"
     return case
 
 
-def tensor_core_counts(lib_path: Path) -> dict | None:
-    """HMMA / HGMMA instructions per flash forward kernel instantiation in
-    the library's SASS (cuobjdump -sass), keyed "bf16|f32 D<d> lse|serving";
-    None when the toolkit has no cuobjdump."""
+def kernel_label(mangled: str) -> str | None:
+    """"flash_bwd_dkv_mma_kernel<64, 64>" for a flash kernel's mangled name
+    (template arguments: ints, bools, float), None for any other symbol."""
     import re
 
+    m = re.search(r"(flash_(?:fwd|bwd)_\w+?_kernel)I(.+?)EEv", mangled)
+    if m is None:
+        return None
+    args = [n or ("true" if b == "1" else "false") if (n or b) else "float"
+            for n, b, _ in re.findall(r"Li(\d+)|Lb([01])|(f)", m[2])]
+    return f"{m[1]}<{', '.join(args)}>"
+
+
+def tensor_core_counts(lib_path: Path) -> dict | None:
+    """HMMA / HGMMA instructions per flash kernel instantiation in the
+    library's SASS (cuobjdump -sass), keyed by kernel_label; None when the
+    toolkit has no cuobjdump."""
     from repro_torch.kernels.common import nvcc
 
     tool = Path(nvcc()).parent / "cuobjdump"
@@ -269,14 +290,51 @@ def tensor_core_counts(lib_path: Path) -> dict | None:
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"flash_fwd_(mma|f32)_kernelILi(\d+)ELb([01])E", line)
-            name = None if m is None else (f"{'bf16' if m[1] == 'mma' else 'f32'} D{m[2]} "
-                                           f"{'lse' if m[3] == '1' else 'serving'}")
+            name = kernel_label(line)
             if name is not None:
                 counts[name] = 0
         elif name is not None and ("HMMA" in line or "HGMMA" in line):
             counts[name] += 1
     return counts
+
+
+FLASH_MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+                     "flash_bwd_dkv_mma_kernel")
+
+
+def tensor_core_gate(counts: dict) -> None:
+    """Raise unless every bf16 flash kernel (FLASH_MMA_KERNELS) has an
+    instantiation at D 64 and at D 128 and each has tensor-core
+    instructions, and no float32 instantiation has any (``counts``: HMMA /
+    HGMMA per kernel_label, both flash libraries)."""
+    bf16 = {k: n for k, n in counts.items() if "_mma_" in k}
+    f32 = {k: n for k, n in counts.items() if "_mma_" not in k}
+    have = {(k.split("<")[0], k.split("<")[1].split(",")[0].rstrip(">")) for k in bf16}
+    want = {(name, d) for name in FLASH_MMA_KERNELS for d in ("64", "128")}
+    if not want <= have or not all(bf16.values()) or not f32 or any(f32.values()):
+        raise AssertionError(f"flash instantiations: want HMMA in every bf16 one (forward, "
+                             f"dq and dk/dv at D 64 and 128) and none in the float32 ones; "
+                             f"got {counts}")
+
+
+def ptxas_report(build_log: str) -> dict:
+    """Registers and spill bytes per flash kernel from ``nvcc -Xptxas -v``'s
+    output (the library's build.log), keyed by kernel_label."""
+    import re
+
+    out, name = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = kernel_label(m[1])
+            if name is not None:
+                out[name] = {}
+        elif name is not None and (m := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out[name]["spill_bytes"] = int(m[1]) + int(m[2])
+        elif name is not None and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = int(m[1])
+    return out
 
 
 def host_us(fn, iters: int = 200) -> float:
@@ -373,23 +431,35 @@ def kernel_phase(dev) -> list[dict]:
         list(pool.map(lambda build: build(), cuda.values()))
     print(f"[phase1] {', '.join(cuda)} built in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for name in cuda:
+    flash_libs = {"flash_attention": fa_kernel.SOURCES,
+                  "flash_attention_bwd": fa_kernel.BWD_SOURCES}
+    for name in cuda.keys() - flash_libs.keys():
         digest = "[0-9a-f]" * 12
         for log in sorted(KERNEL_BUILD_ROOT.glob(f"{name}_{digest}/build.log")):
             regs = [ln.strip() for ln in log.read_text().splitlines()
                     if "registers" in ln or "spill" in ln]
             print(f"[phase1] ptxas {name}:", "; ".join(regs), flush=True)
-    mma = tensor_core_counts(build_shared_library("flash_attention", fa_kernel.SOURCES))
-    if mma is None:
-        print("[phase1] SASS: the toolkit has no cuobjdump; HMMA / HGMMA not counted",
-              flush=True)
-    else:
-        print(f"[phase1] SASS HMMA / HGMMA instructions per flash forward instantiation: "
-              f"{json.dumps(mma)}", flush=True)
-        bf16 = {k: n for k, n in mma.items() if k.startswith("bf16")}
-        if len(bf16) != 4 or not all(bf16.values()):
-            raise AssertionError(f"bf16 flash forward instantiations without tensor-core "
-                                 f"instructions: {mma}")
+    # the flash libraries per instantiation: registers, spills, tensor-core
+    # instructions (the bf16 ones, forward and backward, run on the tensor
+    # cores without spilling; the float32 ones are scalar)
+    mma = {}
+    for name, sources in flash_libs.items():
+        lib = build_shared_library(name, sources)
+        regs = ptxas_report((lib.parent / "build.log").read_text())
+        print(f"[phase1] ptxas {name} per instantiation: {json.dumps(regs)}", flush=True)
+        spilled = {k: r for k, r in regs.items() if "_mma_" in k and r.get("spill_bytes")}
+        if spilled:
+            raise AssertionError(f"bf16 flash instantiations that spill: {spilled}")
+        counts = tensor_core_counts(lib)
+        if counts is None:
+            print(f"[phase1] SASS: the toolkit has no cuobjdump; HMMA / HGMMA of {name} "
+                  f"not counted", flush=True)
+            continue
+        mma.update(counts)
+        print(f"[phase1] SASS HMMA / HGMMA instructions per {name} instantiation: "
+              f"{json.dumps(counts)}", flush=True)
+    if mma:
+        tensor_core_gate(mma)
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -406,9 +476,8 @@ def kernel_phase(dev) -> list[dict]:
         want = rn.ref.rmsnorm(x, w)
         c = {"shape": [rows, 1024], "dtype": "bfloat16",
              **check_case("rmsnorm", (rows, 1024), got, want, x.dtype)}
-        c["ms"] = cuda_ms(lambda: rn.rmsnorm(x, w), 100)
-        c["plain_ms"] = cuda_ms(lambda: rn.ref.rmsnorm(x, w), 100)
-        c["library_ms"] = cuda_ms(lambda: F.rms_norm(x, (1024,), w, 1e-6), 100)
+        _timed_device(c, lambda: rn.rmsnorm(x, w), lambda: rn.ref.rmsnorm(x, w),
+                      lambda: F.rms_norm(x, (1024,), w, 1e-6), 100)
         c["bound_ms"], c["bound_by"] = bound((2 * rows * 1024 + 1024) * 2,
                                              4 * rows * 1024, x.dtype)
         cases.append(c)
@@ -422,9 +491,8 @@ def kernel_phase(dev) -> list[dict]:
         want = sw.ref.swiglu(gt, up)
         c = {"shape": [rows, 2816], "dtype": "bfloat16",
              **check_case("swiglu", (rows, 2816), got, want, gt.dtype)}
-        c["ms"] = cuda_ms(lambda: sw.swiglu(gt, up), 100)
-        c["plain_ms"] = cuda_ms(lambda: sw.ref.swiglu(gt, up), 100)
-        c["library_ms"] = cuda_ms(lambda: F.silu(gt) * up, 100)
+        _timed_device(c, lambda: sw.swiglu(gt, up), lambda: sw.ref.swiglu(gt, up),
+                      lambda: F.silu(gt) * up, 100)
         c["bound_ms"], c["bound_by"] = bound(3 * rows * 2816 * 2, 4 * rows * 2816,
                                              gt.dtype)
         cases.append(c)
@@ -505,11 +573,13 @@ def kernel_phase(dev) -> list[dict]:
                   f"library {lib} bound {c['bound_ms']:.4f} ms "
                   f"({c['bound_by']})"
                   + (f" {c['note']}" if "note" in c else "")
-                  + (f"; events: kernel {c['events_ms']:.4f} ms library "
-                     f"{c['library_events_ms']:.4f} ms; device times by {c['timing']}"
-                     if "timing" in c else "")
-                  + (f"; host enqueue us {json.dumps(c['host_us'])}" if "host_us" in c
-                     else ""), flush=True)
+                  + f"; events: kernel {c['events_ms']:.4f} ms plain "
+                    f"{c['plain_events_ms']:.4f} ms library "
+                    + ("—" if c["library_events_ms"] is None
+                       else f"{c['library_events_ms']:.4f} ms")
+                  + f"; device times by {c['timing']}"
+                  + (f" (plain version: {c['plain_timing']})" if "plain_timing" in c else "")
+                  + f"; host enqueue us {json.dumps(c['host_us'])}", flush=True)
     return rows
 
 
@@ -561,22 +631,23 @@ def paged_cases(dev, pa) -> list[dict]:
         want = pa.ref.paged_attention_ref(q, k, v, tables, kv_len)
         c = {"shape": shape, "dtype": str(dt).removeprefix("torch."), "kv_len": kv_lens,
              "main": main, **check_case("paged_attention", shape, got, want, dt)}
-        c["ms"] = cuda_ms(lambda: pa.paged_attention(q, k, v, tables, kv_len), 50)
-        c["plain_ms"] = cuda_ms(lambda: pa.ref.paged_attention_ref(q, k, v, tables,
-                                                                   kv_len), 10)
         # yardstick: SDPA on the same rows gathered into contiguous lanes
         lanes_k = k[:, tables.long()].permute(1, 0, 2, 3, 4).reshape(b, kh, -1, d)
         lanes_v = v[:, tables.long()].permute(1, 0, 2, 3, 4).reshape(b, kh, -1, d)
         qpos = kv_len.long()[:, None] - sq + torch.arange(sq, device=dev)[None, :]
         mask = (torch.arange(width * page, device=dev)[None, None, :]
                 <= qpos[:, :, None])[:, None]                    # (B, 1, SQ, S)
-        c["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, lanes_k, lanes_v, attn_mask=mask, enable_gqa=h != kh), 50)
+        # the plain version reads the tables on the host: not graph-captured
+        _timed_device(c, lambda: pa.paged_attention(q, k, v, tables, kv_len),
+                      lambda: pa.ref.paged_attention_ref(q, k, v, tables, kv_len),
+                      lambda: F.scaled_dot_product_attention(
+                          q, lanes_k, lanes_v, attn_mask=mask, enable_gqa=h != kh), 50,
+                      plain_in_graph=False)
         if main:
             # host time to enqueue one call (no synchronise inside the loop)
             out = torch.empty_like(q)
             c["host_us"] = {
-                "wrapper": host_us(lambda: pa.paged_attention(q, k, v, tables, kv_len)),
+                "wrapper": c["host_us"],
                 "launcher": host_us(lambda: pa.kernel.paged_attention_4d(
                     q, k, v, tables, kv_len, out, tile=64, scale=d ** -0.5)),
                 "library": host_us(lambda: F.scaled_dot_product_attention(
@@ -592,14 +663,6 @@ def paged_cases(dev, pa) -> list[dict]:
             + 4 * touched + 4 * b, 4 * pairs * d, dt)
         cases.append(c)
     return cases
-
-
-def _timed(case: dict, kernel_fn, plain_fn, library_fn, iters: int) -> dict:
-    """Adds the kernel's, the plain version's and the library call's ms."""
-    case["ms"] = cuda_ms(kernel_fn, iters)
-    case["plain_ms"] = cuda_ms(plain_fn, iters)
-    case["library_ms"] = cuda_ms(library_fn, iters) if library_fn is not None else None
-    return case
 
 
 def range_count_cases(dev) -> list[dict]:
@@ -642,9 +705,10 @@ def range_count_cases(dev) -> list[dict]:
         # bounds count what the kernel counts; an empty input is not timed
         histc = n > 0 and (data.dtype == torch.float32
                            or isinstance(lo, int) and isinstance(hi, int))
-        _timed(c, lambda: rc.range_count(data, lo, hi),
-               lambda: rc.ref.range_count(data, lo, hi),
-               (lambda: torch.histc(data, bins=1, min=lo, max=hi)) if histc else None, iters)
+        _timed_device(c, lambda: rc.range_count(data, lo, hi),
+                      lambda: rc.ref.range_count(data, lo, hi),
+                      (lambda: torch.histc(data, bins=1, min=lo, max=hi)) if histc else None,
+                      iters)
         c["bound_ms"], c["bound_by"] = bound(n * data.element_size() + 4, 3 * n,
                                              torch.int32 if data.dtype == torch.int32
                                              else torch.float32)
@@ -694,8 +758,8 @@ def hadd_cases(dev) -> list[dict]:
         if note:
             c["note"] = note
         iters = 10 if x.numel() >= APP_I32_N else 50
-        _timed(c, lambda: ha.hadd(x), lambda: ha.ref.hadd(x),
-               lambda: torch.sum(x, -1, dtype=x.dtype), iters)
+        _timed_device(c, lambda: ha.hadd(x), lambda: ha.ref.hadd(x),
+                      lambda: torch.sum(x, -1, dtype=x.dtype), iters)
         rows = math.prod(x.shape[:-1])
         c["bound_ms"], c["bound_by"] = bound(
             (x.numel() + rows) * x.element_size(), x.numel(),
@@ -731,8 +795,8 @@ def to_integral_cases(dev) -> list[dict]:
         shape = list(m.shape)
         c = {"shape": shape, "dtype": str(m.dtype).removeprefix("torch."), "main": main,
              **check_exact("to_integral", shape, ti.to_integral(m), ti.ref.to_integral(m))}
-        _timed(c, lambda: ti.to_integral(m), lambda: ti.ref.to_integral(m), None,
-               10 if m.numel() >= APP_I32_N else 50)
+        _timed_device(c, lambda: ti.to_integral(m), lambda: ti.ref.to_integral(m), None,
+                      10 if m.numel() >= APP_I32_N else 50)
         c["bound_ms"], c["bound_by"] = bound(m.numel() + 4 * shape[0], m.numel(),
                                              torch.int32)
         cases.append(c)
@@ -782,8 +846,8 @@ def softmax_cases(dev) -> list[dict]:
         c = {"shape": shape, "dtype": str(x.dtype).removeprefix("torch."), "main": main,
              **check_case("softmax", shape, sm.softmax(x), sm.ref.softmax(x), x.dtype,
                           nan_ok=True, atol_scale=1 / shape[-1])}
-        _timed(c, lambda: sm.softmax(x), lambda: sm.ref.softmax(x),
-               lambda: torch.softmax(x, -1), 20)
+        _timed_device(c, lambda: sm.softmax(x), lambda: sm.ref.softmax(x),
+                      lambda: torch.softmax(x, -1), 20)
         c["bound_ms"], c["bound_by"] = bound(2 * x.numel() * x.element_size(),
                                              5 * x.numel(), torch.float32)
         cases.append(c)
@@ -1587,17 +1651,24 @@ def train_phase(dev, gpu: str) -> dict:
     # where the profiled step's device time goes
     prof = steps[-1]
     by = prof.pop("by_kernel_ms")
-    share = {"flash_fwd": 0.0, "flash_bwd_dq_kernel": 0.0,
-             "flash_bwd_dkv_kernel": 0.0, "gemm": 0.0}
+    # the flash keys match both paths' kernel names (the bf16 *_mma_kernel and
+    # the float32 *_kernel); which names each key took is kept beside it
+    share = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0, "gemm": 0.0}
+    matched: dict[str, list] = {k: [] for k in share}
     for name, ms in by.items():
         low = name.lower()
-        key = next((k for k in share if k in name), None)
+        key = next((k for k in share if k + "_" in name), None)
         if key is None and any(t in low for t in ("gemm", "cutlass", "xmma", "cublas",
                                                   "nvjet")):
             key = "gemm"
         if key is not None:
             share[key] += ms
+            matched[key].append(name[:100])
     busy = prof["device_busy_ms"]
+    if busy > 0 and not all(share[k] > 0 for k in ("flash_fwd", "flash_bwd_dq",
+                                                   "flash_bwd_dkv")):
+        raise AssertionError(f"the traced step shows no time for a flash kernel that "
+                             f"launched in it: {share}; kernels {sorted(by)[:40]}")
     logits = torch.randn(TRAIN_BATCH * TRAIN_SEQ, cfg.padded_vocab, device=dev,
                          dtype=torch.bfloat16, requires_grad=True)
     labels = batch["labels"].reshape(-1)
@@ -1609,7 +1680,8 @@ def train_phase(dev, gpu: str) -> dict:
     where = {"top_kernels_ms": dict(sorted(by.items(), key=lambda kv: -kv[1])[:12]),
              "share_of_busy": ({k: v / busy for k, v in share.items()} if busy > 0 else
                                "not measured (the profiler recorded no device time)"),
-             "ms": share, "cross_entropy_fwd_bwd_ms": cuda_ms(xent, 5)}
+             "ms": share, "kernels_matched": matched,
+             "cross_entropy_fwd_bwd_ms": cuda_ms(xent, 5)}
     if busy > 0:
         where["cross_entropy_share_of_busy"] = where["cross_entropy_fwd_bwd_ms"] / busy
     del logits

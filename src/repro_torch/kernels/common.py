@@ -4,7 +4,8 @@ plain C interface, loaded with ``ctypes``.
 
 A shared library is built at first use from the sources in the checkout into
 ``build/torch_kernels/<name>_<digest>/``, where the digest hashes the
-sources and the compiler flags: a source edit rebuilds, an unchanged
+sources, the headers (``*.cuh``) beside them and the compiler flags: a
+source or header edit rebuilds, an unchanged
 checkout reuses the library. The build publishes with ``os.replace``, so a
 process building at the same time never loads a half-written file. A failed build raises
 with the compiler's output; nothing falls back to a plain version."""
@@ -79,11 +80,13 @@ def nvcc() -> str:
 
 def build_shared_library(name: str, sources: list[Path]) -> Path:
     """Compile ``sources`` for sm_90a into ``lib<name>.so`` (cached by
-    content digest) and return its path. The compiler's output, including
+    the digest of the sources and the ``*.cuh`` headers beside them) and
+    return its path. The compiler's output, including
     ``-Xptxas -v``'s registers / shared memory / spills per kernel, is kept
     beside it as ``build.log``."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    headers = sorted({p for src in sources for p in src.parent.glob("*.cuh")})
+    for src in [*sources, *headers]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out_dir = KERNEL_BUILD_ROOT / f"{name}_{h.hexdigest()[:12]}"

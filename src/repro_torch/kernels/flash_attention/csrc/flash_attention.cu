@@ -55,6 +55,8 @@
 //     the threads that own the row;
 //   * the shared-memory limit is raised once per instantiation and card,
 //     not on every launch.
+// The building blocks (swizzled tiles, cp.async, ldmatrix, mma.sync, the
+// split of P) are in flash_mma.cuh, shared with the backward.
 // Shared memory: (1 + 2 + 2) * 64 * D * 2 bytes = 40 KB at D 64, 80 KB at
 // D 128.
 //
@@ -71,111 +73,17 @@
 #include <cmath>
 #include <cstdint>
 
+#include "flash_mma.cuh"
+
 namespace {
 
 constexpr int TILE = 64;        // q rows per block, k rows per tile
 constexpr int NT = 128;         // threads per block (4 warps)
 constexpr float NEG = -1e30f;   // masked score of the float32 path (the refs' sentinel)
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-// Raise a kernel's dynamic shared-memory limit once per card: `done` holds
-// one bit per device ordinal the attribute was set on.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kern, int bytes, std::atomic<uint32_t>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint32_t bit = 1u << (dev & 31);
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
-}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (mma.sync m16n8k16) fed by cp.async
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// byte offset of 16-byte chunk c of row r in a [TILE][D] bf16 tile; the
-// chunk index is XOR-ed with the row's low 3 bits, so the 8 rows an
-// ldmatrix phase reads land on 8 different groups of 4 banks
-template <int D>
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return static_cast<uint32_t>((r * (D / 8) + (c ^ (r & 7))) * 16);
-}
-
-// 16 bytes global -> shared, asynchronously; zero-fills when !valid (src
-// is then not read)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r1,
-                                        uint32_t& r2, uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0, uint32_t& r1,
-                                              uint32_t& r2, uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(addr));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats -> one register of two bf16, the first in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// two floats -> their bf16 roundings (hi) and the bf16 roundings of what
-// those leave over (lo): hi + lo carries each value to ~16 bits
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  lo = *reinterpret_cast<uint32_t*>(&l);
-}
-
-// copy rows [row0, row0 + TILE) of a (rows, D) bf16 matrix into a swizzled
-// tile, zero-filling rows >= lim; every thread issues TILE*D/8/NT copies
-template <int D>
-__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src, int row0,
-                                          int lim, int tid) {
-  constexpr int CH = D / 8;
-#pragma unroll
-  for (int j = 0; j < TILE * CH / NT; ++j) {
-    const int i = tid + j * NT, r = i / CH, c = i % CH;
-    const bool ok = row0 + r < lim;
-    cp_async16(dst + swz<D>(r, c), ok ? src + static_cast<size_t>(row0 + r) * D + c * 8 : src,
-               ok);
-  }
-}
 
 template <int D, bool LSE>
 __global__ void __launch_bounds__(NT)
@@ -198,7 +106,6 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const int b = blockIdx.z;
   const int kh = h / (H / KH);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int mi = lane >> 3;                    // which 8x8 matrix this lane addresses
 
   const __nv_bfloat16* qb = q + (static_cast<size_t>(b) * H + h) * Sq * D;
   const __nv_bfloat16* kb = k + (static_cast<size_t>(b) * KH + kh) * Sk * D;
@@ -233,9 +140,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     __syncthreads();   // tile kt landed; every warp is done with tile kt - 1's stage
     if (kt == 0) {
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        ldsm_x4(sQ + swz<D>(warp * 16 + (lane & 7) + ((mi & 1) << 3), ks * 2 + (mi >> 1)),
-                qf[ks][0], qf[ks][1], qf[ks][2], qf[ks][3]);
+      for (int ks = 0; ks < KS; ++ks) ldsm_a<D>(sQ, warp * 16, ks, lane, qf[ks]);
     }
     if (kt + 1 < n_kt) {
       const uint32_t nxt = ((kt + 1) & 1) * TILE_BYTES;
@@ -256,8 +161,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 #pragma unroll
       for (int n2 = 0; n2 < NS / 2; ++n2) {
         uint32_t b0, b1, b2, b3;
-        ldsm_x4(sKt + swz<D>(n2 * 16 + (lane & 7) + ((mi >> 1) << 3), ks * 2 + (mi & 1)),
-                b0, b1, b2, b3);
+        ldsm_bt<D>(sKt, n2 * 16, ks, lane, b0, b1, b2, b3);
         mma_bf16(s[2 * n2], qf[ks], b0, b1);
         mma_bf16(s[2 * n2 + 1], qf[ks], b2, b3);
       }
@@ -317,15 +221,11 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 #pragma unroll
     for (int kk = 0; kk < TILE / 16; ++kk) {
       uint32_t a[4], a_lo[4];
-      split_bf16(s[2 * kk][0], s[2 * kk][1], a[0], a_lo[0]);
-      split_bf16(s[2 * kk][2], s[2 * kk][3], a[1], a_lo[1]);
-      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], a[2], a_lo[2]);
-      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], a[3], a_lo[3]);
+      split_a(s[2 * kk], s[2 * kk + 1], a, a_lo);
 #pragma unroll
       for (int d2 = 0; d2 < ND / 2; ++d2) {
         uint32_t b0, b1, b2, b3;
-        ldsm_x4_trans(sVt + swz<D>(kk * 16 + (lane & 7) + ((mi & 1) << 3), d2 * 2 + (mi >> 1)),
-                      b0, b1, b2, b3);
+        ldsm_b<D>(sVt, kk * 16, d2, lane, b0, b1, b2, b3);
         mma_bf16(acc[2 * d2], a, b0, b1);
         mma_bf16(acc[2 * d2], a_lo, b0, b1);
         mma_bf16(acc[2 * d2 + 1], a, b2, b3);
@@ -553,8 +453,6 @@ Launch pick(int dtype, bool with_lse) {
   if (dtype == 0) return with_lse ? launch_f32<D, true> : launch_f32<D, false>;
   return with_lse ? launch_mma<D, true> : launch_mma<D, false>;
 }
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 }  // namespace
 

@@ -25,6 +25,7 @@ from ..common import load_shared_library
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = [CSRC / "flash_attention.cu"]
 BWD_SOURCES = [CSRC / "flash_attention_bwd.cu"]
+HEADERS = [CSRC / "flash_mma.cuh"]   # the bf16 tiles, copies and products both include
 HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int

@@ -433,15 +433,20 @@ def test_wrappers_keep_the_graph_and_match_plain_gradients(dev, dtype):
 
 # planted faults in copies of the CUDA sources: (file, old, new). Each must
 # make the card gates fail; the copies are built from a temporary directory.
-# A forward fault is planted in both paths of flash_attention.cu, the bf16
-# tensor-core kernel and the float32 scalar one, so it shows in both dtypes.
+# Every fault is planted in both paths of its source, the bf16 tensor-core
+# kernels and the float32 scalar ones, so it shows in both dtypes (the
+# masking helper of flash_attention_bwd.cu serves both bf16 kernels).
 # tests/test_torch_kernel_sources.py checks on the host that every `old`
-# string is still in its source.
+# string is still in its source, once.
 CUDA_FAULTS = {
     "dk_one_head_zeroed": [("flash_attention_bwd.cu", "dk[at] = acc_k[j] * scale;",
-                            "dk[at] = h == H - 1 ? 0.f : acc_k[j] * scale;")],
+                            "dk[at] = h == H - 1 ? 0.f : acc_k[j] * scale;"),
+                           ("flash_attention_bwd.cu", "const float dk_scale = scale;",
+                            "const float dk_scale = h == H - 1 ? 0.f : scale;")],
     "dq_scale_dropped": [("flash_attention_bwd.cu", "from_f32<T>(acc[j] * scale)",
-                          "from_f32<T>(acc[j])")],
+                          "from_f32<T>(acc[j])"),
+                         ("flash_attention_bwd.cu", "dq_acc[j][e] *= scale;",
+                          "dq_acc[j][e] *= 1.f;")],
     "lse_not_zeroed_on_rows_without_keys": [
         ("flash_attention.cu", "l[r] > 0.f ? m_run[r] * kLn2 + logf(l[r]) : 0.f;",
          "m_run[r] * kLn2 + logf(l[r]);"),
@@ -451,13 +456,22 @@ CUDA_FAULTS = {
         ("flash_attention.cu", "causal && kpos > qpos + q_offset",
          "causal && kpos >= qpos + q_offset"),
         ("flash_attention.cu", "kpos <= q0 + r + q_offset", "kpos < q0 + r + q_offset"),
-        ("flash_attention_bwd.cu", "kpos <= qpos + q_offset", "kpos < qpos + q_offset")],
+        ("flash_attention_bwd.cu", "kpos <= qpos + q_offset", "kpos < qpos + q_offset"),
+        ("flash_attention_bwd.cu", "(causal && kpos > qpos + q_offset)",
+         "(causal && kpos >= qpos + q_offset)")],
     # the online softmax's rescale of the running sum and output dropped
     "softmax_rescale_dropped": [
         ("flash_attention.cu", "const float corr = exp2f(m_run[r] - m_use);",
          "const float corr = 1.f;"),
         ("flash_attention.cu", "const float corr = expf(m_prev - m_new);",
          "const float corr = 1.f;")],
+    # dk/dv's walk over the q tiles starts one tile late: the diagonal tile
+    # (or, without causality, the first) is skipped
+    "dkv_q_walk_starts_one_tile_late": [
+        ("flash_attention_bwd.cu", "const int qt_begin = q_begin / TILE;",
+         "const int qt_begin = q_begin / TILE + 1;"),
+        ("flash_attention_bwd.cu", "const int qt_first = q_first / TILE;",
+         "const int qt_first = q_first / TILE + 1;")],
 }
 
 
@@ -467,6 +481,8 @@ def _plant_cuda_fault(tmp_path, monkeypatch, fault):
     from repro_torch.kernels.common import load_shared_library
     from repro_torch.kernels.flash_attention import kernel
 
+    for header in kernel.HEADERS:
+        (tmp_path / header.name).write_text(header.read_text())
     for src in kernel.SOURCES + kernel.BWD_SOURCES:
         text = src.read_text()
         for name, old, new in CUDA_FAULTS[fault]:

@@ -50,6 +50,8 @@ def rounded_once_fwd():
         text = text.replace(line, "")
     out = ROOT / "build" / "flash_p_rounding"
     out.mkdir(parents=True, exist_ok=True)
+    for header in kernel.HEADERS:
+        (out / header.name).write_text(header.read_text())
     src = out / kernel.SOURCES[0].name
     src.write_text(text)
     return kernel.bind_fwd(load_shared_library("flash_p_rounded_once", [src]))
