@@ -21,10 +21,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    timing the host; the events time and the host enqueue stand beside it.
    The paged plain version reads the block tables on the host, which a
    graph cannot capture: it alone is timed by events. Phase 1 also prints,
-   per instantiation of the flash forward and backward libraries, ptxas's
-   registers and spills and the tensor-core (HMMA / HGMMA) instructions in
-   its SASS (cuobjdump -sass), and fails if a bf16 one (forward, dq, dk/dv
-   at D 64 and 128) spills or has none, or a float32 one has any. No single PyTorch call
+   per instantiation of the flash forward and backward and the paged
+   libraries, ptxas's registers and spills and the tensor-core (HMMA /
+   HGMMA) instructions in its SASS (cuobjdump -sass), and fails if a bf16
+   one (forward, dq, dk/dv, paged at D 64 and 128) spills or has none, or a
+   float32 one has any. The paged cases (serving, edges, GQA span, a long
+   context, batch-1 GQA, float32) print their split plan, and the main
+   paged and hadd cases their kernels per call (torch.profiler; more than
+   one fails). No single PyTorch call
    computes paged attention: its yardstick is scaled_dot_product_attention
    on the same rows already gathered into contiguous lanes (gather not
    timed). torch.histc(x, bins=1, min=lo, max=hi) counts a range (both ends
@@ -70,7 +74,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    into a batch-1 donor — each timed on the host clock (synchronised wall
    per step) and traced with torch.profiler (device busy time, kernel
    launches, the kernels that take the time). The device's idle share is
-   1 - busy / wall.
+   1 - busy / wall. The fused paged step is printed against the reading of
+   the one-block-per-sequence paged kernel before the split design (3.64 ms
+   of device busy time, 1302 launches; PERF.md §5).
 5. Train. qwen1.5-0.5b at full width (bf16 params, float32 AdamW moments),
    batch 8 x 512 seeded random tokens, through Model.loss (remat) and
    repro_torch.train.
@@ -264,11 +270,13 @@ def _timed_device(case: dict, kernel_fn, plain_fn, library_fn, iters: int,
 
 
 def kernel_label(mangled: str) -> str | None:
-    """"flash_bwd_dkv_mma_kernel<64, 64>" for a flash kernel's mangled name
-    (template arguments: ints, bools, float), None for any other symbol."""
+    """"flash_bwd_dkv_mma_kernel<64, 64>" for a flash or paged kernel's
+    mangled name (template arguments: ints, bools, float), None for any other
+    symbol. The name is the one right after its length (the Itanium ABI's
+    prefix), not a file name inside nvcc's namespace for the source."""
     import re
 
-    m = re.search(r"(flash_(?:fwd|bwd)_\w+?_kernel)I(.+?)EEv", mangled)
+    m = re.search(r"\d((?:flash_(?:fwd|bwd)|paged)_\w+?_kernel)I(.+?)EEv", mangled)
     if m is None:
         return None
     args = [n or ("true" if b == "1" else "false") if (n or b) else "float"
@@ -277,8 +285,8 @@ def kernel_label(mangled: str) -> str | None:
 
 
 def tensor_core_counts(lib_path: Path) -> dict | None:
-    """HMMA / HGMMA instructions per flash kernel instantiation in the
-    library's SASS (cuobjdump -sass), keyed by kernel_label; None when the
+    """HMMA / HGMMA instructions per flash or paged kernel instantiation in
+    the library's SASS (cuobjdump -sass), keyed by kernel_label; None when the
     toolkit has no cuobjdump."""
     from repro_torch.kernels.common import nvcc
 
@@ -298,27 +306,29 @@ def tensor_core_counts(lib_path: Path) -> dict | None:
     return counts
 
 
-FLASH_MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
-                     "flash_bwd_dkv_mma_kernel")
+# the bf16 kernels of each family, which must run on the tensor cores
+MMA_KERNELS = {"flash": ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+                         "flash_bwd_dkv_mma_kernel"),
+               "paged": ("paged_mma_kernel",)}
 
 
-def tensor_core_gate(counts: dict) -> None:
-    """Raise unless every bf16 flash kernel (FLASH_MMA_KERNELS) has an
+def tensor_core_gate(counts: dict, family: str = "flash") -> None:
+    """Raise unless every bf16 kernel of ``family`` (MMA_KERNELS) has an
     instantiation at D 64 and at D 128 and each has tensor-core
     instructions, and no float32 instantiation has any (``counts``: HMMA /
-    HGMMA per kernel_label, both flash libraries)."""
+    HGMMA per kernel_label, all libraries of the family)."""
     bf16 = {k: n for k, n in counts.items() if "_mma_" in k}
     f32 = {k: n for k, n in counts.items() if "_mma_" not in k}
     have = {(k.split("<")[0], k.split("<")[1].split(",")[0].rstrip(">")) for k in bf16}
-    want = {(name, d) for name in FLASH_MMA_KERNELS for d in ("64", "128")}
+    want = {(name, d) for name in MMA_KERNELS[family] for d in ("64", "128")}
     if not want <= have or not all(bf16.values()) or not f32 or any(f32.values()):
-        raise AssertionError(f"flash instantiations: want HMMA in every bf16 one (forward, "
-                             f"dq and dk/dv at D 64 and 128) and none in the float32 ones; "
-                             f"got {counts}")
+        raise AssertionError(f"{family} instantiations: want HMMA in every bf16 one "
+                             f"({', '.join(MMA_KERNELS[family])} at D 64 and 128) and none "
+                             f"in the float32 ones; got {counts}")
 
 
 def ptxas_report(build_log: str) -> dict:
-    """Registers and spill bytes per flash kernel from ``nvcc -Xptxas -v``'s
+    """Registers and spill bytes per flash or paged kernel from ``nvcc -Xptxas -v``'s
     output (the library's build.log), keyed by kernel_label."""
     import re
 
@@ -351,6 +361,27 @@ def host_us(fn, iters: int = 200) -> float:
     t = (time.perf_counter() - t0) / iters * 1e6
     torch.cuda.synchronize()
     return t
+
+
+def launches_per_call(fn, calls: int = 20) -> float | str:
+    """CUDA kernels per call of ``fn``, by torch.profiler over ``calls``
+    calls after a warm-up. The profiler may drop records but never adds
+    one, so more than one per call is a fault of the call (it raises here);
+    no record at all reads "not measured"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+    if n > calls:
+        raise AssertionError(f"{n} kernels in {calls} calls: more than one launch per call")
+    return n / calls if n else "not measured (the profiler recorded no kernel)"
 
 
 def check_case(name, shape, got, want, dtype, nan_ok: bool = False,
@@ -431,35 +462,38 @@ def kernel_phase(dev) -> list[dict]:
         list(pool.map(lambda build: build(), cuda.values()))
     print(f"[phase1] {', '.join(cuda)} built in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    flash_libs = {"flash_attention": fa_kernel.SOURCES,
-                  "flash_attention_bwd": fa_kernel.BWD_SOURCES}
-    for name in cuda.keys() - flash_libs.keys():
+    # (family, sources, headers) of the libraries read per instantiation
+    mma_libs = {"flash_attention": ("flash", fa_kernel.SOURCES, []),
+                "flash_attention_bwd": ("flash", fa_kernel.BWD_SOURCES, []),
+                "paged_attention": ("paged", pa_kernel.SOURCES, pa_kernel.HEADERS)}
+    for name in cuda.keys() - mma_libs.keys():
         digest = "[0-9a-f]" * 12
         for log in sorted(KERNEL_BUILD_ROOT.glob(f"{name}_{digest}/build.log")):
             regs = [ln.strip() for ln in log.read_text().splitlines()
                     if "registers" in ln or "spill" in ln]
             print(f"[phase1] ptxas {name}:", "; ".join(regs), flush=True)
-    # the flash libraries per instantiation: registers, spills, tensor-core
-    # instructions (the bf16 ones, forward and backward, run on the tensor
-    # cores without spilling; the float32 ones are scalar)
-    mma = {}
-    for name, sources in flash_libs.items():
-        lib = build_shared_library(name, sources)
+    # the flash and paged libraries per instantiation: registers, spills,
+    # tensor-core instructions (the bf16 ones run on the tensor cores without
+    # spilling; the float32 ones are scalar)
+    mma = {"flash": {}, "paged": {}}
+    for name, (family, sources, headers) in mma_libs.items():
+        lib = build_shared_library(name, sources, headers)
         regs = ptxas_report((lib.parent / "build.log").read_text())
         print(f"[phase1] ptxas {name} per instantiation: {json.dumps(regs)}", flush=True)
         spilled = {k: r for k, r in regs.items() if "_mma_" in k and r.get("spill_bytes")}
         if spilled:
-            raise AssertionError(f"bf16 flash instantiations that spill: {spilled}")
+            raise AssertionError(f"bf16 {family} instantiations that spill: {spilled}")
         counts = tensor_core_counts(lib)
         if counts is None:
             print(f"[phase1] SASS: the toolkit has no cuobjdump; HMMA / HGMMA of {name} "
                   f"not counted", flush=True)
             continue
-        mma.update(counts)
+        mma[family].update(counts)
         print(f"[phase1] SASS HMMA / HGMMA instructions per {name} instantiation: "
               f"{json.dumps(counts)}", flush=True)
-    if mma:
-        tensor_core_gate(mma)
+    for family, counts in mma.items():
+        if counts:
+            tensor_core_gate(counts, family)
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -608,17 +642,25 @@ def paged_operands(dev, dtype, b, h, kh, d, page, sq, kv_lens, width, seed=0):
 def paged_cases(dev, pa) -> list[dict]:
     """Phase 1, paged attention: the serving path's decode shape with the
     kv_len of a steady decode step (the main case) and with edge lengths (0,
-    1, partial pages, a full table), a GQA verify-shaped span, and f32."""
+    1, partial pages, a full table), a GQA verify-shaped span, a long
+    context (kv_len 3900-4096), batch-1 GQA at kv_len 4096 (qwen3-14b's 40
+    over 8 heads of 128), and f32. Each case records its split plan
+    (kernel.plan on this card); the main case also its kernels per call."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels.common import sm_count
+
     steady = [260, 268, 276, 284, 292, 300, 308, 316]
     edges = [0, 1, 100, 320, 257, 64, 63, 200]
+    long = [3900, 3928, 3956, 3984, 4012, 4040, 4068, 4096]
     # (B, H, KH, D, page, SQ, kv_len per sequence, table width, dtype, main)
     specs = [
         (8, 16, 16, 64, PAGE, 1, steady, 5, torch.bfloat16, True),
         (8, 16, 16, 64, PAGE, 1, edges, 5, torch.bfloat16, False),
         (3, 40, 8, 128, 16, 4, [2, 37, 64], 4, torch.bfloat16, False),
+        (8, 16, 16, 64, PAGE, 1, long, 64, torch.bfloat16, False),
+        (1, 40, 8, 128, PAGE, 1, [4096], 64, torch.bfloat16, False),
         (8, 16, 16, 64, PAGE, 1, edges, 5, torch.float32, False),
     ]
     cases = []
@@ -627,10 +669,13 @@ def paged_cases(dev, pa) -> list[dict]:
                                                  width)
         assert not torch.equal(k, v)
         shape = [b, h, kh, d, page, sq, width]
+        splits, pps = pa.kernel.plan(b, kh, width, page, sm_count(q.device))
         got = pa.paged_attention(q, k, v, tables, kv_len)
         want = pa.ref.paged_attention_ref(q, k, v, tables, kv_len)
         c = {"shape": shape, "dtype": str(dt).removeprefix("torch."), "kv_len": kv_lens,
-             "main": main, **check_case("paged_attention", shape, got, want, dt)}
+             "main": main, "splits": splits, "pages_per_split": pps,
+             "note": f"{splits} splits of {pps} pages",
+             **check_case("paged_attention", shape, got, want, dt)}
         # yardstick: SDPA on the same rows gathered into contiguous lanes
         lanes_k = k[:, tables.long()].permute(1, 0, 2, 3, 4).reshape(b, kh, -1, d)
         lanes_v = v[:, tables.long()].permute(1, 0, 2, 3, 4).reshape(b, kh, -1, d)
@@ -649,9 +694,12 @@ def paged_cases(dev, pa) -> list[dict]:
             c["host_us"] = {
                 "wrapper": c["host_us"],
                 "launcher": host_us(lambda: pa.kernel.paged_attention_4d(
-                    q, k, v, tables, kv_len, out, tile=64, scale=d ** -0.5)),
+                    q, k, v, tables, kv_len, out, tile=64, scale=d ** -0.5, splits=splits,
+                    pps=pps)),
                 "library": host_us(lambda: F.scaled_dot_product_attention(
                     q, lanes_k, lanes_v, attn_mask=mask, enable_gqa=h != kh))}
+            c["launches_per_call"] = launches_per_call(
+                lambda: pa.paged_attention(q, k, v, tables, kv_len))
         # what this data needs: the touched pages of K and V, q and the
         # output once, the table entries read and kv_len; 4*D flops per
         # visible (query row, key) pair
@@ -760,6 +808,8 @@ def hadd_cases(dev) -> list[dict]:
         iters = 10 if x.numel() >= APP_I32_N else 50
         _timed_device(c, lambda: ha.hadd(x), lambda: ha.ref.hadd(x),
                       lambda: torch.sum(x, -1, dtype=x.dtype), iters)
+        if main:
+            c["launches_per_call"] = launches_per_call(lambda: ha.hadd(x), 5)
         rows = math.prod(x.shape[:-1])
         c["bound_ms"], c["bound_by"] = bound(
             (x.numel() + rows) * x.element_size(), x.numel(),
@@ -1009,10 +1059,12 @@ class _PlainPaged:
         return getattr(self._ops, name)
 
 
-def paged_model_check(dev, model, params) -> dict:
-    """Phase 2, paged: one fused paged decode step at batch 8 over 256
-    prefilled rows (kv_len 257), through the paged kernel and through its
-    plain version on copies of the same pools."""
+def paged_step_compare(dev, model, params) -> dict:
+    """One fused paged decode step at batch 8 over 256 prefilled rows
+    (kv_len 257), through the paged kernel and through its plain version on
+    copies of the same pools: the logits' rel L2 and max abs error, both
+    argmaxes, and for each row whose argmax differs the plain logits' gap
+    between the two tokens (``gaps``). Checks nothing."""
     import torch
 
     from repro_torch.nn import lm
@@ -1029,19 +1081,32 @@ def paged_model_check(dev, model, params) -> dict:
                                                      tokens, pos, model.cfg)
     got, want = logits["kernel"].float(), logits["plain"].float()
     vocab = model.cfg.vocab
-    out = {"batch": batch, "kv_len": fill + 1,
+    out = {"batch": batch, "kv_len": fill + 1, "finite": bool(torch.isfinite(got).all()),
            "logits_rel_l2": ((got - want).norm() / want.norm()).item(),
            "logits_max_abs_err": (got - want).abs().max().item(),
            "argmax_kernel": got[:, :vocab].argmax(-1).tolist(),
            "argmax_plain": want[:, :vocab].argmax(-1).tolist()}
-    if not torch.isfinite(got).all():
+    out["gaps"] = {row: {"plain": (want[row, p] - want[row, k]).item(),
+                         "max_abs_plain_logit": want[row].abs().max().item()}
+                   for row, (k, p) in enumerate(zip(out["argmax_kernel"], out["argmax_plain"]))
+                   if k != p}
+    return out
+
+
+def paged_model_check(dev, model, params) -> dict:
+    """Phase 2, paged: paged_step_compare, which must give finite logits
+    within LOGITS_REL_L2 of the plain version's and an equal argmax."""
+    out = paged_step_compare(dev, model, params)
+    if not out["finite"]:
         raise AssertionError("fused paged decode step: non-finite logits")
     if out["logits_rel_l2"] > LOGITS_REL_L2:
         raise AssertionError(f"fused paged decode logits: kernel vs plain rel L2 "
                              f"{out['logits_rel_l2']:.3g} > {LOGITS_REL_L2}")
     if out["argmax_kernel"] != out["argmax_plain"]:
         raise AssertionError(f"fused paged decode argmax {out['argmax_kernel']} (kernel) "
-                             f"vs {out['argmax_plain']} (plain)")
+                             f"vs {out['argmax_plain']} (plain); plain logit gaps of the "
+                             f"rows that differ {out['gaps']}; rel L2 "
+                             f"{out['logits_rel_l2']:.3g}")
     return out
 
 
@@ -1333,6 +1398,11 @@ def profile_phase(dev, model, params, gpu: str) -> dict:
         }
     for kind, r in out.items():
         print(f"[phase4] {kind} on {gpu}: {json.dumps(r)}", flush=True)
+    paged = out["decode_step_paged"]
+    print(f"[phase4] fused paged decode step: device busy {paged['device_busy_ms']} ms, "
+          f"launches {paged['launches']}, host wall {paged['wall_ms']:.2f} ms on {gpu}; the "
+          f"one-block-per-sequence kernel's step read 3.64 ms and 1302 launches by the same "
+          f"method (PERF.md §5)", flush=True)
     return out
 
 # (B, H, KH, Sq, Sk, D, dtype, causal, kv_len, main)

@@ -4,11 +4,16 @@ plain C interface, loaded with ``ctypes``.
 
 A shared library is built at first use from the sources in the checkout into
 ``build/torch_kernels/<name>_<digest>/``, where the digest hashes the
-sources, the headers (``*.cuh``) beside them and the compiler flags: a
-source or header edit rebuilds, an unchanged
-checkout reuses the library. The build publishes with ``os.replace``, so a
-process building at the same time never loads a half-written file. A failed build raises
-with the compiler's output; nothing falls back to a plain version."""
+sources, the headers (``*.cuh``) beside them, the headers a kernel lists
+from other directories (``headers=``, whose directories go to ``nvcc`` as
+``-I``) and the compiler flags: a source or header edit rebuilds, an
+unchanged checkout reuses the library. The build publishes with
+``os.replace``, so a process building at the same time never loads a
+half-written file. A failed build raises with the compiler's output; nothing
+falls back to a plain version.
+
+Kernels that finish a reduction across blocks in the same launch take a
+scratch buffer and a ticket array from :func:`workspace`."""
 
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: dict[Path, ctypes.CDLL] = {}
+_WORKSPACES: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def use_checkout_triton_cache() -> None:
@@ -78,24 +84,32 @@ def nvcc() -> str:
     return found
 
 
-def build_shared_library(name: str, sources: list[Path]) -> Path:
-    """Compile ``sources`` for sm_90a into ``lib<name>.so`` (cached by
-    the digest of the sources and the ``*.cuh`` headers beside them) and
-    return its path. The compiler's output, including
-    ``-Xptxas -v``'s registers / shared memory / spills per kernel, is kept
-    beside it as ``build.log``."""
+def library_dir(name: str, sources: list[Path], headers: list[Path] = ()) -> Path:
+    """Where ``lib<name>.so`` of ``sources`` is built: named by the digest of
+    the flags, the sources, the ``*.cuh`` headers beside them and
+    ``headers`` (by name and content), so an edit of any of them rebuilds."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    headers = sorted({p for src in sources for p in src.parent.glob("*.cuh")})
-    for src in [*sources, *headers]:
+    listed = sorted({p for src in sources for p in src.parent.glob("*.cuh")} | set(headers))
+    for src in [*sources, *listed]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    out_dir = KERNEL_BUILD_ROOT / f"{name}_{h.hexdigest()[:12]}"
+    return KERNEL_BUILD_ROOT / f"{name}_{h.hexdigest()[:12]}"
+
+
+def build_shared_library(name: str, sources: list[Path], headers: list[Path] = ()) -> Path:
+    """Compile ``sources`` for sm_90a into ``lib<name>.so`` in
+    :func:`library_dir` (``headers``: included headers from other
+    directories, each directory passed as ``-I``) and return its path. The
+    compiler's output, including ``-Xptxas -v``'s registers / shared memory /
+    spills per kernel, is kept beside it as ``build.log``."""
+    out_dir = library_dir(name, sources, headers)
     lib = out_dir / f"lib{name}.so"
     if lib.is_file():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f".lib{name}.{os.getpid()}.so"
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    includes = [f"-I{d}" for d in sorted({str(Path(p).parent) for p in headers})]
+    cmd = [nvcc(), *NVCC_FLAGS, *includes, "-o", str(tmp), *map(str, sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
     if proc.returncode != 0:
@@ -106,9 +120,33 @@ def build_shared_library(name: str, sources: list[Path]) -> Path:
     return lib
 
 
-def load_shared_library(name: str, sources: list[Path]) -> ctypes.CDLL:
+def load_shared_library(name: str, sources: list[Path],
+                        headers: list[Path] = ()) -> ctypes.CDLL:
     """Build (once per content digest) and ``dlopen`` (once per process)."""
-    path = build_shared_library(name, sources)
+    path = build_shared_library(name, sources, headers)
     if path not in _LOADED:
         _LOADED[path] = ctypes.CDLL(str(path))
     return _LOADED[path]
+
+
+def workspace(name: str, device: torch.device, words: int,
+              tickets: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scratch for kernel ``name`` on ``device`` and the current stream: at
+    least ``words`` 4-byte words (float32 storage, any 4-byte type to the
+    kernel) and ``tickets`` int32 counters, zeroed when allocated. Cached per
+    (kernel, device, stream) and grown, never shrunk, so repeated calls at
+    one shape allocate nothing; sized from shapes only, never from data on
+    the device. A kernel that takes tickets leaves every one at 0 when it
+    finishes. Not safe under CUDA graphs: growing frees the old buffer that
+    a graph captured earlier still points at, and a graph replayed on
+    another stream shares its scratch and tickets with eager calls on its
+    capture stream. A captured step needs a fixed workspace of its own
+    (ROADMAP queue 1, item 4)."""
+    key = (name, device.index, torch.cuda.current_stream(device).cuda_stream)
+    ws, ct = _WORKSPACES.get(key, (None, None))
+    if ws is None or ws.numel() < words:
+        ws = torch.empty(max(words, 1), dtype=torch.float32, device=device)
+    if ct is None or ct.numel() < tickets:
+        ct = torch.zeros(max(tickets, 1), dtype=torch.int32, device=device)
+    _WORKSPACES[key] = (ws, ct)
+    return ws, ct

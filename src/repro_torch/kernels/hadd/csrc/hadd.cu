@@ -19,13 +19,20 @@
 //  * many short rows (n <= 1024, as the (64, 512) bench shape): one warp per
 //    row; each lane strides the row, then five __shfl_down_sync steps halve
 //    the 32 partial sums to lane 0 (the Fig 11 tree, across lanes).
-//  * few or long rows (the composed app's one row of 2^30): the row is split
-//    over enough blocks to fill the card; each block strides its slice with
-//    16-byte loads (four f32 / int32, eight bf16) where the row allows,
-//    reduces by the warp tree and then across its 8 warps, and writes one
-//    partial in the accumulator type; a second launch adds each row's
-//    partials the same way and rounds to the output type. One block per row
-//    would leave 131 of the 132 SMs idle.
+//  * few or long rows (the composed app's one row of 2^30): a grid that
+//    persists: `splits` blocks per row, as many in all as the card holds at
+//    once (4 of 256 threads per SM, which __launch_bounds__ guarantees), each
+//    striding over its whole row in steps of splits * 256 * 8 vectors, so
+//    every block has the same work and the one wave ends together. Each
+//    thread keeps 8 independent 16-byte loads in flight (four f32 / int32,
+//    eight bf16) into two accumulators; a row whose start or length does not
+//    allow 16-byte loads strides element by element. The block reduces by
+//    the warp tree and then across its 8 warps and writes one partial in the
+//    accumulator type. The same launch finishes the row: the last block to
+//    take the row's atomic ticket (after __threadfence) adds the partials in
+//    index order, rounds to the output type and resets the ticket. Every
+//    sum is taken in a fixed order, so float32 and bf16 results are the same
+//    bit for bit from call to call; int32 wraps modulo 2^32 exactly.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,53 +114,77 @@ __global__ void __launch_bounds__(NT) hadd_rows(const T* __restrict__ x, long lo
   if ((threadIdx.x & 31) == 0) out[row] = narrow<T>(s);
 }
 
-// Long rows: block (row, s) sums elements [s * chunk, min(n, (s+1) * chunk))
-// of its row (chunk is a multiple of the vector width) into partial[row *
-// splits + s], or straight into out[row] when splits == 1. vec: the row
-// start is 16-byte aligned and n a multiple of the vector width.
+constexpr int U = 8;                    // 16-byte loads in flight per thread
+constexpr int MIN_BLOCKS = 4;           // resident blocks per SM the grid is sized for
+
+// Long rows: block (row, s) of `splits` per row sums the 16-byte vectors
+// s * NT * U + t + u * NT + k * splits * NT * U of its row (thread t, u < U,
+// k = 0, 1, ...), then the elements past the last whole vector, into
+// partial[row * splits + s], or straight into out[row] when splits == 1;
+// the row's last block adds its partials. vec: the row start is 16-byte
+// aligned and n a multiple of the vector width, else element by element.
 template <typename T>
-__global__ void __launch_bounds__(NT) hadd_split(const T* __restrict__ x, long long n,
-                                                 long long chunk, int splits, bool vec,
-                                                 typename Acc<T>::type* __restrict__ partial,
-                                                 T* __restrict__ out) {
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
+hadd_split(const T* __restrict__ x, long long n, int splits, bool vec,
+           typename Acc<T>::type* __restrict__ partial, unsigned* __restrict__ tickets,
+           T* __restrict__ out) {
   using A = typename Acc<T>::type;
   constexpr int V = 16 / sizeof(T);     // elements per 16-byte load
+  __shared__ bool last;
   const long long row = blockIdx.x;
-  const long long c0 = static_cast<long long>(blockIdx.y) * chunk;
-  const long long c1 = c0 + chunk < n ? c0 + chunk : n;
+  const int s = blockIdx.y;
   const T* r = x + row * n;
-  A s = A(0);
-  long long c = c0;
+  A s0 = A(0), s1 = A(0);
+  long long c = 0;                      // elements the vector loop covered
   if (vec) {
-    const uint4* r4 = reinterpret_cast<const uint4*>(r + c0);
-    const long long nv = (c1 - c0) / V;
-#pragma unroll 4
-    for (long long i = threadIdx.x; i < nv; i += NT) s += vec_sum<T>(__ldg(r4 + i));
-    c = c0 + nv * V;
+    const uint4* r4 = reinterpret_cast<const uint4*>(r);
+    const long long nv = n / V;
+    const long long step = static_cast<long long>(splits) * NT * U;
+    long long i = static_cast<long long>(s) * NT * U + threadIdx.x;
+    for (; i + (U - 1) * NT < nv; i += step) {
+      uint4 v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) v[u] = __ldg(r4 + i + u * NT);
+#pragma unroll
+      for (int u = 0; u < U; u += 2) {
+        s0 += vec_sum<T>(v[u]);
+        s1 += vec_sum<T>(v[u + 1]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (i + u * NT < nv) s0 += vec_sum<T>(__ldg(r4 + i + u * NT));
+    c = nv * V;
   }
-  for (c += threadIdx.x; c < c1; c += NT) s += widen<T>(r[c]);
-  s = block_tree(s);
+  for (c += static_cast<long long>(s) * NT + threadIdx.x; c < n;
+       c += static_cast<long long>(splits) * NT)
+    s0 += widen<T>(r[c]);
+  A sum = block_tree(s0 + s1);
+  if (splits == 1) {
+    if (threadIdx.x == 0) out[row] = narrow<T>(sum);
+    return;
+  }
   if (threadIdx.x == 0) {
-    if (splits == 1) out[row] = narrow<T>(s);
-    else partial[row * splits + blockIdx.y] = s;
+    partial[row * splits + s] = sum;
+    __threadfence();                    // the partial is visible before the ticket
+    last = atomicAdd(tickets + row, 1u) == static_cast<unsigned>(splits - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the row's last block: its partials, each thread a fixed set in index order
+  sum = A(0);
+  for (int i = threadIdx.x; i < splits; i += NT) sum += __ldcg(partial + row * splits + i);
+  sum = block_tree(sum);
+  if (threadIdx.x == 0) {
+    out[row] = narrow<T>(sum);
+    tickets[row] = 0u;                  // ready for the next call
   }
 }
 
-// Second pass: block row adds the splits partials of its row.
 template <typename T>
-__global__ void __launch_bounds__(NT) hadd_finish(const typename Acc<T>::type* __restrict__ partial,
-                                                  int splits, T* __restrict__ out) {
-  using A = typename Acc<T>::type;
-  const long long row = blockIdx.x;
-  A s = A(0);
-  for (int i = threadIdx.x; i < splits; i += NT) s += partial[row * splits + i];
-  s = block_tree(s);
-  if (threadIdx.x == 0) out[row] = narrow<T>(s);
-}
-
-template <typename T>
-cudaError_t launch(const void* x, long long rows, long long n, int splits, long long chunk,
-                   void* partial, void* out, cudaStream_t stream) {
+cudaError_t launch(const void* x, long long rows, long long n, int splits, void* partial,
+                   void* tickets, void* out, cudaStream_t stream) {
   using A = typename Acc<T>::type;
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
@@ -166,33 +197,31 @@ cudaError_t launch(const void* x, long long rows, long long n, int splits, long 
   constexpr int V = 16 / sizeof(T);
   const bool vec = reinterpret_cast<unsigned long long>(x) % 16 == 0 && n % V == 0;
   hadd_split<T><<<dim3(static_cast<unsigned>(rows), splits), NT, 0, stream>>>(
-      xt, n, chunk, splits, vec, static_cast<A*>(partial), ot);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  hadd_finish<T><<<static_cast<unsigned>(rows), NT, 0, stream>>>(static_cast<const A*>(partial),
-                                                                  splits, ot);
+      xt, n, splits, vec, static_cast<A*>(partial), static_cast<unsigned*>(tickets), ot);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16,
-// 2 = int32. splits: 0 = a warp per row (n <= 1024), else blocks per row,
-// each summing `chunk` columns (a multiple of 8); partial: rows * splits
-// accumulators (4 bytes each) when splits > 1, else unused. Returns a
-// cudaError_t (0 on success); nothing synchronises.
+// 2 = int32. splits: 0 = a warp per row (n <= 1024), else blocks per row;
+// with splits > 1, partial holds rows * splits accumulators (4 bytes each)
+// and tickets rows zeroed 4-byte counters (the kernel leaves them zeroed);
+// else both are unused. One launch; returns a cudaError_t (0 on success);
+// nothing synchronises.
 extern "C" int tsl_hadd(const void* x, long long rows, long long n, int dtype, int splits,
-                        long long chunk, void* partial, void* out, void* stream) {
+                        void* partial, void* tickets, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows <= 0 || n <= 0 || splits < 0 || rows > 2147483647LL ||
-      (splits == 0 && n > 1024) || (splits > 0 && (chunk <= 0 || chunk % 8 != 0 ||
-                                                   (splits - 1) * chunk >= n || splits > 65535)))
+      (splits == 0 && n > 1024) || splits > 65535 ||
+      (splits > 1 && (partial == nullptr || tickets == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
-    case 0: return static_cast<int>(launch<float>(x, rows, n, splits, chunk, partial, out, s));
+    case 0: return static_cast<int>(launch<float>(x, rows, n, splits, partial, tickets, out, s));
     case 1:
-      return static_cast<int>(launch<__nv_bfloat16>(x, rows, n, splits, chunk, partial, out, s));
-    case 2: return static_cast<int>(launch<int>(x, rows, n, splits, chunk, partial, out, s));
+      return static_cast<int>(
+          launch<__nv_bfloat16>(x, rows, n, splits, partial, tickets, out, s));
+    case 2: return static_cast<int>(launch<int>(x, rows, n, splits, partial, tickets, out, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,8 +1,8 @@
 """Wrapper the ``h100`` hadd definition calls (mirrors
 ``repro/kernels/hadd/ops.py``): a CUDA tensor launches the CUDA C++ adder
 tree (or raises on what it does not take), a CPU tensor takes the plain
-version. ``hadd.launches`` counts kernel calls (one per call, whether the
-kernel runs as one launch or, for split rows, two).
+version. ``hadd.launches`` counts kernel launches (one per call: split rows
+are finished by their last block inside the same launch).
 
 Nothing is padded: the kernel masks the row tail itself."""
 

@@ -6,8 +6,11 @@ the plain version. ``paged_attention.launches`` counts kernel launches.
 The page size is not a parameter: it is read off the pool's page axis. The
 key block is clamped to divide the page (``block_k`` candidates smaller than
 the page tile it; anything else degrades to one block per page), and the
-kernel walks it in tiles of at most 64 rows that divide the block. GQA is
-folded: the group * SQ query rows of one KV head ride in one block."""
+float32 path walks it in tiles of at most 64 rows that divide the block (the
+bf16 path gathers 64-key tiles row by row). GQA is folded: the group * SQ
+query rows of one KV head ride in one block, and the keys of each (sequence,
+KV head) are split over blocks by ``kernel.plan`` from the table width and
+the card's SM count, merged inside the same launch."""
 
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import math
 
 import torch
 
-from ..common import check_cuda_tensor
+from ..common import check_cuda_tensor, sm_count
 from . import kernel, ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -28,7 +31,7 @@ def paged_attention(q, k_pool, v_pool, tables, kv_len, *, k_scale=None, v_scale=
     on the device). Returns (B,H,SQ,D) in q's dtype."""
     if k_scale is not None or v_scale is not None:
         raise NotImplementedError("int8 page pools (k_scale/v_scale) are not ported "
-                                  "yet: see ROADMAP.md, queue 1, item 6")
+                                  "yet: see ROADMAP.md, queue 1, item 5")
     if q.device.type == "cpu":
         return ref.paged_attention_ref(q, k_pool, v_pool, tables, kv_len, scale=scale)
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
@@ -67,8 +70,9 @@ def paged_attention(q, k_pool, v_pool, tables, kv_len, *, k_scale=None, v_scale=
     scale = float(scale) if scale is not None else 1.0 / (d ** 0.5)
     out = torch.empty_like(q)
     if q.numel():
+        splits, pps = kernel.plan(b, kh, tables.shape[1], page, sm_count(q.device))
         kernel.paged_attention_4d(q, k_pool, v_pool, tables, kvl, out, tile=tile,
-                                  scale=scale)
+                                  scale=scale, splits=splits, pps=pps)
         paged_attention.launches += 1
     return out
 

@@ -73,7 +73,7 @@ def paged_attention_ref(q, k_pool, v_pool, tables, kv_len, *, k_scale=None,
     ``v_scale``) are not ported yet and raise."""
     if k_scale is not None or v_scale is not None:
         raise NotImplementedError("int8 page pools (k_scale/v_scale) are not ported "
-                                  "yet: see ROADMAP.md, queue 1, item 6")
+                                  "yet: see ROADMAP.md, queue 1, item 5")
     b, h, sq, d = q.shape
     kh, _, page, _ = k_pool.shape
     group = h // kh

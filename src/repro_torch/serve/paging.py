@@ -114,7 +114,7 @@ class PagedConfig:
     def __post_init__(self):
         if self.int8:
             raise NotImplementedError("int8 pages are not ported yet: see ROADMAP.md, "
-                                      "queue 1, item 6")
+                                      "queue 1, item 5")
 
 
 @dataclass

@@ -23,6 +23,7 @@ from repro.kernels.softmax import ref as jax_sm
 from repro.kernels.to_integral import ref as jax_ti
 from repro_torch import tsl_api
 from repro_torch.core import generate_all
+from repro_torch.kernels.hadd import kernel as hadd_kernel
 from repro_torch.kernels.hadd import ops as hadd_ops
 from repro_torch.kernels.range_count import ops as rc_ops
 from repro_torch.kernels.softmax import ops as sm_ops
@@ -106,6 +107,46 @@ def test_hadd_int32_is_exact_and_wraps_as_jnp_sum(values, n):
     got = hadd_ops.ref.hadd(torch.from_numpy(x))
     assert got.dtype == torch.int32
     assert int(got) == int(want) == (values * n + 2**31) % 2**32 - 2**31
+
+
+# hadd_split's walk (kernels/hadd/csrc/hadd.cu): thread t of block s, of
+# `splits` per row, reads the 16-byte vectors s*NT*U + u*NT + t +
+# k*splits*NT*U (u < U, k = 0, 1, ...) where the row allows 16-byte loads,
+# else the elements s*NT + t + k*splits*NT
+_HADD_NT, _HADD_U = 256, 8
+
+
+def _hadd_walk(n: int, splits: int, width: int, loads: int) -> np.ndarray:
+    """Every index the row's blocks read, in units of ``width`` elements."""
+    units = n // width
+    step = splits * _HADD_NT * loads
+    first = (np.arange(splits)[:, None, None] * _HADD_NT * loads
+             + np.arange(loads)[None, :, None] * _HADD_NT
+             + np.arange(_HADD_NT)[None, None, :]).reshape(-1)
+    idx = (first[:, None] + np.arange(-(-units // step))[None, :] * step).reshape(-1)
+    return idx[idx < units]
+
+
+@pytest.mark.parametrize("rows,n,sms", [(1, 1 << 30, 132), (3, (1 << 20) + 7, 132),
+                                        (8, 152064, 132), (1, 1025, 132), (64, 512, 132),
+                                        (4096, 2048, 132), (1, (1 << 20) + 148, 4),
+                                        (2, 3 * 8192 + 1, 132)])
+def test_hadd_plan_fills_the_card_once_and_covers_every_element_once(rows, n, sms):
+    splits = hadd_kernel.plan(rows, n, sms)
+    if n <= hadd_kernel.WARP_ROW_MAX:
+        assert splits == 0                       # a warp per row
+        return
+    # as many blocks as the card holds at once, each with at least
+    # _MIN_PER_BLOCK elements (a row too short for more keeps one block)
+    assert 1 <= splits and rows * splits <= max(rows, sms * hadd_kernel._BLOCKS_PER_SM)
+    assert splits == 1 or (splits - 1) * hadd_kernel._MIN_PER_BLOCK < n
+    if n > 1 << 22:
+        return                                   # too long to enumerate here
+    for width, loads in ((4, _HADD_U), (8, _HADD_U), (1, 1)):   # f32/int32, bf16, unaligned
+        if n % width:
+            continue
+        idx = _hadd_walk(n, splits, width, loads)
+        assert np.array_equal(np.sort(idx), np.arange(n // width)), (width, loads)
 
 
 @pytest.mark.parametrize("shape", [(9, 11), (4, 32), (1, 1), (1025, 32), (2, 3, 31)])

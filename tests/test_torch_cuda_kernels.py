@@ -146,6 +146,17 @@ PAGED_CASES = [
     (2, 8, 2, 128, 256, 1, [300, 511], 2, 64),
     # block_k 16 on 64-row pages
     (2, 4, 4, 64, 64, 3, [130, 5], 3, 16),
+    # a long context: 64-entry tables, each (sequence, KV head) split over blocks
+    (8, 16, 16, 64, 64, 1, [3900, 3928, 3956, 3984, 4012, 4040, 4068, 4096], 64, 64),
+    # batch-1 GQA (40 over 8 heads of 128) at kv_len 4096: 8 (sequence, KV
+    # head) pairs, so the card fills only through the split
+    (1, 40, 8, 128, 64, 1, [4096], 64, 64),
+    # split tables with splits wholly past kv_len (kv_len 0: every split
+    # empty), and split spans of 20 and 48 rows per KV head (2 and 1 warps
+    # per 16-row m-tile), one with rows before the first key
+    (4, 16, 16, 64, 64, 1, [0, 5, 700, 4096], 64, 64),
+    (2, 40, 8, 128, 64, 4, [2, 3000], 64, 64),
+    (1, 48, 4, 64, 64, 4, [1000], 64, 64),
 ]
 
 
@@ -164,6 +175,18 @@ def test_paged_attention_kernel(dev, b, h, kh, d, page, sq, kv_lens, width, bloc
         if n < sq:      # span rows before the first key see nothing: exactly 0
             rows = got[i].reshape(kh, h // kh, sq, d)[:, :, :sq - n]
             assert torch.count_nonzero(rows) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_attention_is_the_same_bit_for_bit_call_after_call(dev, dtype):
+    """The splits are merged in split order, never in arrival order."""
+    for b, h, kh, d, page, sq, kv_lens, width, block_k in (PAGED_CASES[0], PAGED_CASES[-1]):
+        q, k, v, tables, kv_len = _paged_operands(dev, dtype, b, h, kh, d, page, sq,
+                                                  kv_lens, width)
+        first = pa.paged_attention(q, k, v, tables, kv_len, block_k=block_k)
+        for _ in range(3):
+            assert torch.equal(pa.paged_attention(q, k, v, tables, kv_len, block_k=block_k),
+                               first)
 
 
 def test_paged_attention_rejects_what_it_does_not_take(dev):
@@ -240,6 +263,17 @@ def test_hadd_kernel_int32_exact_past_2_24_and_wraps(dev):
     assert int(ha.hadd(x)) == 3 * ((1 << 25) + 3)
     w = torch.full((5000,), 1 << 20, dtype=torch.int32, device=dev)      # wraps past 2^31
     _equal(ha.hadd(w), ha.ref.hadd(w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hadd_is_the_same_bit_for_bit_call_after_call(dev, dtype):
+    """The last block adds the partials in index order, never in arrival order."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    for shape in ((1 << 24,), (3, (1 << 20) + 7), (8, 152064)):
+        x = torch.randn(shape, generator=g, device=dev).to(dtype)
+        first = ha.hadd(x)
+        for _ in range(3):
+            assert torch.equal(ha.hadd(x), first)
 
 
 @pytest.mark.parametrize("rows,n", [(1, 32), (31, 32), (33, 32), ((1 << 20) + 7, 32),
@@ -587,6 +621,85 @@ NO_OP_AT_FULL_WIDTH = {"gqa_sum_group_0_only", "lse_not_zeroed_on_rows_without_k
 NOT_SEEN = {("delta_from_bf16_product", "grads_bf16"), ("delta_from_bf16_product", "loss_bf16"),
             ("delta_from_bf16_product", "loss_f32"), ("dk_one_head_zeroed", "loss_bf16")}
 _FULL_WIDTH_PLAIN = {}
+
+
+# Planted faults of the kernels that split a reduction over blocks and finish
+# it in the same launch. The paged faults sit in code both of its paths run
+# (the split's key range and the merge), so each shows in bf16 and in
+# float32. tests/test_torch_kernel_sources.py checks on the host that every
+# `old` string is still in its source, once.
+PAGED_FAULTS = {
+    "merge_rescale_dropped": [
+        ("paged_attention.cu", "const float w = l_j[i] > 0.f ? ex<LOG2>(m_j[i] - M) : 0.f;",
+         "const float w = l_j[i] > 0.f ? 1.f : 0.f;")],
+    "last_split_skipped": [("paged_attention.cu", "for (int j = j0; j < S; j += dj) {",
+                            "for (int j = j0; j < S - 1; j += dj) {")],
+    "split_boundary_one_page_late": [("paged_attention.cu", "sp.e0 = s * pps;",
+                                      "sp.e0 = s * pps + 1;")],
+}
+HADD_FAULTS = {
+    "last_partial_skipped": [("hadd.cu", "i < splits; i += NT) sum +=",
+                              "i < splits - 1; i += NT) sum +=")],
+}
+
+
+def _plant_split_fault(tmp_path, monkeypatch, kernel, faults, name):
+    """Build a copy of ``kernel``'s source with ``faults`` (and its headers
+    beside it) and make its launcher call it for the rest of the test."""
+    from repro_torch.kernels.common import load_shared_library
+
+    headers = getattr(kernel, "HEADERS", [])
+    for header in headers:
+        (tmp_path / header.name).write_text(header.read_text())
+    (src,) = kernel.SOURCES
+    text = src.read_text()
+    for fname, old, new in faults:
+        assert fname == src.name and old in text, (name, old)
+        text = text.replace(old, new)
+    (tmp_path / src.name).write_text(text)
+    fn = kernel.bind(load_shared_library(f"fault_{name}", [tmp_path / src.name],
+                                         [tmp_path / h.name for h in headers]))
+    monkeypatch.setattr(kernel, "_fn", lambda: fn)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("fault", list(PAGED_FAULTS))
+def test_paged_check_fails_on_planted_fault(dev, tmp_path, monkeypatch, fault, dtype):
+    """A copy of the paged kernel with ``fault`` must fail _check on at least
+    one PAGED_CASE (the unfaulted kernel passes them all:
+    test_paged_attention_kernel)."""
+    _plant_split_fault(tmp_path, monkeypatch, pa.kernel, PAGED_FAULTS[fault], f"paged_{fault}")
+    caught = []
+    for b, h, kh, d, page, sq, kv_lens, width, block_k in PAGED_CASES:
+        q, k, v, tables, kv_len = _paged_operands(dev, dtype, b, h, kh, d, page, sq,
+                                                  kv_lens, width)
+        try:
+            _check(pa.paged_attention(q, k, v, tables, kv_len, block_k=block_k),
+                   pa.ref.paged_attention_ref(q, k, v, tables, kv_len), dtype)
+        except AssertionError as e:
+            caught.append(f"{(b, h, kh, d, page, sq, width)}: {str(e)[:120]}")
+    print(f"\n[fault] {fault} {dtype}: {len(caught)} of {len(PAGED_CASES)} cases fail; "
+          f"first: {caught[0] if caught else '-'}")
+    assert caught, f"no paged case fails on {fault}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+@pytest.mark.parametrize("fault", list(HADD_FAULTS))
+def test_hadd_check_fails_on_planted_fault(dev, tmp_path, monkeypatch, fault, dtype):
+    _plant_split_fault(tmp_path, monkeypatch, ha.kernel, HADD_FAULTS[fault], f"hadd_{fault}")
+    g = torch.Generator(device=dev).manual_seed(6)
+    caught = []
+    for shape in ((1 << 20,), (3, (1 << 20) + 7)):
+        if dtype == torch.int32:
+            x = torch.randint(-1000, 1000, shape, generator=g, device=dev, dtype=dtype)
+        else:
+            x = torch.randn(shape, generator=g, device=dev).to(dtype)
+        try:
+            (_equal if dtype == torch.int32 else
+             lambda got, want: _check(got, want, dtype))(ha.hadd(x), ha.ref.hadd(x))
+        except AssertionError as e:
+            caught.append(f"{shape}: {str(e)[:120]}")
+    assert caught, f"no hadd case fails on {fault}"
 
 
 def _full_width_run(model, state, batch, steps=5):

@@ -1,21 +1,34 @@
 """The planted faults of tests/test_torch_cuda_kernels.py against the sources
-they are planted in, and chip_smoke.py's reading of the flash libraries'
-instantiations. Needs no card: an edit of a kernel source or of the
-flash-attention glue that removes the text a fault replaces would silently
-disarm that fault (its on-card test would build an unfaulted copy), and a
-kernel renamed out of phase 1's tensor-core gate would silently leave it, so
-both fail here, on the host, first."""
+they are planted in, chip_smoke.py's reading of the flash and paged
+libraries' instantiations, and the build's digest of the headers a kernel
+includes from another directory. Needs no card: an edit of a kernel source
+or of the flash-attention glue that removes the text a fault replaces would
+silently disarm that fault (its on-card test would build an unfaulted copy),
+a kernel renamed out of phase 1's tensor-core gate would silently leave it,
+and a header edit the digest missed would reuse a stale library, so all
+fail here, on the host, first."""
 
 import pytest
 
+from repro_torch.kernels import common
 from repro_torch.kernels.flash_attention import kernel, ops
-from test_torch_cuda_kernels import CUDA_FAULTS, GLUE_FAULTS
+from repro_torch.kernels.hadd import kernel as hadd_kernel
+from repro_torch.kernels.paged import kernel as paged_kernel
+from test_torch_cuda_kernels import CUDA_FAULTS, GLUE_FAULTS, HADD_FAULTS, PAGED_FAULTS
 
 
 @pytest.mark.parametrize("fault", list(CUDA_FAULTS))
 def test_every_planted_kernel_fault_names_one_place_in_its_source(fault):
     sources = {p.name: p.read_text() for p in kernel.SOURCES + kernel.BWD_SOURCES}
     for name, old, new in CUDA_FAULTS[fault]:
+        assert old != new
+        assert sources[name].count(old) == 1, (fault, name, old)
+
+
+@pytest.mark.parametrize("fault", list(PAGED_FAULTS) + list(HADD_FAULTS))
+def test_every_planted_split_fault_names_one_place_in_its_source(fault):
+    sources = {p.name: p.read_text() for p in paged_kernel.SOURCES + hadd_kernel.SOURCES}
+    for name, old, new in {**PAGED_FAULTS, **HADD_FAULTS}[fault]:
         assert old != new
         assert sources[name].count(old) == 1, (fault, name, old)
 
@@ -42,6 +55,13 @@ FLASH_SYMBOLS = {
     "iiiiiiif": "flash_bwd_dq_mma_kernel<64>",
     "_ZN12_GLOBAL__N_124flash_bwd_dkv_mma_kernelILi128ELi32EEEvPK13__nv_bfloat16S3_S3_S3_"
     "PKfS5_PfS6_iiiiiiif": "flash_bwd_dkv_mma_kernel<128, 32>",
+    "_ZN12_GLOBAL__N_116paged_mma_kernelILi128ELi4EEEvPK13__nv_bfloat16S3_S3_PKiS5_PS1_PfPi"
+    "iiiiiiif": "paged_mma_kernel<128, 4>",
+    # as nvcc names it: the namespace holds the file name, paged_attention_cu
+    "_ZN51_GLOBAL__N__e79d8b2a_18_paged_attention_cu_5ac9a22116paged_mma_kernelILi64ELi2EEEv"
+    "PK13__nv_bfloat16S3_S3_PKiS5_PS1_PfPiiiiiiiif": "paged_mma_kernel<64, 2>",
+    "_ZN12_GLOBAL__N_116paged_f32_kernelILi64EEEvPKfS2_S2_PKiS4_PfS5_Piiiiiiiiif":
+        "paged_f32_kernel<64>",
     "_Z14rmsnorm_kernelPKfS0_Pfif": None,
 }
 
@@ -61,6 +81,69 @@ def _chip_smoke():
 @pytest.mark.parametrize("mangled", list(FLASH_SYMBOLS))
 def test_chip_smoke_labels_every_flash_instantiation(mangled):
     assert _chip_smoke().kernel_label(mangled) == FLASH_SYMBOLS[mangled]
+
+
+def _paged_counts():
+    counts = {f"paged_f32_kernel<{d}>": 0 for d in (64, 128)}
+    counts |= {f"paged_mma_kernel<{d}, {kw}>": 24 for d in (64, 128) for kw in (1, 2, 4)}
+    return counts
+
+
+@pytest.mark.parametrize("edit", ["none", "bf16 without HMMA", "float32 with HMMA",
+                                  "no bf16 at D 128"])
+def test_chip_smoke_tensor_core_gate_for_the_paged_kernel(edit):
+    """Phase 1's gate on the paged library: every bf16 instantiation on the
+    tensor cores, D 64 and 128 present, no float32 one with HMMA."""
+    counts = _paged_counts()
+    if edit == "bf16 without HMMA":
+        counts["paged_mma_kernel<64, 2>"] = 0
+    elif edit == "float32 with HMMA":
+        counts["paged_f32_kernel<128>"] = 8
+    elif edit == "no bf16 at D 128":
+        counts = {k: n for k, n in counts.items() if not k.startswith("paged_mma_kernel<128")}
+    gate = _chip_smoke().tensor_core_gate
+    if edit == "none":
+        gate(counts, "paged")
+    else:
+        with pytest.raises(AssertionError, match="paged instantiations"):
+            gate(counts, "paged")
+
+
+def test_editing_a_listed_header_changes_the_library_digest(tmp_path, monkeypatch):
+    """A header from another directory (``headers=``) is hashed into the
+    library's directory and its directory goes to nvcc as -I; the paged
+    kernel lists the flash kernels' flash_mma.cuh so."""
+    import subprocess
+
+    src_dir, inc_dir = tmp_path / "csrc", tmp_path / "include"
+    src_dir.mkdir()
+    inc_dir.mkdir()
+    src, header = src_dir / "k.cu", inc_dir / "blocks.cuh"
+    src.write_text('#include "blocks.cuh"\n')
+    header.write_text("// v1\n")
+    monkeypatch.setattr(common, "KERNEL_BUILD_ROOT", tmp_path / "build")
+    first = common.library_dir("k", [src], [header])
+    assert common.library_dir("k", [src]) != first        # unlisted: not hashed
+    header.write_text("// v2\n")
+    second = common.library_dir("k", [src], [header])
+    assert second != first and second.parent == first.parent
+
+    cmds = []
+
+    def fake_nvcc(cmd, **kw):
+        cmds.append(cmd)
+        open(cmd[cmd.index("-o") + 1], "wb").close()
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(common, "nvcc", lambda: "nvcc")
+    monkeypatch.setattr(common.subprocess, "run", fake_nvcc)
+    lib = common.build_shared_library("k", [src], [header])
+    assert lib.parent == second and lib.is_file()
+    assert f"-I{inc_dir}" in cmds[0]
+    assert [h.name for h in paged_kernel.HEADERS] == ["flash_mma.cuh"]
+    assert all(h.is_file() and h.parent != paged_kernel.SOURCES[0].parent
+               for h in paged_kernel.HEADERS)
+    assert '#include "flash_mma.cuh"' in paged_kernel.SOURCES[0].read_text()
 
 
 def _full_counts():
