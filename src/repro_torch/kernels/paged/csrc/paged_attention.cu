@@ -45,12 +45,9 @@
 //     so a decode row (R = 1) still keeps all 4 warps busy. S = Q K^T and
 //     O += P V by mma.sync m16n8k16 through ldmatrix (the products of bf16
 //     inputs are exact, the sums float32), the online softmax in registers
-//     in log2 units. P goes into P V in three bf16 parts (its rounding and
-//     the roundings of what is left), so P V is as precise as in float32:
-//     the tensor cores cost nothing here (about 1 flop per byte), and with
-//     the flash forward's two parts (about 16 bits of P) the full-width fused
-//     decode step took the other of two tokens whose plain logits tie
-//     (tools/paged_p_parts.py measures both).
+//     in log2 units. P goes into P V in two bf16 parts, its rounding and
+//     the rounding of what that leaves (about 16 bits of P), as in the flash
+//     forward (flash_mma.cuh's split_a).
 //     The warps' states are merged in warp order through shared memory at
 //     the end of the split;
 //   * float32 is the exact oracle: scalar float32 inner products (tiles of
@@ -76,6 +73,7 @@ namespace {
 
 constexpr int NT = 128;                 // threads per block
 constexpr int NW = NT / 32;             // warps per block
+constexpr int MMA_MIN_BLOCKS = 2;       // bf16 path: resident blocks per SM (kernel.py's plan)
 constexpr int MAX_ROWS = 64;            // group * SQ query rows one block holds
 constexpr int MAX_SPLITS = 64;          // splits per (sequence, KV head)
 constexpr int KEY_TILE = 64;            // keys per tile of the bf16 path
@@ -255,28 +253,6 @@ __device__ __forceinline__ void finish_split(float* st_m, const float* st_l,
 // bf16: tensor cores (mma.sync m16n8k16) fed by cp.async
 // ---------------------------------------------------------------------------
 
-// The A operands of P V over 16 keys from the accumulators of their two
-// 8-key column tiles, in three bf16 parts: the rounding of P (a), of what it
-// leaves (a_mid), and of what both leave (a_lo). Their sum carries P to
-// float32's precision.
-__device__ __forceinline__ void split3_a(const float (&c0)[4], const float (&c1)[4],
-                                         uint32_t (&a)[4], uint32_t (&a_mid)[4],
-                                         uint32_t (&a_lo)[4]) {
-  const float x[8] = {c0[0], c0[1], c0[2], c0[3], c1[0], c1[1], c1[2], c1[3]};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
-    const float2 hf = __bfloat1622float2(h);
-    const float r0 = x[2 * i] - hf.x, r1 = x[2 * i + 1] - hf.y;
-    const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
-    const float2 mf = __bfloat1622float2(m);
-    const __nv_bfloat162 l = __floats2bfloat162_rn(r0 - mf.x, r1 - mf.y);
-    a[i] = *reinterpret_cast<const uint32_t*>(&h);
-    a_mid[i] = *reinterpret_cast<const uint32_t*>(&m);
-    a_lo[i] = *reinterpret_cast<const uint32_t*>(&l);
-  }
-}
-
 // Copy keys [key0, key0 + 64) of the split into stage tiles dK / dV (swizzled
 // [64][D]), each row from its page; rows at or past the split's end k1 are
 // zero-filled and not read.
@@ -309,9 +285,12 @@ __host__ __device__ constexpr int mma_smem_fixed(int D) {
 }
 
 // KW: warps that share one 16-row m-tile (4 / m-tiles), each taking 64 / KW
-// keys of every tile.
+// keys of every tile. MMA_MIN_BLOCKS in the launch bounds: the host's plan
+// sizes the grid for 2 blocks per SM (kernel.py), and the stated minimum
+// gives ptxas up to 255 registers a thread; with the maximum alone it held
+// <64, 2> to 128 and spilled.
 template <int D, int KW>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, MMA_MIN_BLOCKS)
 paged_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_pool,
                  const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ tables,
                  const int* __restrict__ kv_len, __nv_bfloat16* __restrict__ out,
@@ -442,21 +421,19 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       }
     }
 
-    // O += P V, 16 keys per step: P split in registers into three bf16
-    // parts, all A operands against the same V fragments
+    // O += P V, 16 keys per step: P split in registers into two bf16 parts,
+    // both A operands against the same V fragments
 #pragma unroll
     for (int kk = 0; kk < NK / 16; ++kk) {
-      uint32_t a[4], a_mid[4], a_lo[4];
-      split3_a(sc[2 * kk], sc[2 * kk + 1], a, a_mid, a_lo);
+      uint32_t a[4], a_lo[4];
+      split_a(sc[2 * kk], sc[2 * kk + 1], a, a_lo);
 #pragma unroll
       for (int d2 = 0; d2 < ND / 2; ++d2) {
         uint32_t b0, b1, b2, b3;
         ldsm_b<D>(sVt, kc0 + kk * 16, d2, lane, b0, b1, b2, b3);
         mma_bf16(acc[2 * d2], a, b0, b1);
-        mma_bf16(acc[2 * d2], a_mid, b0, b1);
         mma_bf16(acc[2 * d2], a_lo, b0, b1);
         mma_bf16(acc[2 * d2 + 1], a, b2, b3);
-        mma_bf16(acc[2 * d2 + 1], a_mid, b2, b3);
         mma_bf16(acc[2 * d2 + 1], a_lo, b2, b3);
       }
     }

@@ -1,10 +1,11 @@
 """Wrapper the ``h100`` to_integral definition calls (mirrors
 ``repro/kernels/to_integral/ops.py``): a CUDA tensor launches the CUDA C++
-ballot kernel (or raises on what it does not take), a CPU tensor takes the
-plain version. ``to_integral.launches`` counts kernel launches.
+movemask (or raises on what it does not take), a CPU tensor takes the plain
+version. ``to_integral.launches`` counts kernel launches.
 
 Nothing is padded: the reference pads the lanes to 128 and the rows to its
-block; a warp reads the row's n bytes where they lie."""
+block; the kernel reads the rows where they lie (16-byte loads for 32-lane
+rows at an aligned base, a warp per row otherwise: ``kernel.body``)."""
 
 from __future__ import annotations
 

@@ -35,8 +35,8 @@ def popcount32(words: torch.Tensor) -> torch.Tensor:
 def range_count_popcnt(data: torch.Tensor, low, high, *, pack=to_integral) -> torch.Tensor:
     """Range count by packing each 32 lanes of the mask into a word and
     popcounting the words (the reference's ``popcnt`` definition); ``pack``
-    is the mask -> uint32 packer (the plain one here, the ballot kernel on
-    the card). 0-d int32, as ``ref.range_count``."""
+    is the mask -> uint32 packer (the plain one here, the to_integral
+    kernel on the card). 0-d int32, as ``ref.range_count``."""
     flat = data.reshape(-1)
     mask = (flat >= low) & (flat <= high)
     pad = -mask.numel() % 32

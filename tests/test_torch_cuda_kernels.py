@@ -287,6 +287,53 @@ def test_to_integral_kernel(dev, rows, n, dtype):
     assert ti.to_integral.launches == before + (rows > 0)
 
 
+def _random_bytes(dev, rows, seed):
+    """(rows, 32) uint8 of random bytes 0-255, about half of them zeroed:
+    every nonzero byte, not only 1, must set its lane."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b = torch.randint(0, 256, (rows, 32), generator=g, device=dev, dtype=torch.uint8)
+    return b * (torch.rand((rows, 32), generator=g, device=dev) > 0.5)
+
+
+def _off_alignment(m):
+    """``m`` copied into a view of a flat buffer at offset 1 (a base 1 byte
+    off 16-byte alignment)."""
+    flat = torch.empty(m.numel() + 1, dtype=m.dtype, device=m.device)
+    view = flat[1:].view(m.shape)
+    view.copy_(m)
+    return view
+
+
+# rows no multiple of a thread's 4 rows, a warp's 128 or a block's 1024
+TO_INTEGRAL_ROWS = [1, 3, 33, 130, 1029, (1 << 16) + 3, (1 << 20) + 7]
+
+
+@pytest.mark.parametrize("rows", TO_INTEGRAL_ROWS + [1 << 20])
+@pytest.mark.parametrize("kind", ["bool", "random bytes"])
+def test_to_integral_vector_body(dev, rows, kind):
+    """n = 32 at an aligned base takes the vector body: bit for bit the
+    plain version, one launch."""
+    from repro_torch.kernels.to_integral import kernel
+
+    g = torch.Generator(device=dev).manual_seed(rows)
+    m = (_random_bytes(dev, rows, rows) if kind == "random bytes"
+         else torch.rand((rows, 32), generator=g, device=dev) > 0.5)
+    assert kernel.body(m) == "vector"
+    before = ti.to_integral.launches
+    _equal(ti.to_integral(m), ti.ref.to_integral(m))
+    assert ti.to_integral.launches == before + 1
+
+
+@pytest.mark.parametrize("rows", TO_INTEGRAL_ROWS)
+@pytest.mark.parametrize("dtype", [torch.bool, torch.uint8])
+def test_to_integral_off_alignment_takes_the_ballot_body(dev, rows, dtype):
+    from repro_torch.kernels.to_integral import kernel
+
+    m = _off_alignment(_random_bytes(dev, rows, rows + 1).to(dtype))
+    assert m.data_ptr() % 16 == 1 and kernel.body(m) == "ballot"
+    _equal(ti.to_integral(m), ti.ref.to_integral(m))
+
+
 def test_to_integral_kernel_bit_31(dev):
     m = torch.zeros((3, 32), dtype=torch.bool, device=dev)
     m[0] = True
@@ -641,6 +688,16 @@ HADD_FAULTS = {
     "last_partial_skipped": [("hadd.cu", "i < splits; i += NT) sum +=",
                               "i < splits - 1; i += NT) sum +=")],
 }
+# The vector body's pack and unroll (to_integral.cu); the random-byte masks
+# show the byte test, which bool masks (bytes 0 and 1) cannot.
+TO_INTEGRAL_FAULTS = {
+    "bytes_1_and_2_swapped": [("to_integral.cu", "__vcmpne4(w, 0u) & 0x08040201u",
+                               "__vcmpne4(w, 0u) & 0x08020401u")],
+    "last_unrolled_row_skipped": [("to_integral.cu", "for (int s = 0; s < R; ++s)",
+                                   "for (int s = 0; s < R - 1; ++s)")],
+    "byte_tested_with_and_1": [("to_integral.cu", "__vcmpne4(w, 0u) & 0x08040201u",
+                                "(w & 0x01010101u) * 0xFFu & 0x08040201u")],
+}
 
 
 def _plant_split_fault(tmp_path, monkeypatch, kernel, faults, name):
@@ -700,6 +757,30 @@ def test_hadd_check_fails_on_planted_fault(dev, tmp_path, monkeypatch, fault, dt
         except AssertionError as e:
             caught.append(f"{shape}: {str(e)[:120]}")
     assert caught, f"no hadd case fails on {fault}"
+
+
+@pytest.mark.parametrize("fault", list(TO_INTEGRAL_FAULTS))
+def test_to_integral_check_fails_on_planted_fault(dev, tmp_path, monkeypatch, fault):
+    """A copy of the movemask with ``fault`` must fail the bit-for-bit check
+    on the vector body's cases (the unfaulted kernel passes them all:
+    test_to_integral_vector_body). Each output buffer is filled with a
+    pattern first, so a word the fault leaves unwritten cannot read as
+    right from an earlier call's memory."""
+    _plant_split_fault(tmp_path, monkeypatch, ti.kernel, TO_INTEGRAL_FAULTS[fault],
+                       f"to_integral_{fault}")
+    caught = []
+    for rows in (1029, 1 << 20):
+        for m in (_random_bytes(dev, rows, rows),
+                  torch.rand((rows, 32), device=dev) > 0.5):
+            out = torch.full((rows,), 0x5A5A5A5A, dtype=torch.int32,
+                             device=dev).view(torch.uint32)
+            ti.kernel.to_integral_2d(m, out)
+            try:
+                _equal(out, ti.ref.to_integral(m))
+            except AssertionError as e:
+                caught.append(f"{tuple(m.shape)} {m.dtype}: {str(e)[:80]}")
+    print(f"\n[fault] {fault}: {len(caught)} of 4 cases fail")
+    assert caught, f"no to_integral case fails on {fault}"
 
 
 def _full_width_run(model, state, batch, steps=5):

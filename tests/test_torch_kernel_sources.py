@@ -14,7 +14,9 @@ from repro_torch.kernels import common
 from repro_torch.kernels.flash_attention import kernel, ops
 from repro_torch.kernels.hadd import kernel as hadd_kernel
 from repro_torch.kernels.paged import kernel as paged_kernel
-from test_torch_cuda_kernels import CUDA_FAULTS, GLUE_FAULTS, HADD_FAULTS, PAGED_FAULTS
+from repro_torch.kernels.to_integral import kernel as to_integral_kernel
+from test_torch_cuda_kernels import (CUDA_FAULTS, GLUE_FAULTS, HADD_FAULTS, PAGED_FAULTS,
+                                     TO_INTEGRAL_FAULTS)
 
 
 @pytest.mark.parametrize("fault", list(CUDA_FAULTS))
@@ -25,10 +27,14 @@ def test_every_planted_kernel_fault_names_one_place_in_its_source(fault):
         assert sources[name].count(old) == 1, (fault, name, old)
 
 
-@pytest.mark.parametrize("fault", list(PAGED_FAULTS) + list(HADD_FAULTS))
+SOURCE_FAULTS = {**PAGED_FAULTS, **HADD_FAULTS, **TO_INTEGRAL_FAULTS}
+
+
+@pytest.mark.parametrize("fault", list(SOURCE_FAULTS))
 def test_every_planted_split_fault_names_one_place_in_its_source(fault):
-    sources = {p.name: p.read_text() for p in paged_kernel.SOURCES + hadd_kernel.SOURCES}
-    for name, old, new in {**PAGED_FAULTS, **HADD_FAULTS}[fault]:
+    sources = {p.name: p.read_text() for p in
+               paged_kernel.SOURCES + hadd_kernel.SOURCES + to_integral_kernel.SOURCES}
+    for name, old, new in SOURCE_FAULTS[fault]:
         assert old != new
         assert sources[name].count(old) == 1, (fault, name, old)
 
