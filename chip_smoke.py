@@ -7,8 +7,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. Kernels. Builds every kernel of the main paths from the sources in the
    checkout (nvcc for the CUDA C++ flash and paged attention, range_count,
-   hadd and to_integral, all started at once; Triton JIT for rmsnorm, swiglu
-   and softmax), runs each wrapper on the
+   hadd, to_integral and softmax, all started at once; Triton JIT for rmsnorm
+   and swiglu), runs each wrapper on the
    card at the main paths' shapes and holds it against its plain PyTorch
    version on the same inputs within the stated tolerance; times kernel,
    plain version and the one PyTorch library call that computes the same
@@ -25,10 +25,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    libraries, ptxas's registers and spills and the tensor-core (HMMA /
    HGMMA) instructions in its SASS (cuobjdump -sass), and fails if a bf16
    one (forward, dq, dk/dv, paged at D 64 and 128) spills or has none, or a
-   float32 one has any. The paged cases (serving, edges, GQA span, a long
-   context, batch-1 GQA, float32) print their split plan, and the main
-   paged, hadd and to_integral cases their kernels per call (torch.profiler;
-   more than one fails). No single PyTorch call
+   float32 one has any; per softmax instantiation its registers, shared
+   memory and spills (any spill fails). The paged cases (serving, edges, GQA
+   span, a long context, batch-1 GQA, float32) print their split plan, the
+   softmax cases theirs (kernel.plan: regime, cluster size, chunk, load), and
+   the main paged, hadd, to_integral and softmax cases their kernels per
+   call (torch.profiler; more than one fails). Each softmax case that runs a
+   cluster of 16 is also timed and checked at a cluster of 8. No single
+   PyTorch call
    computes paged attention: its yardstick is scaled_dot_product_attention
    on the same rows already gathered into contiguous lanes (gather not
    timed). torch.histc(x, bins=1, min=lo, max=hi) counts a range (both ends
@@ -42,7 +46,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    alignment; fractional bounds on int32 data; NaN data; masks of random
    bytes); their integer results must equal the plain versions' bit for
    bit. Each to_integral case records the body it took (kernel.body): the
-   app's mask must take the vector body, a base off alignment the ballot.
+   app's mask must take the vector body, a base off alignment the ballot;
+   a softmax row off 16-byte alignment must take element loads.
 2. Model. qwen1.5-0.5b at full width (24 layers, d=1024, vocab 151936 padded
    to 152064, bf16, seeded init): Model.prefill on a (2, 512) prompt then 8
    greedy decode steps through the h100 library; the same prefill with the
@@ -146,8 +151,12 @@ PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12,
 # |kernel - plain| <= ATOL + RTOL * |plain|, per dtype: bf16 output may differ
 # by one rounding step (2^-7 relative) where the f32 sums round differently;
 # f32 differs only by summation order. Softmax scales ATOL by 1/d on rows
-# of width d (check_case's atol_scale): a probability is ~1/d, not ~1
-TOLERANCE = {"torch.bfloat16": (1e-2, 1e-2), "torch.float32": (1e-4, 1e-4)}
+# of width d (check_case's atol_scale): a probability is ~1/d, not ~1.
+# float16 (softmax only) as bf16: one rounding step, 2^-11 relative, or 2^-24
+# absolute below 2^-14, where a vocabulary row's probabilities lie (under
+# ATOL/d for d < 167772)
+TOLERANCE = {"torch.bfloat16": (1e-2, 1e-2), "torch.float32": (1e-4, 1e-4),
+             "torch.float16": (1e-2, 1e-2)}
 
 ARCH = "qwen1.5-0.5b"
 PREFILL_SHAPE = (2, 512)
@@ -285,17 +294,18 @@ def _timed_device(case: dict, kernel_fn, plain_fn, library_fn, iters: int,
 
 
 def kernel_label(mangled: str) -> str | None:
-    """"flash_bwd_dkv_mma_kernel<64, 64>" for a flash or paged kernel's
-    mangled name (template arguments: ints, bools, float), None for any other
-    symbol. The name is the one right after its length (the Itanium ABI's
-    prefix), not a file name inside nvcc's namespace for the source."""
+    """"flash_bwd_dkv_mma_kernel<64, 64>" for a flash, paged or softmax
+    kernel's mangled name (template arguments: ints, bools, float,
+    __nv_bfloat16, __half), None for any other symbol. The name is the one
+    right after its length (the Itanium ABI's prefix), not a file name inside
+    nvcc's namespace for the source."""
     import re
 
-    m = re.search(r"\d((?:flash_(?:fwd|bwd)|paged)_\w+?_kernel)I(.+?)EEv", mangled)
+    m = re.search(r"\d((?:flash_(?:fwd|bwd)|paged|softmax)_\w+?_kernel)I(.+?)EEv", mangled)
     if m is None:
         return None
-    args = [n or ("true" if b == "1" else "false") if (n or b) else "float"
-            for n, b, _ in re.findall(r"Li(\d+)|Lb([01])|(f)", m[2])]
+    args = [n or {"1": "true", "0": "false"}.get(b) or t or "float" for n, b, _, t in
+            re.findall(r"Li(\d+)|Lb([01])|(f)|\d+(__nv_bfloat16|__half)", m[2])]
     return f"{m[1]}<{', '.join(args)}>"
 
 
@@ -343,8 +353,9 @@ def tensor_core_gate(counts: dict, family: str = "flash") -> None:
 
 
 def ptxas_report(build_log: str) -> dict:
-    """Registers and spill bytes per flash or paged kernel from ``nvcc -Xptxas -v``'s
-    output (the library's build.log), keyed by kernel_label."""
+    """Registers, spill bytes and static shared memory (where ptxas states
+    it) per flash, paged or softmax kernel from ``nvcc -Xptxas -v``'s output
+    (the library's build.log), keyed by kernel_label."""
     import re
 
     out, name = {}, None
@@ -359,6 +370,8 @@ def ptxas_report(build_log: str) -> dict:
             out[name]["spill_bytes"] = int(m[1]) + int(m[2])
         elif name is not None and (m := re.search(r"Used (\d+) registers", line)):
             out[name]["registers"] = int(m[1])
+            if smem := re.search(r"(\d+) bytes smem", line):
+                out[name]["smem_bytes"] = int(smem[1])
     return out
 
 
@@ -506,6 +519,7 @@ def kernel_phase(dev) -> list[dict]:
     from repro_torch.kernels.paged import ops as pa
     from repro_torch.kernels.range_count import kernel as rc_kernel
     from repro_torch.kernels.rmsnorm import ops as rn
+    from repro_torch.kernels.softmax import kernel as sm_kernel
     from repro_torch.kernels.swiglu import ops as sw
     from repro_torch.kernels.to_integral import kernel as ti_kernel
 
@@ -513,7 +527,7 @@ def kernel_phase(dev) -> list[dict]:
     # nvcc builds of the CUDA sources (cached by digest), one per source, at once
     cuda = {"flash_attention": fa_kernel._fn, "flash_attention_bwd": fa_kernel._bwd_fns,
             "paged_attention": pa_kernel._fn, "range_count": rc_kernel._fn,
-            "hadd": ha_kernel._fn, "to_integral": ti_kernel._fn}
+            "hadd": ha_kernel._fn, "to_integral": ti_kernel._fn, "softmax": sm_kernel._fn}
     with ThreadPoolExecutor(len(cuda)) as pool:
         list(pool.map(lambda build: build(), cuda.values()))
     print(f"[phase1] {', '.join(cuda)} built in {time.perf_counter() - t0:.1f} s",
@@ -522,7 +536,7 @@ def kernel_phase(dev) -> list[dict]:
     mma_libs = {"flash_attention": ("flash", fa_kernel.SOURCES, []),
                 "flash_attention_bwd": ("flash", fa_kernel.BWD_SOURCES, []),
                 "paged_attention": ("paged", pa_kernel.SOURCES, pa_kernel.HEADERS)}
-    for name in cuda.keys() - mma_libs.keys():
+    for name in cuda.keys() - mma_libs.keys() - {"softmax"}:
         digest = "[0-9a-f]" * 12
         for log in sorted(KERNEL_BUILD_ROOT.glob(f"{name}_{digest}/build.log")):
             regs = [ln.strip() for ln in log.read_text().splitlines()
@@ -550,6 +564,12 @@ def kernel_phase(dev) -> list[dict]:
     for family, counts in mma.items():
         if counts:
             tensor_core_gate(counts, family)
+    # the softmax library per instantiation: none may spill
+    lib = build_shared_library("softmax", sm_kernel.SOURCES)
+    regs = ptxas_report((lib.parent / "build.log").read_text())
+    print(f"[phase1] ptxas softmax per instantiation: {json.dumps(regs)}", flush=True)
+    if not regs or any(r.get("spill_bytes") for r in regs.values()):
+        raise AssertionError(f"softmax instantiations missing or spilling: {regs}")
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -641,7 +661,7 @@ def kernel_phase(dev) -> list[dict]:
                     "src/repro_torch/kernels/to_integral/csrc/to_integral.cu",
                     "src/repro/kernels/to_integral/kernel.py:31", None,
                     to_integral_cases(dev)))
-    results.append(("softmax", "triton", "src/repro_torch/kernels/softmax/kernel.py",
+    results.append(("softmax", "cuda", "src/repro_torch/kernels/softmax/csrc/softmax.cu",
                     "src/repro/kernels/softmax/kernel.py:24", None, softmax_cases(dev)))
 
     rows = []
@@ -942,17 +962,20 @@ def to_integral_cases(dev) -> list[dict]:
     return cases
 
 
-def softmax_cases(dev) -> list[dict]:
-    """Phase 1, softmax: vocabulary rows ((8, 152064) bf16, the main case:
-    wider than one block, online max/sum) with -inf lanes, the same in f32
-    and with a row of only -inf (NaN, as the plain version gives), flat
-    rows (unit logits: no entry dominates, so a fault in the small entries
-    or the tail block shows against ATOL/d), rows that
-    fit one block ((4096, 1024) f32, (64, 512) bf16), the generated suite's
-    shapes, and widths 1, 31, 33 and 2^20 + 7."""
+def softmax_specs(dev) -> list[tuple]:
+    """Phase 1's softmax inputs, (x, main, note): vocabulary rows ((8,
+    152064) bf16, the main case: a cluster of CTAs per row) with -inf lanes
+    and a first half of only -inf in row 0, the same in f32 and with a row of
+    only -inf (NaN, as the plain version gives), flat rows (unit logits: no
+    entry dominates, so a fault in the small entries or a chunk's edge shows
+    against ATOL/d), rows that fit a warp ((4096, 1024) f32, (64, 512) bf16),
+    the generated suite's shapes, widths 1, 31, 33 and 2^20 + 7 (f32: a chunk
+    over the shared-memory budget streams); then batch-1 sampling rows
+    ((1, 152064) bf16 and f32), float16, a width whose rows break 16-byte
+    alignment ((2, 152063) bf16), a view whose base is 2 bytes off 16-byte
+    alignment (element loads), and an aligned streaming row ((2, 2^20 + 8)
+    f32: 16-byte loads)."""
     import torch
-
-    from repro_torch.kernels.softmax import ops as sm
 
     g = torch.Generator(device=dev).manual_seed(13)
 
@@ -965,28 +988,80 @@ def softmax_cases(dev) -> list[dict]:
             x[1] = float("-inf")
         return x.to(dtype)
 
-    specs = [(rand((8, VOCAB_ROW), torch.bfloat16, neg_inf=True), True),
-             (rand((8, VOCAB_ROW), torch.float32, neg_inf=True), False),
-             (rand((8, VOCAB_ROW), torch.float32, dead_row=True), False),
-             (rand((8, VOCAB_ROW), torch.bfloat16, neg_inf=True, scale=1.0), False),
-             (rand((8, VOCAB_ROW), torch.float32, scale=1.0), False),
-             (rand((4096, 1024), torch.float32), False),
-             (rand((64, 512), torch.bfloat16, neg_inf=True), False),
-             (rand((7, 33), torch.float32), False), (rand((4, 16), torch.bfloat16), False),
-             (rand((3, 9000), torch.float32, neg_inf=True), False)]
+    def off_alignment(x):
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        view = flat[1:].view(x.shape)
+        view.copy_(x)
+        return view
+
+    specs = [(rand((8, VOCAB_ROW), torch.bfloat16, neg_inf=True), True, ""),
+             (rand((8, VOCAB_ROW), torch.float32, neg_inf=True), False, ""),
+             (rand((8, VOCAB_ROW), torch.float32, dead_row=True), False, "a row of only -inf"),
+             (rand((8, VOCAB_ROW), torch.bfloat16, neg_inf=True, scale=1.0), False, "flat"),
+             (rand((8, VOCAB_ROW), torch.float32, scale=1.0), False, "flat"),
+             (rand((4096, 1024), torch.float32), False, ""),
+             (rand((64, 512), torch.bfloat16, neg_inf=True), False, ""),
+             (rand((7, 33), torch.float32), False, ""), (rand((4, 16), torch.bfloat16), False, ""),
+             (rand((3, 9000), torch.float32, neg_inf=True), False, "")]
     for d in EDGE_LENGTHS[1:]:
-        specs.append((rand((2, d), torch.float32), False))
+        specs.append((rand((2, d), torch.float32), False, ""))
+    specs += [(rand((1, VOCAB_ROW), torch.bfloat16, neg_inf=True), False, "batch-1 sampling"),
+              (rand((1, VOCAB_ROW), torch.float32, neg_inf=True), False, "batch-1 sampling"),
+              (rand((8, VOCAB_ROW), torch.float16, neg_inf=True), False, ""),
+              (rand((2, VOCAB_ROW - 1), torch.bfloat16, neg_inf=True), False,
+               "rows off 16-byte alignment"),
+              (off_alignment(rand((8, VOCAB_ROW), torch.bfloat16, neg_inf=True)), False,
+               "base 2 bytes off alignment"),
+              (rand((2, EDGE + 1), torch.float32, neg_inf=True), False, "")]
+    return specs
+
+
+def softmax_cases(dev) -> list[dict]:
+    """Phase 1, softmax: every softmax_specs input against the plain version
+    (NaN exactly where it has NaN), each with its plan (kernel.plan on this
+    card); the main case with its kernels per call; each case planned with a
+    cluster of 16 also timed and checked at a cluster of 8."""
+    import torch
+
+    from repro_torch.kernels.softmax import kernel as sm_kernel
+    from repro_torch.kernels.softmax import ops as sm
+
     cases = []
-    for x, main in specs:
-        shape = list(x.shape)
+    for x, main, note in softmax_specs(dev):
+        shape, d = list(x.shape), x.shape[-1]
+        got = sm.softmax(x)
+        plan = sm_kernel.plan_for(x, got)
         c = {"shape": shape, "dtype": str(x.dtype).removeprefix("torch."), "main": main,
-             **check_case("softmax", shape, sm.softmax(x), sm.ref.softmax(x), x.dtype,
-                          nan_ok=True, atol_scale=1 / shape[-1])}
+             **check_case("softmax", shape, got, sm.ref.softmax(x), x.dtype, nan_ok=True,
+                          atol_scale=1 / d),
+             "plan": {k: getattr(plan, k) for k in ("regime", "cluster", "chunk", "load",
+                                                   "smem", "lane")}}
+        c["note"] = (f"{note}; " if note else "") + (
+            f"plan {plan.regime}, {plan.load} loads" if plan.regime == "narrow" else
+            f"plan {plan.regime}, cluster {plan.cluster} x {plan.chunk} elements, "
+            f"{plan.load} loads")
         _timed_device(c, lambda: sm.softmax(x), lambda: sm.ref.softmax(x),
                       lambda: torch.softmax(x, -1), 20)
+        if main:
+            c["launches_per_call"] = launches_per_call(lambda: sm.softmax(x), 5)
+        if plan.cluster == 16:
+            out8 = torch.empty_like(x)
+            sm_kernel.softmax_2d(x, out8, max_cluster=8)
+            c["cluster_8"] = {
+                "chunk": sm_kernel.plan_for(x, out8, max_cluster=8).chunk,
+                **check_case("softmax S=8", shape, out8, sm.ref.softmax(x), x.dtype,
+                             nan_ok=True, atol_scale=1 / d),
+                "ms": graph_ms(lambda: sm_kernel.softmax_2d(x, out8, max_cluster=8), 20)}
+            c["note"] += f"; cluster 8: {c['cluster_8']['ms']:.4f} ms"
         c["bound_ms"], c["bound_by"] = bound(2 * x.numel() * x.element_size(),
                                              5 * x.numel(), torch.float32)
         cases.append(c)
+    main = next(c for c in cases if c["main"])
+    if (main["plan"]["regime"], main["plan"]["load"]) != ("wide", "bulk"):
+        raise AssertionError(f"softmax: the main case did not take a cluster with bulk "
+                             f"copies: {main['plan']}")
+    if {c["plan"]["load"] for c in cases if "off" in c.get("note", "")} != {"element"}:
+        raise AssertionError("softmax: a row off 16-byte alignment took 16-byte loads")
     return cases
 
 

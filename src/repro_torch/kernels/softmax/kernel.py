@@ -1,91 +1,148 @@
-"""Hopper kernel (Triton): stable row softmax, statistics in f32, output in
-x's dtype.
+"""Launcher for the hand-written CUDA C++ row softmax (``csrc/softmax.cu``;
+see its header for the contract, what bounds it on the H100 and what its
+design does about it).
 
-Replaces ``repro/kernels/softmax/kernel.py:softmax_2d`` (body
-``_softmax_kernel``), the Pallas TPU kernel that holds a block of whole rows
-in VMEM.
-
-What bounds it on the H100: bytes. About 5 flops per element against two
-bytes in and two out (bf16): its floor is 2·rows·d·itemsize / 3.35 TB/s.
-
-What the design does about it: a row that fits one block (d ≤ 4096 after
-padding to a power of two) is held in registers, several rows per program,
-so x crosses HBM once: max, exp, sum and the division happen on the SM. A
-wider row (a vocabulary row of 152064) cannot stay in registers: one
-program per row walks it in blocks of 4096 with a running max and sum per
-lane (the online softmax: a new max rescales the sum by exp(m_old − m_new)),
-combines the lanes once, then walks the row again to write exp(x − m) / l,
-reading x twice. Entries of −inf weigh 0; a row of only −inf gives NaN, as
-the plain version does. No shared memory, no cross-program state.
+Replaces ``repro/kernels/softmax/kernel.py:softmax_2d``. The source is
+compiled by ``nvcc`` for sm_90a into a shared library with a plain C
+interface at first use (``build/torch_kernels/``) and called through
+``ctypes``; the C function returns ``cudaGetLastError()`` (or the cluster
+launch's own error) and a non-zero code raises here, with the card, the
+shape and the plan. Nothing gives way to another kernel or to the plain
+version.
 """
 
+from __future__ import annotations
+
+import ctypes
 import functools
+from pathlib import Path
+from typing import NamedTuple
 
-from ..common import cdiv, next_power_of_2, use_checkout_triton_cache
+import torch
 
-# triton.language, bound by _build() at first launch: the host that runs the
-# tests has no triton, so nothing here may import it at module import
-tl = None
+from ..common import cdiv, load_shared_library, next_power_of_2, sm_count
 
-MAX_ROW_BLOCK = 4096        # widest row held whole in one program
-_MAX_BLOCK_ELEMS = 4096     # elements a program holds (rows x padded d)
+SOURCES = [Path(__file__).resolve().parent / "csrc" / "softmax.cu"]
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_REGIME_CODE = {"narrow": 0, "wide": 1, "stream": 2}
+NARROW_MAX = 1024           # rows up to this wide: a warp per row, in registers
+SMEM_BUDGET = 224 * 1024    # shared memory a wide chunk may take (softmax.cu SMEM_MAX)
+MIN_CHUNK = 2048            # fewest elements a CTA of a cluster takes
+MAX_CLUSTER = 16            # CTAs per row at most: non-portable above 8
+PORTABLE_CLUSTER = 8
+
+
+class Plan(NamedTuple):
+    """How one call runs. ``regime``: "narrow" (a warp per row), "wide" (a
+    cluster of ``cluster`` CTAs per row, each chunk in ``smem`` bytes of
+    shared memory) or "stream" (the same cluster streaming its chunk);
+    ``chunk``: elements per CTA, ``chunks``: the bounds [c0, c1) of each
+    CTA's chunk of a row, in rank order; ``lane``: elements a lane holds
+    (narrow only); ``load``: "bulk" (cp.async.bulk), "vector" (16-byte
+    loads) or "element"."""
+    regime: str
+    cluster: int
+    chunk: int
+    chunks: tuple
+    lane: int
+    smem: int
+    load: str
+
+
+def plan(rows: int, d: int, itemsize: int, sms: int, aligned: bool = True,
+         max_cluster: int = MAX_CLUSTER) -> Plan:
+    """The plan of a (rows, d) call: a function of the shape, the element
+    size, the card (``sms``; ``max_cluster``, the largest cluster it admits)
+    and whether both bases are 16-byte aligned, never of the data. A narrow
+    row (d <= NARROW_MAX) goes to one warp; a wider one to a cluster of up
+    to ``max_cluster`` CTAs, as many as fill the card over all rows but each
+    with MIN_CHUNK elements at least, its chunks cut on whole 16-byte
+    vectors and none empty. A chunk larger than SMEM_BUDGET streams."""
+    vec = aligned and d * itemsize % 16 == 0
+    per_vec = 16 // itemsize
+    if d <= NARROW_MAX:
+        lane = max(4, next_power_of_2(cdiv(d, 32)))
+        vec = vec and lane >= per_vec
+        return Plan("narrow", 1, d, ((0, d),), lane, 0, "vector" if vec else "element")
+    cluster = max(1, min(max_cluster, cdiv(d, MIN_CHUNK), cdiv(sms, rows)))
+    chunk = cdiv(cdiv(d, cluster), per_vec) * per_vec
+    cluster = cdiv(d, chunk)                # no empty chunk
+    chunks = tuple((r * chunk, min((r + 1) * chunk, d)) for r in range(cluster))
+    if chunk * itemsize > SMEM_BUDGET:
+        return Plan("stream", cluster, chunk, chunks, 0, 0, "vector" if vec else "element")
+    return Plan("wide", cluster, chunk, chunks, 0, chunk * itemsize,
+                "bulk" if vec else "element")
 
 
 @functools.cache
-def _build():
-    global tl
-    use_checkout_triton_cache()
-    import triton
-    import triton.language as _tl
-
-    tl = _tl
-
-    @triton.jit
-    def _softmax_rows(x_ptr, o_ptr, n_rows, d, BLOCK_R: tl.constexpr, BLOCK_D: tl.constexpr):
-        rows = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
-        cols = tl.arange(0, BLOCK_D)
-        mask = (rows < n_rows)[:, None] & (cols < d)[None, :]
-        offs = rows.to(tl.int64)[:, None] * d + cols[None, :]
-        x = tl.load(x_ptr + offs, mask=mask, other=float("-inf")).to(tl.float32)
-        m = tl.max(x, axis=1)
-        p = tl.where(mask, tl.exp(x - m[:, None]), 0.0)
-        y = p / tl.sum(p, axis=1)[:, None]
-        tl.store(o_ptr + offs, y.to(o_ptr.dtype.element_ty), mask=mask)
-
-    @triton.jit
-    def _softmax_wide(x_ptr, o_ptr, d, BLOCK_D: tl.constexpr):
-        base = tl.program_id(0).to(tl.int64) * d
-        cols = tl.arange(0, BLOCK_D)
-        m = tl.full([BLOCK_D], float("-inf"), tl.float32)
-        l = tl.zeros([BLOCK_D], tl.float32)
-        for start in range(0, d, BLOCK_D):
-            x = tl.load(x_ptr + base + start + cols, mask=start + cols < d,
-                        other=float("-inf")).to(tl.float32)
-            m_new = tl.maximum(m, x)
-            alive = m_new > float("-inf")
-            l = tl.where(alive, l * tl.exp(m - m_new) + tl.exp(x - m_new), 0.0)
-            m = m_new
-        row_max = tl.max(m, axis=0)
-        total = tl.sum(tl.where(m > float("-inf"), l * tl.exp(m - row_max), 0.0), axis=0)
-        for start in range(0, d, BLOCK_D):
-            mask = start + cols < d
-            x = tl.load(x_ptr + base + start + cols, mask=mask, other=float("-inf"))
-            y = tl.exp(x.to(tl.float32) - row_max) / total
-            tl.store(o_ptr + base + start + cols, y.to(o_ptr.dtype.element_ty), mask=mask)
-
-    return _softmax_rows, _softmax_wide
+def _lib():
+    return load_shared_library("softmax", SOURCES)
 
 
-def softmax_2d(x, out) -> None:
-    """x, out: contiguous (rows, d) CUDA tensors of one dtype, rows, d >= 1.
-    Launches on the current stream; checks are the caller's (ops.softmax)."""
+@functools.cache
+def _fn():
+    return bind(_lib())
+
+
+def bind(lib: ctypes.CDLL):
+    """The C function of a built library, with its signature."""
+    fn = lib.tsl_softmax
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _max_cluster(index: int, dtype: torch.dtype) -> int:
+    """The largest cluster the card ``index`` holds at the full shared-memory
+    budget: MAX_CLUSTER where cudaOccupancyMaxActiveClusters admits it, else
+    PORTABLE_CLUSTER; raises where it admits neither. Asked once per card
+    and dtype."""
+    fn = _lib().tsl_softmax_max_clusters
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    found = {}
+    with torch.cuda.device(index):
+        for size in (MAX_CLUSTER, PORTABLE_CLUSTER):
+            count = ctypes.c_int(0)
+            err = fn(_DTYPE_CODE[dtype], size, SMEM_BUDGET, ctypes.byref(count))
+            if err != 0:
+                raise RuntimeError(f"softmax: cudaOccupancyMaxActiveClusters failed for a "
+                                   f"cluster of {size}: cudaError {err} "
+                                   f"({torch.cuda.get_device_name(index)})")
+            found[size] = count.value
+            if count.value > 0:
+                return size
+    raise RuntimeError(f"softmax: {torch.cuda.get_device_name(index)} holds no cluster of "
+                       f"{MAX_CLUSTER} or {PORTABLE_CLUSTER} CTAs with {SMEM_BUDGET} bytes of "
+                       f"shared memory each: {found}")
+
+
+def plan_for(x, out, max_cluster: int | None = None) -> Plan:
+    """The plan of softmax_2d(x, out) on x's card (``max_cluster``: a smaller
+    cap than the card's, to measure another cluster size)."""
     rows, d = x.shape
-    rows_kernel, wide_kernel = _build()
-    block_d = next_power_of_2(d)
-    if block_d <= MAX_ROW_BLOCK:
-        block_r = max(1, min(_MAX_BLOCK_ELEMS // block_d, next_power_of_2(rows)))
-        rows_kernel[(cdiv(rows, block_r),)](x, out, rows, d, BLOCK_R=block_r,
-                                            BLOCK_D=block_d,
-                                            num_warps=4 if block_r * block_d <= 2048 else 8)
-    else:
-        wide_kernel[(rows,)](x, out, d, BLOCK_D=MAX_ROW_BLOCK, num_warps=8)
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    cap = _max_cluster(index, x.dtype) if d > NARROW_MAX else MAX_CLUSTER
+    if max_cluster is not None:
+        cap = min(cap, max_cluster)
+    aligned = x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    return plan(rows, d, x.element_size(), sm_count(x.device), aligned, cap)
+
+
+def softmax_2d(x, out, max_cluster: int | None = None) -> None:
+    """x, out: contiguous (rows, d) CUDA tensors of one dtype, rows, d >= 1.
+    Checks are the caller's (ops.softmax). One launch on the current stream;
+    raises on a refused launch or cluster."""
+    rows, d = x.shape
+    p = plan_for(x, out, max_cluster)
+    with torch.cuda.device(x.device):
+        err = _fn()(x.data_ptr(), out.data_ptr(), rows, d, _DTYPE_CODE[x.dtype],
+                    _REGIME_CODE[p.regime], p.cluster, p.chunk, p.lane, p.smem,
+                    int(p.load != "element"), torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"softmax launch failed: cudaError {err} "
+                           f"({torch.cuda.get_device_name(x.device)}; x {tuple(x.shape)} "
+                           f"{x.dtype}; plan {p._replace(chunks=len(p.chunks))})")

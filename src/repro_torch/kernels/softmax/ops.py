@@ -1,6 +1,7 @@
 """Wrapper the ``h100`` softmax definition calls (mirrors
-``repro/kernels/softmax/ops.py``): a CUDA tensor launches the Triton kernel
-(or raises on what it does not take), a CPU tensor takes the plain version.
+``repro/kernels/softmax/ops.py``): a CUDA tensor launches the CUDA C++
+kernel (or raises on what it does not take), a CPU tensor takes the plain
+version.
 ``softmax.launches`` counts kernel launches."""
 
 from __future__ import annotations

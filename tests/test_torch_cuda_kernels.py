@@ -18,8 +18,10 @@ show that each of those gates fails on them.
 Tolerance: bf16 |kernel - plain| <= 1e-2 + 1e-2 |plain| (one bf16 rounding
 step where f32 sums round differently); f32 1e-4 + 1e-4 |plain|. Softmax
 compares d·softmax on rows of width d (mean 1), so its absolute term is
-1e-2/d (bf16) or 1e-4/d (f32) of a probability. Counts, int32 sums and
-packed words are integers: equal, bit for bit."""
+1e-2/d (bf16, f16) or 1e-4/d (f32) of a probability; float16 takes bf16's
+tolerance (one rounding step: 2^-11 relative, or 2^-24 absolute below
+2^-14, under 1e-2/d for d < 167772). Counts, int32 sums and packed words
+are integers: equal, bit for bit."""
 
 import pytest
 import torch
@@ -34,7 +36,7 @@ from repro_torch.kernels.swiglu import ops as sw
 from repro_torch.kernels.to_integral import ops as ti
 
 pytestmark = pytest.mark.cuda
-TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4, torch.float16: 1e-2}
 
 
 @pytest.fixture
@@ -346,7 +348,8 @@ def test_to_integral_kernel_bit_31(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(8, 152064), (4096, 1024), (64, 512), (7, 33), (3, 9000),
-                                   (2, 1), (2, 31), (2, 33), (2, (1 << 20) + 7)])
+                                   (2, 1), (2, 31), (2, 33), (2, (1 << 20) + 7),
+                                   (1, 152064), (2, 152063), (2, (1 << 20) + 8)])
 @pytest.mark.parametrize("scale", [4.0, 1.0])   # 1: flat rows, no entry dominates
 def test_softmax_kernel(dev, shape, dtype, scale):
     g = torch.Generator(device=dev).manual_seed(shape[1])
@@ -358,6 +361,53 @@ def test_softmax_kernel(dev, shape, dtype, scale):
     got, want = sm.softmax(x), sm.ref.softmax(x)
     assert sm.softmax.launches == before + 1
     _check(got, want, dtype, row_width=shape[1])
+
+
+def test_softmax_kernel_float16(dev):
+    x = torch.randn((8, 152064), generator=torch.Generator(device=dev).manual_seed(16),
+                    device=dev) * 4
+    x[:, 1::7] = float("-inf")
+    x = x.half()
+    got, want = sm.softmax(x), sm.ref.softmax(x)
+    assert got.dtype == torch.float16
+    _check(got, want, torch.float16, row_width=x.shape[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_off_alignment_takes_element_loads(dev, dtype):
+    """A contiguous view whose base is one element off 16-byte alignment:
+    the plan takes element loads, never the bulk copy, and is right."""
+    x = torch.randn((8, 152064), generator=torch.Generator(device=dev).manual_seed(17),
+                    device=dev).mul_(4).to(dtype)
+    view = torch.empty(x.numel() + 1, dtype=dtype, device=dev)[1:].view(x.shape)
+    view.copy_(x)
+    got = sm.softmax(view)
+    assert view.data_ptr() % 16 != 0 and sm.kernel.plan_for(view, got).load == "element"
+    assert sm.kernel.plan_for(x, sm.softmax(x)).load == "bulk"
+    _check(got, sm.ref.softmax(view), dtype, row_width=x.shape[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_is_the_same_bit_for_bit_call_after_call(dev, dtype):
+    """Every CTA of a cluster merges the partials in rank order, so the wide
+    kernel's output never depends on which CTA finished first."""
+    g = torch.Generator(device=dev).manual_seed(18)
+    for shape in ((8, 152064), (1, 152064), (2, 152063), (2, (1 << 20) + 7)):
+        x = (torch.randn(shape, generator=g, device=dev) * 4).to(dtype)
+        first = sm.softmax(x)
+        for _ in range(3):
+            assert torch.equal(sm.softmax(x), first)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_cluster_of_8(dev, dtype):
+    """The portable cluster size, as chip_smoke.py times it beside 16."""
+    x = (torch.randn((8, 152064), generator=torch.Generator(device=dev).manual_seed(19),
+                     device=dev) * 4).to(dtype)
+    out = torch.empty_like(x)
+    sm.kernel.softmax_2d(x, out, max_cluster=8)
+    assert sm.kernel.plan_for(x, out, max_cluster=8).cluster == 8
+    _check(out, sm.ref.softmax(x), dtype, row_width=x.shape[1])
 
 
 def test_softmax_kernel_row_of_only_neg_inf_is_nan(dev):
@@ -700,6 +750,21 @@ TO_INTEGRAL_FAULTS = {
 }
 
 
+# The wide softmax's split and merge (softmax.cu): each must fail phase 1's
+# softmax check (chip_smoke.check_case on chip_smoke.softmax_specs) in f32
+# and in bf16.
+SOFTMAX_FAULTS = {
+    "cluster_merge_rescale_dropped": [("softmax.cu", "const float w = p.y * exp2f(p.x - M);",
+                                       "const float w = p.y;")],
+    "last_rank_skipped": [("softmax.cu", "lane < S ? *cluster.map_shared_rank(&part, lane)",
+                           "lane < S - 1 ? *cluster.map_shared_rank(&part, lane)")],
+    "chunk_boundary_one_element_late": [
+        ("softmax.cu", "const long long c0 = static_cast<long long>(rank) * cs;",
+         "const long long c0 = static_cast<long long>(rank) * cs + 1;")],
+    "local_neg_inf_guard_dropped": [("softmax.cu", "  if (m > -INFINITY) {", "  if (true) {")],
+}
+
+
 def _plant_split_fault(tmp_path, monkeypatch, kernel, faults, name):
     """Build a copy of ``kernel``'s source with ``faults`` (and its headers
     beside it) and make its launcher call it for the rest of the test."""
@@ -781,6 +846,46 @@ def test_to_integral_check_fails_on_planted_fault(dev, tmp_path, monkeypatch, fa
                 caught.append(f"{tuple(m.shape)} {m.dtype}: {str(e)[:80]}")
     print(f"\n[fault] {fault}: {len(caught)} of 4 cases fail")
     assert caught, f"no to_integral case fails on {fault}"
+
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fault", list(SOFTMAX_FAULTS))
+def test_softmax_check_fails_on_planted_fault(dev, tmp_path, monkeypatch, fault, dtype):
+    """A copy of the softmax kernel with ``fault`` must fail phase 1's check
+    on at least one of phase 1's cases of ``dtype`` (the unfaulted kernel
+    passes them all: chip_smoke.py). Each output is filled with NaN first,
+    so an element the fault leaves unwritten cannot read as right from an
+    earlier call's memory."""
+    cs = _chip_smoke()
+    _plant_split_fault(tmp_path, monkeypatch, sm.kernel, SOFTMAX_FAULTS[fault],
+                       f"softmax_{fault}")
+    caught, tried = [], 0
+    for x, _, note in cs.softmax_specs(dev):
+        if x.dtype != dtype:
+            continue
+        tried += 1
+        out = torch.full_like(x, float("nan"))
+        sm.kernel.softmax_2d(x, out)
+        try:
+            cs.check_case("softmax", list(x.shape), out, sm.ref.softmax(x), dtype,
+                          nan_ok=True, atol_scale=1 / x.shape[-1])
+        except AssertionError as e:
+            caught.append(f"{tuple(x.shape)}{' ' + note if note else ''}: {str(e)[:90]}")
+    print(f"\n[fault] {fault} {dtype}: {len(caught)} of {tried} cases fail: "
+          + " | ".join(caught))
+    assert caught, f"no softmax case fails on {fault}"
 
 
 def _full_width_run(model, state, batch, steps=5):

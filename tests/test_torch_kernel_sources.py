@@ -14,9 +14,10 @@ from repro_torch.kernels import common
 from repro_torch.kernels.flash_attention import kernel, ops
 from repro_torch.kernels.hadd import kernel as hadd_kernel
 from repro_torch.kernels.paged import kernel as paged_kernel
+from repro_torch.kernels.softmax import kernel as softmax_kernel
 from repro_torch.kernels.to_integral import kernel as to_integral_kernel
 from test_torch_cuda_kernels import (CUDA_FAULTS, GLUE_FAULTS, HADD_FAULTS, PAGED_FAULTS,
-                                     TO_INTEGRAL_FAULTS)
+                                     SOFTMAX_FAULTS, TO_INTEGRAL_FAULTS, _chip_smoke)
 
 
 @pytest.mark.parametrize("fault", list(CUDA_FAULTS))
@@ -27,13 +28,13 @@ def test_every_planted_kernel_fault_names_one_place_in_its_source(fault):
         assert sources[name].count(old) == 1, (fault, name, old)
 
 
-SOURCE_FAULTS = {**PAGED_FAULTS, **HADD_FAULTS, **TO_INTEGRAL_FAULTS}
+SOURCE_FAULTS = {**PAGED_FAULTS, **HADD_FAULTS, **TO_INTEGRAL_FAULTS, **SOFTMAX_FAULTS}
 
 
 @pytest.mark.parametrize("fault", list(SOURCE_FAULTS))
 def test_every_planted_split_fault_names_one_place_in_its_source(fault):
-    sources = {p.name: p.read_text() for p in
-               paged_kernel.SOURCES + hadd_kernel.SOURCES + to_integral_kernel.SOURCES}
+    sources = {p.name: p.read_text() for p in paged_kernel.SOURCES + hadd_kernel.SOURCES +
+               to_integral_kernel.SOURCES + softmax_kernel.SOURCES}
     for name, old, new in SOURCE_FAULTS[fault]:
         assert old != new
         assert sources[name].count(old) == 1, (fault, name, old)
@@ -72,21 +73,44 @@ FLASH_SYMBOLS = {
 }
 
 
-def _chip_smoke():
-    import sys
-    from pathlib import Path
-
-    root = str(Path(__file__).resolve().parents[1])
-    if root not in sys.path:
-        sys.path.insert(0, root)
-    import chip_smoke
-
-    return chip_smoke
-
-
 @pytest.mark.parametrize("mangled", list(FLASH_SYMBOLS))
 def test_chip_smoke_labels_every_flash_instantiation(mangled):
     assert _chip_smoke().kernel_label(mangled) == FLASH_SYMBOLS[mangled]
+
+
+SOFTMAX_SYMBOLS = {
+    "_ZN12_GLOBAL__N_119softmax_rows_kernelIfLi32ELb1EEEvPKT_PS1_xi":
+        "softmax_rows_kernel<float, 32, true>",
+    "_ZN12_GLOBAL__N_119softmax_rows_kernelI13__nv_bfloat16Li8ELb0EEEvPKT_PS2_xi":
+        "softmax_rows_kernel<__nv_bfloat16, 8, false>",
+    "_ZN12_GLOBAL__N_119softmax_rows_kernelI6__halfLi16ELb1EEEvPKT_PS2_xi":
+        "softmax_rows_kernel<__half, 16, true>",
+    "_ZN12_GLOBAL__N_122softmax_cluster_kernelIfLb0EEEvPKT_PS1_xxb":
+        "softmax_cluster_kernel<float, false>",
+    "_ZN12_GLOBAL__N_122softmax_cluster_kernelI13__nv_bfloat16Lb1EEEvPKT_PS2_xxb":
+        "softmax_cluster_kernel<__nv_bfloat16, true>",
+    # as nvcc names it: the namespace holds the file name, softmax_cu
+    "_ZN43_GLOBAL__N__9b44374b_10_softmax_cu_ba69045822softmax_cluster_kernelI6__halfLb0EEEvPK"
+    "T_PS2_xxb": "softmax_cluster_kernel<__half, false>",
+}
+
+
+@pytest.mark.parametrize("mangled", list(SOFTMAX_SYMBOLS))
+def test_chip_smoke_labels_every_softmax_instantiation(mangled):
+    """Phase 1 reads ptxas's registers, shared memory and spills per softmax
+    instantiation by these labels (and fails on any spill)."""
+    assert _chip_smoke().kernel_label(mangled) == SOFTMAX_SYMBOLS[mangled]
+
+
+def test_chip_smoke_reads_static_shared_memory():
+    log = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122softmax_cluster_kernelIf"
+           "Lb0EEEvPKT_PS1_xxb' for 'sm_90a'\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 40 registers, used 1 barriers, 96 bytes smem, 400 bytes "
+           "cmem[0]\n")
+    assert _chip_smoke().ptxas_report(log) == {
+        "softmax_cluster_kernel<float, false>": {"spill_bytes": 0, "registers": 40,
+                                                 "smem_bytes": 96}}
 
 
 def _paged_counts():
