@@ -111,6 +111,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    within 5e-3 of the kernels'. Where the step's device time goes: the top
    kernels, the three training kernels' share, the GEMMs' share and the
    152064-wide cross-entropy's forward + backward (timed alone).
+6. Train CLI. repro_torch.launch.train.main at full width (phase 5's
+   model and batch, SyntheticTokens batches), checkpoints in a temporary
+   directory removed at the end; each run's launch counters are set to 0
+   just before it and read just after.
+6a. int8 optimizer moments and two microbatches: 6 steps with a checkpoint
+   every 3, a restart at --steps 9 that restores step 6, and the same 9
+   steps uninterrupted. Fails unless step_3, step_6 and step_9 are
+   committed, step_9's data state is 9, every loss is finite, the restarted
+   steps 7-9 are within LOSS_REL of the uninterrupted run's (the largest
+   difference is printed), every run launches exactly twice phase 5c's
+   kernels per step, and the int8 moments (q + scale, from the manifest)
+   take at most INT8_STATE_SHARE of float32 moments' bytes. Prints tokens/s,
+   peak memory and the loop's seconds in checkpoint saves.
+6b. --compress-grads against none, 5 steps each: every loss finite and
+   within LOSS_REL; compress_err of make_train_step on the first batch in
+   (0, max|g| (1/254 + 2^-8)]: the wire format's amax/254 plus one bf16
+   rounding of the cast back.
+6c. make_train_step(OptConfig(moment_dtype="int8", warmup_steps=0),
+   microbatches=2) for 3 steps on three SyntheticTokens batches through the
+   kernels, and at each step the plain versions' step from the same state:
+   each loss within LOSS_REL, each grad_norm within full_width_bf16's 5e-2
+   (|d ||g||| <= ||d g||). int8 moments diverge from the third step at this
+   vocabulary, in the reference's arithmetic too, so two trajectories would
+   compare the divergence, not the kernels.
 
 The launch counters are set to 0 before phase 2 and read after phase 3:
 every kernel of that main path must have launched on it (flash attention in
@@ -121,8 +145,10 @@ after it for the app path (range_count, hadd, to_integral), and just
 before phase 3d and read just after it for the suite (softmax), and just
 before phase 5c and read just after it for training (flash forward with
 lse, dq, dk/dv: 48, 24 and 24 per step with remat; rmsnorm 4L + 1 and
-swiglu 2L per step). Launches made to compare a kernel with its plain
-version are not counted.
+swiglu 2L per step), and around each train CLI run of phase 6 (twice those
+per step: two microbatches). The training kernels' rows carry both paths'
+counts (launches_phase5c, launches_phase6: the 9 uninterrupted steps).
+Launches made to compare a kernel with its plain version are not counted.
 
 Stdout ends with the card's name and power limit (nvidia-smi), one JSON line
 {"kernels": [...]}, and, last, {"ok": true, "device": {...}}.
@@ -130,11 +156,15 @@ Stdout ends with the card's name and power limit (nvidia-smi), one JSON line
 
 from __future__ import annotations
 
+import contextlib
 import importlib
+import io
 import json
 import math
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -198,6 +228,16 @@ APP_CHECK_N = 1 << 20       # prefix also counted on the host (torch_cpu)
 # loss must fall on a batch it sees again)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 5
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=0)
+# phase 6: the train CLI at phase 5's batch, on SyntheticTokens; 6a restarts
+# a 6-step run at 9 steps (the schedule is (total 10, warmup 2) for both),
+# 6b runs 5 steps with and without compression, 6c 3 steps both ways
+CLI_ARGS = ["--arch", ARCH, "--device", "cuda", "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--log-every", "1"]
+CLI_INT8 = ["--microbatches", "2", "--moment-dtype", "int8"]
+CLI_STEPS, CLI_RESTART_STEPS, CLI_CKPT_EVERY, CLI_COMPRESS_STEPS = 6, 9, 3, 5
+# int8 moments: 1 byte per element plus a float32 scale per row, against 4
+# bytes per element for each float32 moment (0.25 + 1/row width)
+INT8_STATE_SHARE = 0.26
 
 
 def gpu_line() -> str:
@@ -1914,6 +1954,206 @@ def train_phase(dev, gpu: str) -> dict:
 
 
 
+class _Tee(io.TextIOBase):
+    """Writes to ``out`` and keeps a copy (the train CLI's log lines)."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, text: str) -> int:
+        self.out.write(text)
+        return self.buf.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_train_cli(args: list[str]) -> tuple[dict, dict, str, dict]:
+    """repro_torch.launch.train.main(args) with the launch counters set to 0
+    just before and read just after: (result, {0-based step: loss} from the
+    log lines, the log, the launches)."""
+    from repro_torch.launch import train as train_cli
+
+    for fn in counters().values():
+        fn.launches = 0
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        result = train_cli.main(args)
+    launched = read_counts()
+    log = tee.buf.getvalue()
+    losses = {int(s): float(v) for s, v in
+              re.findall(r"^\[train\] step (\d+) loss=(\S+)", log, re.MULTILINE)}
+    return result, losses, log, launched
+
+
+def _all_finite(name: str, losses) -> None:
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: losses {losses} are not all finite")
+
+
+def train_cli_phase(dev, gpu: str) -> dict:
+    """Phase 6: the train CLI at full width. 6a int8 moments, two
+    microbatches, checkpoints and a restart, against an uninterrupted run;
+    6b gradient compression against none; 6c the int8 / microbatch step
+    through the kernels against the plain versions."""
+    import torch
+
+    from repro_torch import gates
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.nn.model import build_model
+    from repro_torch.train import OptConfig, init_train_state, loss_and_grads, make_train_step
+    from repro_torch.train.optimizer import tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = get_config(ARCH)
+    L = cfg.n_layers
+    want = {"flash_attention_fwd_lse": 2 * 2 * L, "flash_attention_bwd_dq": 2 * L,
+            "flash_attention_bwd_dkv": 2 * L, "rmsnorm": 2 * (4 * L + 1), "swiglu": 2 * 2 * L}
+
+    def per_step(name, launched, steps):
+        got = {k: launched[k] / steps for k in want}
+        if got != want:
+            raise AssertionError(f"{name}: launches per step {got}, want {want} (twice "
+                                 f"phase 5c's: two microbatches)")
+        return got
+
+    # 6a: 6 steps with checkpoints every 3, a restart to 9, and 9 uninterrupted
+    out: dict = {"gpu": gpu}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = ["--ckpt-dir", tmp, "--ckpt-every", str(CLI_CKPT_EVERY)]
+        first, losses1, _, launched1 = run_train_cli(
+            CLI_ARGS + CLI_INT8 + ckpt + ["--steps", str(CLI_STEPS)])
+        second, losses2, log2, launched2 = run_train_cli(
+            CLI_ARGS + CLI_INT8 + ckpt + ["--steps", str(CLI_RESTART_STEPS)])
+        if f"restored checkpoint at step {CLI_STEPS}" not in log2:
+            raise AssertionError(f"the restart did not restore step {CLI_STEPS}")
+        root = Path(tmp)
+        committed = sorted(int(p.name.split("_")[1]) for p in root.glob("step_*")
+                           if (p / "manifest.json").exists())
+        if committed != [3, 6, 9]:
+            raise AssertionError(f"committed checkpoints {committed}, want [3, 6, 9]")
+        manifest = json.loads((root / "step_9" / "manifest.json").read_text())
+        if manifest["extra"]["data"]["step"] != CLI_RESTART_STEPS:
+            raise AssertionError(f"step_9's data state {manifest['extra']}")
+        # the optimizer state's bytes, int8 (q + scale) against float32 moments
+        size = {"int8": 1, "float32": 4, "bfloat16": 2, "int32": 4}
+        nbytes = {"moments": 0, "param_elems": 0}
+        for path, shape, dt in zip(manifest["structure"], manifest["shapes"],
+                                   manifest["dtypes"]):
+            n = math.prod(shape)
+            if path.startswith(("opt/m/", "opt/v/")):
+                nbytes["moments"] += n * size[dt]
+            elif path.startswith("params/"):
+                nbytes["param_elems"] += n
+        share = nbytes["moments"] / (2 * 4 * nbytes["param_elems"])
+        if share > INT8_STATE_SHARE:
+            raise AssertionError(f"int8 optimizer state is {share:.4f} of float32 "
+                                 f"moments' bytes, want <= {INT8_STATE_SHARE}")
+    whole, losses3, _, launched3 = run_train_cli(
+        CLI_ARGS + CLI_INT8 + ["--steps", str(CLI_RESTART_STEPS)])
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    _all_finite("6a", list(losses1.values()) + list(losses2.values())
+                + list(losses3.values()))
+    if sorted(losses2) != list(range(CLI_STEPS, CLI_RESTART_STEPS)):
+        raise AssertionError(f"the restarted run logged steps {sorted(losses2)}")
+    diffs = {s: abs(losses2[s] - losses3[s]) for s in losses2}
+    for s, d in diffs.items():
+        if d > gates.LOSS_REL * abs(losses3[s]):
+            raise AssertionError(f"step {s + 1}: restarted loss {losses2[s]} vs "
+                                 f"uninterrupted {losses3[s]}")
+    for name, launched, steps in (("6a run", launched1, CLI_STEPS),
+                                  ("6a restart", launched2, CLI_RESTART_STEPS - CLI_STEPS),
+                                  ("6a uninterrupted", launched3, CLI_RESTART_STEPS)):
+        out.setdefault("launches_per_step", {})[name] = per_step(name, launched, steps)
+    out["launches"] = launched3
+    out["6a"] = {"losses_first": losses1, "losses_restart": losses2,
+                 "losses_uninterrupted": losses3, "restart_max_abs_diff_logged": max(
+                     diffs.values()),
+                 "final_loss_diff": abs(second["final_loss"] - whole["final_loss"]),
+                 "tokens_per_s": {"run": first["tokens_per_s"],
+                                  "restart": second["tokens_per_s"],
+                                  "uninterrupted": whole["tokens_per_s"]},
+                 "ckpt_save_s": {"run": first["ckpt_save_s"],
+                                 "restart": second["ckpt_save_s"]},
+                 "peak_gib": peak_gib, "int8_state_share": share}
+    print(f"[phase6a] train CLI {ARCH} {TRAIN_BATCH}x{TRAIN_SEQ} int8 moments, 2 "
+          f"microbatches, restart at {CLI_STEPS} of {CLI_RESTART_STEPS} on {gpu}: "
+          f"{json.dumps(out['6a'])}; launches per step {json.dumps(out['launches_per_step'])}",
+          flush=True)
+
+    # 6b: compression against none, float32 moments, one microbatch
+    steps = ["--steps", str(CLI_COMPRESS_STEPS)]
+    comp, losses_c, _, _ = run_train_cli(CLI_ARGS + steps + ["--compress-grads"])
+    plain_run, losses_n, _, _ = run_train_cli(CLI_ARGS + steps)
+    _all_finite("6b", list(losses_c.values()) + list(losses_n.values()))
+    for s in losses_n:
+        if abs(losses_c[s] - losses_n[s]) > gates.LOSS_REL * abs(losses_n[s]):
+            raise AssertionError(f"step {s + 1}: compressed loss {losses_c[s]} vs "
+                                 f"uncompressed {losses_n[s]}")
+    model = build_model(cfg, device=dev)
+    opt_cfg = OptConfig(total_steps=10, warmup_steps=2)
+    state = init_train_state(model, opt_cfg, seed=0)
+    batch0 = {k: torch.from_numpy(v).to(dev) for k, v in
+              SyntheticTokens(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0).batch_at(0).items()}
+    _, metrics = make_train_step(model, opt_cfg, compress_grads=True)(state, batch0)
+    gmax = max(g.abs().max().item() for g in tree_leaves(
+        loss_and_grads(model, state["params"], batch0)[2]))
+    err, limit = metrics["compress_err"].item(), gmax * (1 / 254 + 2.0 ** -8)
+    if not 0 < err <= limit:
+        raise AssertionError(f"compress_err {err}: want in (0, {limit}] (max|g| {gmax})")
+    out["6b"] = {"losses_compressed": losses_c, "losses_uncompressed": losses_n,
+                 "max_rel_diff": max(abs(losses_c[s] - losses_n[s]) / abs(losses_n[s])
+                                     for s in losses_n),
+                 "compress_err": err, "compress_err_limit": limit, "max_abs_grad": gmax,
+                 "tokens_per_s": {"compressed": comp["tokens_per_s"],
+                                  "uncompressed": plain_run["tokens_per_s"]}}
+    print(f"[phase6b] train CLI {ARCH} --compress-grads vs none, {CLI_COMPRESS_STEPS} "
+          f"steps on {gpu}: {json.dumps(out['6b'])}", flush=True)
+    del state
+
+    # 6c: the int8 / two-microbatch step through the kernels and the plain
+    # versions, each step from the same state (the kernels' trajectory): with
+    # int8 moments the loss diverges from the third step at this vocabulary,
+    # in the reference's arithmetic too (tests/test_torch_train_rest.py), so
+    # two trajectories would compare the divergence's amplification of bf16
+    # rounding, not the kernels
+    plain = build_model(cfg, device=dev, target="torch_cpu")
+    assert model.lib.TARGET_NAME == "h100" and plain.lib.TARGET_NAME == "torch_cpu"
+    opt_cfg = OptConfig(moment_dtype="int8", warmup_steps=0)
+    source = SyntheticTokens(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in source.batch_at(i).items()}
+               for i in range(3)]
+    k_step = make_train_step(model, opt_cfg, microbatches=2)
+    p_step = make_train_step(plain, opt_cfg, microbatches=2)
+    curves = {"kernels": [], "plain": [], "grad_norm_kernels": [], "grad_norm_plain": []}
+    s = init_train_state(model, opt_cfg, seed=0)
+    for b in batches:
+        _, pm = p_step(s, b)
+        s, km = k_step(s, b)
+        for name, m in (("kernels", km), ("plain", pm)):
+            curves[name].append(m["loss"].item())
+            curves["grad_norm_" + name].append(m["grad_norm"].item())
+    del s
+    _all_finite("6c", curves["kernels"] + curves["plain"])
+    for i, (a, p) in enumerate(zip(curves["kernels"], curves["plain"])):
+        if abs(a - p) > gates.LOSS_REL * abs(p):
+            raise AssertionError(f"6c step {i + 1}: loss kernels {a} vs plain {p}")
+    # |d ||g||| <= ||d g||: the grads' full_width_bf16 rel bound holds for the norm
+    rel_gn = gates.GATES["full_width_bf16"][0]
+    for i, (a, p) in enumerate(zip(curves["grad_norm_kernels"], curves["grad_norm_plain"])):
+        if abs(a - p) > rel_gn * abs(p):
+            raise AssertionError(f"6c step {i + 1}: grad_norm kernels {a} vs plain {p}")
+    out["6c"] = curves
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[phase6c] int8 moments, 2 microbatches, kernels vs plain from the same state "
+          f"each step on {gpu}: "
+          f"{json.dumps(curves)}; phase 6 {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1983,6 +2223,11 @@ def main() -> int:
     for row in kernels:
         if row["name"] in train["kernel_cases"]["plain_backward_ms"]:
             row["plain_backward_ms"] = train["kernel_cases"]["plain_backward_ms"][row["name"]]
+    cli = train_cli_phase(dev, gpu)
+    for row in kernels:           # the training kernels: launches on both train paths
+        if row["name"] in cli["launches_per_step"]["6a uninterrupted"]:
+            row["launches_phase5c"] = train["launches"][row["name"]]
+            row["launches_phase6"] = cli["launches"][row["name"]]
     print(f"[done] main-path launches {counts}, paged path {paged['launches']}, app "
           f"{app['launches']}, generated suite {suite['launches']} "
           f"({suite['passed']}/{suite['tests']} passed); per prefill "
@@ -1992,7 +2237,9 @@ def main() -> int:
           f"{serve['ttft_s_mean']:.3f}, paged serve decode_tokens_per_s "
           f"{paged['decode_tokens_per_s']:.1f} ttft_s_mean {paged['ttft_s_mean']:.3f}, "
           f"train launches {train['launches']}, train losses "
-          f"{[x['loss'] for x in train['steps']]} on {gpu}; total "
+          f"{[x['loss'] for x in train['steps']]}, train CLI launches (9 uninterrupted "
+          f"steps) {cli['launches']}, restart max |loss diff| "
+          f"{cli['6a']['restart_max_abs_diff_logged']} on {gpu}; total "
           f"{time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(gpu)

@@ -1,7 +1,7 @@
-"""Training (mirrors ``repro/train``): AdamW with float32 moments and the
-one-microbatch train step. int8 moments, microbatch accumulation, gradient
-compression and sharded steps are not ported yet (ROADMAP queue 1, item 2);
-asking for them raises."""
+"""Training (mirrors ``repro/train``): AdamW with float32 or int8 moments and
+the train step with microbatch gradient accumulation and int8 gradient
+compression. A sharded step (``mesh=``) is not ported yet (ROADMAP queue 1,
+item 9); asking for it raises."""
 
 from .optimizer import OptConfig, apply_updates, init_opt_state, lr_at
 from .step import init_train_state, loss_and_grads, make_train_step

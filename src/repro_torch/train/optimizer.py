@@ -1,8 +1,9 @@
 """AdamW (mirrors ``repro/train/optimizer.py``): global-norm clipping, bias
 correction, decoupled weight decay on matrices (leaves of ndim >= 2), the
 update in float32 cast back to each parameter's dtype, linear warmup then
-cosine decay. Moments are float32; the reference's int8 moments
-(``moment_dtype="int8"``) are not ported yet and raise.
+cosine decay. Moments are float32, or int8 with a per-row float32 scale
+(``moment_dtype="int8"``): each moment leaf is then a ``{"q", "scale"}``
+dict, dequantized before the update and quantized again after it.
 
 Params, grads and moments are nested dicts of tensors (the model's param
 tree); ``apply_updates`` is functional, as in the reference: it returns new
@@ -17,8 +18,7 @@ from dataclasses import dataclass
 
 import torch
 
-INT8_MOMENTS_TODO = ("int8 optimizer moments are not ported yet "
-                     "(ROADMAP.md, queue 1, item 2: 'Training, the rest')")
+MOMENT_DTYPES = ("float32", "int8")
 
 
 @dataclass(frozen=True)
@@ -32,13 +32,12 @@ class OptConfig:
     warmup_steps: int = 100
     total_steps: int = 10_000
     min_lr_ratio: float = 0.1
-    moment_dtype: str = "float32"      # "float32"; "int8" is not ported yet
+    moment_dtype: str = "float32"      # "float32" | "int8"
 
     def __post_init__(self):
-        if self.moment_dtype == "int8":
-            raise NotImplementedError(INT8_MOMENTS_TODO)
-        if self.moment_dtype != "float32":
-            raise ValueError(f"moment_dtype {self.moment_dtype!r}: want 'float32'")
+        if self.moment_dtype not in MOMENT_DTYPES:
+            raise ValueError(f"moment_dtype {self.moment_dtype!r}: want one of "
+                             f"{MOMENT_DTYPES}")
 
 
 def lr_at(cfg: OptConfig, step: int) -> float:
@@ -68,9 +67,51 @@ def tree_leaves(tree) -> list:
     return [leaf for _, leaf in tree_items(tree)]
 
 
+def is_q(x) -> bool:
+    """An int8 moment: one leaf of the params' structure held as q + scale."""
+    return isinstance(x, dict) and set(x) == {"q", "scale"}
+
+
+def flatten_up_to(structure, tree) -> list:
+    """The subtrees of ``tree`` at the leaves of ``structure``, in
+    ``tree_leaves(structure)`` order: a moment leaf (a tensor, or an int8
+    ``{"q", "scale"}`` dict) comes back whole."""
+    if isinstance(structure, dict):
+        return [x for k, v in structure.items() for x in flatten_up_to(v, tree[k])]
+    if not (torch.is_tensor(tree) or is_q(tree)):
+        raise TypeError(f"moment leaf of type {type(tree).__name__}: want a tensor or "
+                        f"an int8 {{'q', 'scale'}} dict")
+    return [tree]
+
+
+def unflatten(structure, leaves):
+    """Inverse of :func:`flatten_up_to`: ``leaves`` placed at the leaves of
+    ``structure``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), structure)
+
+
+# -- int8 moment quantization (per-row absmax scaling) ------------------------
+
+def _quantize(x: torch.Tensor) -> dict:
+    """Per-row (last-axis) absmax int8: scale = max(amax, 1e-12) / 127 and
+    q = clip(round(x / scale), -127, 127), rounding half to even as the
+    reference does. The division is kept: a multiply by the reciprocal moves
+    q at .5 boundaries."""
+    amax = x.abs().amax(-1, keepdim=True) if x.ndim >= 1 else x.abs()
+    scale = torch.clamp_min(amax, 1e-12) / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return {"q": q, "scale": scale.float()}
+
+
+def _dequantize(qs: dict) -> torch.Tensor:
+    return qs["q"].float() * qs["scale"]
+
+
 def init_opt_state(cfg: OptConfig, params) -> dict:
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return _quantize(z) if cfg.moment_dtype == "int8" else z
 
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params), "count": 0}
 
@@ -89,20 +130,21 @@ def apply_updates(cfg: OptConfig, params, grads, opt_state):
     lr = lr_at(cfg, opt_state["count"])
     b1c = 1 - cfg.b1 ** count
     b2c = 1 - cfg.b2 ** count
+    quant = cfg.moment_dtype == "int8"
 
     def upd(p, g, m, v):
         g = g.float() * clip
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * g.square()
+        m = cfg.b1 * (_dequantize(m) if quant else m) + (1 - cfg.b1) * g
+        v = cfg.b2 * (_dequantize(v) if quant else v) + (1 - cfg.b2) * g.square()
         update = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
         if p.ndim >= 2:                       # decoupled wd on matrices only
             update = update + cfg.weight_decay * p.float()
-        return (p.float() - lr * update).to(p.dtype), m, v
+        new_p = (p.float() - lr * update).to(p.dtype)
+        return new_p, (_quantize(m) if quant else m), (_quantize(v) if quant else v)
 
-    out = tree_map(upd, params, grads, opt_state["m"], opt_state["v"])
-
-    def pick(i):
-        return tree_map(lambda o: o[i], out)
-
-    return pick(0), {"m": pick(1), "v": pick(2), "count": count}, \
+    out = [upd(*leaves) for leaves in zip(tree_leaves(params), flatten_up_to(params, grads),
+                                          flatten_up_to(params, opt_state["m"]),
+                                          flatten_up_to(params, opt_state["v"]))]
+    new_p, new_m, new_v = (unflatten(params, [o[i] for o in out]) for i in range(3))
+    return new_p, {"m": new_m, "v": new_v, "count": count}, \
         {"grad_norm": gnorm, "lr": lr}

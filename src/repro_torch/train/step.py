@@ -1,23 +1,23 @@
 """The train step (mirrors ``repro/train/step.py``): loss, gradients and
-one AdamW update, with one microbatch.
+one AdamW update, with optional microbatch gradient accumulation and int8
+gradient compression.
 
 The step makes each parameter a leaf that requires grad for the loss and its
 backward only (``tensor.detach().requires_grad_()``: the caller's tensors
 are not touched), takes ``model.loss(..., remat=True)`` and
 ``torch.autograd.grad``, and hands the grads to ``apply_updates``. Outside
 the step the params never require grad, so serving stays in inference mode.
-Microbatch accumulation, gradient compression and a mesh are not ported yet
-(ROADMAP.md, queue 1, item 2) and raise.
+A mesh is not ported yet (ROADMAP.md, queue 1, item 9) and raises.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.dist import compression
+
 from . import optimizer as opt_mod
 from .optimizer import OptConfig, tree_leaves, tree_map
-
-NOT_PORTED = "ROADMAP.md, queue 1, item 2: 'Training, the rest'"
 
 
 def make_train_step(model, opt_cfg: OptConfig, *, microbatches: int = 1,
@@ -26,20 +26,46 @@ def make_train_step(model, opt_cfg: OptConfig, *, microbatches: int = 1,
 
     train_state = {"params", "opt"}; batch = {"tokens", "labels"} (B,S)
     token ids on the model's device. metrics: loss, ce, aux, grad_norm (0-d
-    tensors on the device) and lr (a float)."""
-    if microbatches != 1:
-        raise NotImplementedError(f"microbatches={microbatches}: microbatch gradient "
-                                  f"accumulation is not ported yet ({NOT_PORTED})")
-    if compress_grads:
-        raise NotImplementedError(f"compress_grads: int8 error-feedback gradient "
-                                  f"compression is not ported yet ({NOT_PORTED})")
+    tensors on the device), lr (a float) and, with ``compress_grads``,
+    compress_err (0-d float32).
+
+    With ``microbatches`` k > 1 the batch's leading axis is split into k
+    parts (B must divide), each part's grads are summed into float32 zeros
+    and divided by k, the loss is the mean of the parts' losses and the
+    other metrics are the last part's. So the grads that reach compression
+    and AdamW are float32 with k > 1 and the params' dtype with k = 1, as in
+    the reference."""
+    if microbatches < 1:
+        raise ValueError(f"microbatches={microbatches}: want >= 1")
     if mesh is not None:
         raise NotImplementedError("mesh: sharded training is not ported yet "
                                   "(ROADMAP.md, queue 1, item 9: sharded engine)")
 
+    def compute_grads(params, batch):
+        if microbatches == 1:
+            return loss_and_grads(model, params, batch, remat=True)
+        parts = {}
+        for name, x in batch.items():
+            if x.shape[0] % microbatches:
+                raise ValueError(f"batch[{name!r}] has {x.shape[0]} rows: not divisible "
+                                 f"into {microbatches} microbatches")
+            parts[name] = x.reshape(microbatches, x.shape[0] // microbatches, *x.shape[1:])
+        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                       params)
+        loss_sum = 0.0
+        for i in range(microbatches):
+            loss, metrics, grads = loss_and_grads(
+                model, params, {k: v[i] for k, v in parts.items()}, remat=True)
+            acc = tree_map(torch.add, acc, grads)
+            loss_sum = loss_sum + loss
+        return loss_sum / microbatches, metrics, tree_map(lambda g: g / microbatches, acc)
+
     def train_step(train_state, batch):
         params, opt_state = train_state["params"], train_state["opt"]
-        loss, metrics, grads = loss_and_grads(model, params, batch, remat=True)
+        loss, metrics, grads = compute_grads(params, batch)
+        if compress_grads:
+            grads, cerr = compression.compress_decompress(grads)
+            metrics = {**metrics, "compress_err": cerr}
         new_params, new_opt, opt_metrics = opt_mod.apply_updates(opt_cfg, params, grads,
                                                                  opt_state)
         return ({"params": new_params, "opt": new_opt},
@@ -61,6 +87,7 @@ def loss_and_grads(model, params, batch, *, remat: bool = True):
 
 
 def init_train_state(model, opt_cfg: OptConfig, seed: int = 0) -> dict:
-    """Fresh {params, opt} state: ``model.init(seed)`` and zero moments."""
+    """Fresh {params, opt} state: ``model.init(seed)`` and zero moments
+    (int8 moments quantize the zeros, as in the reference)."""
     params = model.init(seed)
     return {"params": params, "opt": opt_mod.init_opt_state(opt_cfg, params)}

@@ -1,7 +1,8 @@
 """The port stands alone: no file of src/repro_torch/, no Python carried in
 its UPD YAML (``helpers:``, ``implementation:``, bench ``setup:`` blocks) or
 its generator templates, no generated package and not chip_smoke.py imports
-JAX or the JAX package ``repro`` (``repro_torch`` is its own); and its entry
+JAX or the JAX package ``repro`` (``repro_torch`` is its own), and no file of
+the port imports ``ml_dtypes``, which the card's machine lacks; and its entry
 points run on the card unless the caller asks for the CPU — asking for CUDA
 where there is none, or on a card that is not Hopper, raises instead of
 quietly running elsewhere."""
@@ -43,6 +44,14 @@ def _port_files():
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_source_imports_neither_jax_nor_repro(path):
     assert not _bad(_imports(path.read_text())), path
+
+
+def test_no_port_file_imports_ml_dtypes():
+    """The card's machine has no ml_dtypes: the checkpointer stores bfloat16
+    through torch, never through it."""
+    users = [str(p.relative_to(ROOT)) for p in _port_files()
+             if any(m.split(".")[0] == "ml_dtypes" for m in _imports(p.read_text()))]
+    assert not users
 
 
 # import statements in code that is not plain Python yet (Jinja templates,
@@ -117,6 +126,14 @@ def test_serve_cli_without_device_cpu_raises_on_a_host_without_cuda(monkeypatch)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "qwen1.5-0.5b", "--reduced", "--requests", "1"])
+
+
+def test_train_cli_without_device_cpu_raises_on_a_host_without_cuda(monkeypatch):
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "qwen1.5-0.5b", "--reduced", "--steps", "1"])
 
 
 def test_non_hopper_card_raises_and_cpu_maps_to_torch_cpu(monkeypatch):

@@ -311,15 +311,21 @@ def test_train_step_matches_reference():
 
 
 def test_what_is_not_ported_raises():
-    """int8 moments, microbatch accumulation, gradient compression and a
-    mesh raise, naming the ROADMAP item that adds them; none silently runs
-    something else."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        OptConfig(moment_dtype="int8")
+    """A mesh (make_train_step) and --dp / --tp other than 1 (the train CLI)
+    raise, naming the ROADMAP item that adds them; neither silently runs
+    something else. int8 moments, microbatches and compression run now:
+    tests/test_torch_train_rest.py holds them against the reference."""
+    from repro_torch.launch import train as train_cli
+
     model = build_model(get_config("qwen1.5-0.5b").reduced(), device="cpu")
-    for kw in ({"microbatches": 2}, {"compress_grads": True}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_train_step(model, OptConfig(), **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*queue 1, item 9"):
+        make_train_step(model, OptConfig(), mesh=object())
+    for flag in ("--dp", "--tp"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*queue 1, item 9"):
+            train_cli.main(["--arch", "qwen1.5-0.5b", "--reduced", "--device", "cpu",
+                            flag, "2"])
+    with pytest.raises(ValueError, match="moment_dtype"):
+        OptConfig(moment_dtype="bfloat16")
 
 
 @pytest.mark.parametrize("name", [
