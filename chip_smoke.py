@@ -26,10 +26,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    HGMMA) instructions in its SASS (cuobjdump -sass), and fails if a bf16
    one (forward, dq, dk/dv, paged at D 64 and 128) spills or has none, or a
    float32 one has any; per softmax instantiation its registers, shared
-   memory and spills (any spill fails). The paged cases (serving, edges, GQA
-   span, a long context, batch-1 GQA, float32) print their split plan, the
-   softmax cases theirs (kernel.plan: regime, cluster size, chunk, load), and
-   the main paged, hadd, to_integral and softmax cases their kernels per
+   memory and spills (any spill fails). The paged cases (serving, the
+   serving verify span of SPEC_K + 1 rows, edges, GQA span, a long context,
+   batch-1 GQA, float32) print their split plan, the softmax cases theirs
+   (kernel.plan: regime, cluster size, chunk, load), and the main paged,
+   serving verify, hadd, to_integral and softmax cases their kernels per
    call (torch.profiler; more than one fails). Each softmax case that runs a
    cluster of 16 is also timed and checked at a cluster of 8. No single
    PyTorch call
@@ -59,6 +60,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    verdict where the plain logits of the two tokens lie within TIE_ULPS
    bf16 ulps at the row's largest |plain logit| (a tie the bf16 output
    cannot order), and fail otherwise.
+2b. Verify step. One fused paged verify step at batch 8, a span of SPEC_K + 1
+   tokens at 256 prefilled rows, through the paged kernel and through its
+   plain version on copies of the same pools: all 40 span rows under the
+   same check; row 0 of the span against a fused decode step from the same
+   pools (a verify span of one is the decode step).
 3. Serve. repro_torch.launch.serve.main at full width: 16 requests of 256
    prompt tokens and 64 generated tokens over 8 slots, 64-token chunks.
 3b. Paged serve. ServeEngine(paged=PagedConfig(page_size=64)) at full width
@@ -69,6 +75,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    paged kernel launched 24 times per decode step; prints the share of
    requests whose tokens equal a lane-mode run's on the same requests
    (information only: bf16 kernels may flip a near-tied argmax).
+3e. Speculative paged serve. ServeEngine(paged=..., speculation=...) at 3b's
+   shape with phase 2's params, greedy: (i) depth SPEC_K on 3b's 32
+   requests; (ii) the cost-priced depth with the n-gram drafter on 16
+   prompts that repeat a seeded 16-token pattern to 256 tokens, beside the
+   same requests without speculation; (iii) the draft-model drafter
+   (qwen1.5-0.5b with the target's weights) at depth SPEC_K on 8 of them.
+   Each fails unless decode ran fused (no lane activation), nothing was
+   refused, every request got 64 tokens and the paged kernel launched 24
+   times per decode or verify step; (i) and (ii) unless verify steps ran,
+   (iii) unless drafts were accepted. Prints tokens/s, the accepted rate,
+   the mean accepted span, slot steps per emitted token and the mean
+   depth, and the share of (i)'s requests whose tokens equal 3b's
+   (information only).
 3c. App. The paper's range-count app (Fig 8) through
    repro_torch.launch.quickstart.main on 2^30 float32 uniforms in
    [0, 100000) (4 GiB, the paper's size) and 2^28 int32 in [0, 100), each
@@ -80,14 +99,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    §4.1); every generated test function runs on the card; any failure
    fails the phase.
 4. Step profile. The step kinds the serving engines run, on phase 2's
-   model at the serve phases' shapes — a lane decode step and a fused paged
-   decode step over 8 slots at position 256, and one 64-token prefill chunk
-   into a batch-1 donor — each timed on the host clock (synchronised wall
-   per step) and traced with torch.profiler (device busy time, kernel
-   launches, the kernels that take the time). The device's idle share is
-   1 - busy / wall. The fused paged step is printed against the reading of
-   the one-block-per-sequence paged kernel before the split design (3.64 ms
-   of device busy time, 1302 launches; PERF.md §5).
+   model at the serve phases' shapes — a lane decode step, a fused paged
+   decode step and a fused paged verify step (span SPEC_K + 1) over 8 slots
+   at position 256, and one 64-token prefill chunk into a batch-1 donor —
+   each timed on the host clock (synchronised wall per step) and traced
+   with torch.profiler (device busy time, kernel launches, the kernels that
+   take the time). The device's idle share is 1 - busy / wall. The fused
+   paged step is printed against the reading of the one-block-per-sequence
+   paged kernel before the split design (3.64 ms of device busy time, 1302
+   launches; PERF.md §5), the verify step beside the decode step with the
+   tokens each emits at full acceptance (40 against 8).
 5. Train. qwen1.5-0.5b at full width (bf16 params, float32 AdamW moments),
    batch 8 x 512 seeded random tokens, through Model.loss (remat) and
    repro_torch.train.
@@ -140,8 +161,10 @@ The launch counters are set to 0 before phase 2 and read after phase 3:
 every kernel of that main path must have launched on it (flash attention in
 Model.prefill, rmsnorm and swiglu in every layer of serving). They are set
 to 0 again just before phase 3b and read just after it for the paged path
-(paged attention, rmsnorm and swiglu), just before phase 3c and read just
-after it for the app path (range_count, hadd, to_integral), and just
+(paged attention, rmsnorm and swiglu), just before phase 3e and read just
+after it for the speculative paged path (the paged row's launches_phase3e;
+each 3e run's own counts are read around it), just before phase 3c and read
+just after it for the app path (range_count, hadd, to_integral), and just
 before phase 3d and read just after it for the suite (softmax), and just
 before phase 5c and read just after it for training (flash forward with
 lse, dq, dk/dv: 48, 24 and 24 per step with remat; rmsnorm 4L + 1 and
@@ -208,6 +231,11 @@ SERVE_ARGS = ["--arch", ARCH, "--batch", "8", "--prompt-len", "256", "--gen-len"
 # phase 3b: paged serving with a shared system prompt
 PAGED_REQUESTS, PAGED_SYSTEM, PAGED_UNIQUE, PAGED_GEN = 32, 128, 128, 64
 PAGED_BATCH, PAGED_MAX_LEN, PAGED_CHUNK, PAGE = 8, 320, 64, 64
+# phase 3e: speculative paged serving at 3b's shapes; the draft depth of
+# 3e(i) and (iii) (attention_verify's k_max); (ii)'s prompts repeat a seeded
+# pattern of SPEC_PATTERN tokens up to SPEC_PROMPT tokens
+SPEC_K = 4
+SPEC_REQUESTS, SPEC_PROMPT, SPEC_PATTERN, SPEC_DRAFT_REQUESTS = 16, 256, 16, 8
 # phase 4: the serve phase's slot table (8 slots of 256 + 64 rows), decode at
 # the first generated position, a chunk that ends there; 10 traced steps
 PROFILE_BATCH, PROFILE_FILL, PROFILE_CHUNK, PROFILE_GEN = 8, 256, 64, 64
@@ -760,10 +788,12 @@ def paged_operands(dev, dtype, b, h, kh, d, page, sq, kv_lens, width, seed=0):
 def paged_cases(dev, pa) -> list[dict]:
     """Phase 1, paged attention: the serving path's decode shape with the
     kv_len of a steady decode step (the main case) and with edge lengths (0,
-    1, partial pages, a full table), a GQA verify-shaped span, a long
-    context (kv_len 3900-4096), batch-1 GQA at kv_len 4096 (qwen3-14b's 40
-    over 8 heads of 128), and f32. Each case records its split plan
-    (kernel.plan on this card); the main case also its kernels per call."""
+    1, partial pages, a full table), the serving verify span (SQ 5 at the
+    same fills, a table as wide as phase 3e's, cdiv(max_len + k_max, page)),
+    a GQA verify-shaped span, a long context (kv_len 3900-4096), batch-1 GQA
+    at kv_len 4096 (qwen3-14b's 40 over 8 heads of 128), and f32. Each case
+    records its split plan (kernel.plan on this card); the main and the
+    serving verify case also their kernels per call (more than 1 fails)."""
     import torch
     import torch.nn.functional as F
 
@@ -772,9 +802,12 @@ def paged_cases(dev, pa) -> list[dict]:
     steady = [260, 268, 276, 284, 292, 300, 308, 316]
     edges = [0, 1, 100, 320, 257, 64, 63, 200]
     long = [3900, 3928, 3956, 3984, 4012, 4040, 4068, 4096]
+    verify_width = -(-(PAGED_MAX_LEN + SPEC_K) // PAGE)
     # (B, H, KH, D, page, SQ, kv_len per sequence, table width, dtype, main)
     specs = [
         (8, 16, 16, 64, PAGE, 1, steady, 5, torch.bfloat16, True),
+        (8, 16, 16, 64, PAGE, SPEC_K + 1, [n + SPEC_K + 1 for n in steady], verify_width,
+         torch.bfloat16, False),
         (8, 16, 16, 64, PAGE, 1, edges, 5, torch.bfloat16, False),
         (3, 40, 8, 128, 16, 4, [2, 37, 64], 4, torch.bfloat16, False),
         (8, 16, 16, 64, PAGE, 1, long, 64, torch.bfloat16, False),
@@ -806,6 +839,12 @@ def paged_cases(dev, pa) -> list[dict]:
                       lambda: F.scaled_dot_product_attention(
                           q, lanes_k, lanes_v, attn_mask=mask, enable_gqa=h != kh), 50,
                       plain_in_graph=False)
+        if sq == SPEC_K + 1:
+            c["note"] += "; the serving verify span (phase 3e)"
+        if main or sq == SPEC_K + 1:
+            # more than one kernel a call raises (launches_per_call)
+            c["launches_per_call"] = launches_per_call(
+                lambda: pa.paged_attention(q, k, v, tables, kv_len))
         if main:
             # host time to enqueue one call (no synchronise inside the loop)
             out = torch.empty_like(q)
@@ -816,16 +855,14 @@ def paged_cases(dev, pa) -> list[dict]:
                     pps=pps)),
                 "library": host_us(lambda: F.scaled_dot_product_attention(
                     q, lanes_k, lanes_v, attn_mask=mask, enable_gqa=h != kh))}
-            c["launches_per_call"] = launches_per_call(
-                lambda: pa.paged_attention(q, k, v, tables, kv_len))
-        # what this data needs: the touched pages of K and V, q and the
-        # output once, the table entries read and kv_len; 4*D flops per
-        # visible (query row, key) pair
+        # what this data needs: the kv_len rows of K and V (not the rest of
+        # their last pages), q and the output once, the table entries read
+        # and kv_len; 4*D flops per visible (query row, key) pair
         touched = sum(-(-n // page) for n in kv_lens)
         itemsize = q.element_size()
         pairs = sum(max(0, n - sq + s + 1) for n in kv_lens for s in range(sq)) * h
         c["bound_ms"], c["bound_by"] = bound(
-            2 * kh * touched * page * d * itemsize + 2 * b * h * sq * d * itemsize
+            2 * kh * sum(kv_lens) * d * itemsize + 2 * b * h * sq * d * itemsize
             + 4 * touched + 4 * b, 4 * pairs * d, dt)
         cases.append(c)
     return cases
@@ -1200,6 +1237,7 @@ def model_phase(dev, gpu: str) -> tuple[dict, object, dict]:
         # count on the main path
         saved = read_counts()
         out["paged_step"] = paged_model_check(dev, model, params)
+        out["paged_verify"] = paged_verify_check(dev, model, params)
         for name, fn in counters().items():
             fn.launches = saved[name]
     print(f"[phase2] {ARCH} {n_params / 1e9:.3f}B params bf16 on {gpu}: "
@@ -1210,6 +1248,12 @@ def model_phase(dev, gpu: str) -> tuple[dict, object, dict]:
           f"{out['logits_rel_l2']:.3g}, max abs {out['logits_max_abs_err']:.3g}, "
           f"argmax {json.dumps(out['argmax'])}; fused paged decode step, kernel vs "
           f"plain: {json.dumps(out['paged_step'])}", flush=True)
+    pv = out["paged_verify"]
+    print(f"[phase2b] fused paged verify step, batch {pv['batch']} span {pv['span']} at "
+          f"kv_len {pv['kv_len']} on {gpu}: {pv['span_rows']['rows']} span rows kernel vs "
+          f"plain rel L2 {pv['span_rows']['logits_rel_l2']:.3g}, max abs "
+          f"{pv['span_rows']['logits_max_abs_err']:.3g}; row 0 vs the decode step rel L2 "
+          f"{pv['row0_vs_decode']['logits_rel_l2']:.3g}; {json.dumps(pv)}", flush=True)
     return out, model, params
 
 
@@ -1240,15 +1284,15 @@ def paged_pools(dev, model, params, batch: int, fill: int, seed: int):
 
 
 class _PlainPaged:
-    """A library's ops with attention_decode_paged bound to its plain
-    version: the model step through the kernel vs through the plain version,
-    every other primitive the same."""
+    """A library's ops with attention_decode_paged and attention_verify_paged
+    bound to their plain version: the model step through the kernel vs
+    through the plain version, every other primitive the same."""
 
     def __init__(self, ops):
         self._ops = ops
 
     def __getattr__(self, name):
-        if name == "attention_decode_paged":
+        if name in ("attention_decode_paged", "attention_verify_paged"):
             from repro_torch.kernels.paged.ref import paged_attention_ref
             return paged_attention_ref
         return getattr(self._ops, name)
@@ -1257,8 +1301,8 @@ class _PlainPaged:
 def paged_step_compare(dev, model, params) -> dict:
     """One fused paged decode step at batch 8 over 256 prefilled rows
     (kv_len 257), through the paged kernel and through its plain version on
-    copies of the same pools: the logits' rel L2 and max abs error and the
-    argmax verdicts (argmax_verdicts). Checks nothing."""
+    copies of the same pools: _logits_check of the kernel's logits against
+    the plain version's. Checks nothing."""
     import torch
 
     from repro_torch.nn import lm
@@ -1273,27 +1317,73 @@ def paged_step_compare(dev, model, params) -> dict:
         copy = {n: t.clone() for n, t in pools.items()}
         logits[name], _, _ = lm.lm_decode_step_paged(tsl, params, {}, copy, tables,
                                                      tokens, pos, model.cfg)
-    got, want = logits["kernel"].float(), logits["plain"].float()
-    vocab = model.cfg.vocab
-    out = {"batch": batch, "kv_len": fill + 1, "finite": bool(torch.isfinite(got).all()),
-           "logits_rel_l2": ((got - want).norm() / want.norm()).item(),
-           "logits_max_abs_err": (got - want).abs().max().item(),
-           "argmax": argmax_verdicts(got[:, :vocab], want[:, :vocab])}
+    return {"batch": batch, "kv_len": fill + 1,
+            **_logits_check(logits["kernel"], logits["plain"], model.cfg.vocab)}
+
+
+def _logits_check(got, want, vocab: int) -> dict:
+    """Finiteness, rel L2, max abs error and the argmax verdicts of (rows, V)
+    logits ``got`` against ``want``."""
+    import torch
+
+    got, want = got.float(), want.float()
+    return {"rows": got.shape[0], "finite": bool(torch.isfinite(got).all()),
+            "logits_rel_l2": ((got - want).norm() / want.norm()).item(),
+            "logits_max_abs_err": (got - want).abs().max().item(),
+            "argmax": argmax_verdicts(got[:, :vocab], want[:, :vocab])}
+
+
+def _require_logits(name: str, r: dict) -> None:
+    """Raise unless ``r`` (_logits_check) is finite, within LOGITS_REL_L2 and
+    without a failed argmax verdict."""
+    if not r["finite"]:
+        raise AssertionError(f"{name}: non-finite logits")
+    if r["logits_rel_l2"] > LOGITS_REL_L2:
+        raise AssertionError(f"{name}: rel L2 {r['logits_rel_l2']:.3g} > {LOGITS_REL_L2}")
+    require_argmax(f"{name} (rel L2 {r['logits_rel_l2']:.3g})", r["argmax"])
+
+
+def paged_verify_check(dev, model, params) -> dict:
+    """Phase 2b: one fused paged verify step at batch 8, a span of
+    SPEC_K + 1 tokens at 256 prefilled rows, through the paged kernel and
+    through its plain version on copies of the same pools (the step writes
+    them in place): all 40 span rows must pass _require_logits. Row 0 of the
+    kernel's span must pass it against a fused decode step from the same
+    pools with the span's first token (the span-of-one contract)."""
+    import torch
+
+    from repro_torch.nn import lm
+
+    cfg, batch, fill = model.cfg, PROFILE_BATCH, PROFILE_FILL
+    pools, tables = paged_pools(dev, model, params, batch, fill, seed=7)
+    g = torch.Generator(device=dev).manual_seed(8)
+    span = torch.randint(0, cfg.vocab, (batch, SPEC_K + 1), generator=g, device=dev)
+    pos = torch.full((batch,), fill, dtype=torch.int64, device=dev)
+    logits = {}
+    for name, tsl in (("kernel", model.tsl), ("plain", _PlainPaged(model.tsl))):
+        copy = {n: t.clone() for n, t in pools.items()}
+        logits[name], _, _ = lm.lm_verify_step_paged(tsl, params, {}, copy, tables, span,
+                                                     pos, cfg)
+    copy = {n: t.clone() for n, t in pools.items()}
+    decode, _, _ = lm.lm_decode_step_paged(model.tsl, params, {}, copy, tables, span[:, :1],
+                                           pos, cfg)
+    vocab = cfg.padded_vocab
+    out = {"batch": batch, "span": SPEC_K + 1, "kv_len": fill + SPEC_K + 1,
+           "span_rows": _logits_check(logits["kernel"].reshape(-1, vocab),
+                                      logits["plain"].reshape(-1, vocab), cfg.vocab),
+           "row0_vs_decode": _logits_check(logits["kernel"][:, 0], decode, cfg.vocab)}
+    _require_logits("fused paged verify step, kernel vs plain", out["span_rows"])
+    _require_logits("fused paged verify row 0 vs the fused decode step",
+                    out["row0_vs_decode"])
     return out
 
 
 def paged_model_check(dev, model, params) -> dict:
-    """Phase 2, paged: paged_step_compare, which must give finite logits
-    within LOGITS_REL_L2 of the plain version's and no failed argmax verdict
-    (an equal argmax on every row but a plain tie, argmax_verdicts)."""
+    """Phase 2, paged: paged_step_compare, which must pass _require_logits
+    (finite, within LOGITS_REL_L2 of the plain version's, and no failed
+    argmax verdict: an equal argmax on every row but a plain tie)."""
     out = paged_step_compare(dev, model, params)
-    if not out["finite"]:
-        raise AssertionError("fused paged decode step: non-finite logits")
-    if out["logits_rel_l2"] > LOGITS_REL_L2:
-        raise AssertionError(f"fused paged decode logits: kernel vs plain rel L2 "
-                             f"{out['logits_rel_l2']:.3g} > {LOGITS_REL_L2}")
-    require_argmax(f"fused paged decode step (rel L2 {out['logits_rel_l2']:.3g})",
-                   out["argmax"])
+    _require_logits("fused paged decode step, kernel vs plain", out)
     return out
 
 
@@ -1392,7 +1482,7 @@ def paged_serve_phase(dev, params, gpu: str) -> dict:
            "lane_ttft_s_mean": lane["ttft_s_mean"],
            "lane_prefill_tokens": lane["prefill_tokens"],
            "share_equal_to_lane": same / PAGED_REQUESTS,
-           "first_differing_token": first_diff}
+           "first_differing_token": first_diff, "outputs": report["outputs"]}
     print(f"[phase3b] paged serve {ARCH} on {gpu}: decode_tokens_per_s "
           f"{out['decode_tokens_per_s']:.1f}, ttft_s_mean {out['ttft_s_mean']:.3f}, "
           f"prefill_tokens {out['prefill_tokens']}, launches {launched}, paged "
@@ -1401,6 +1491,119 @@ def paged_serve_phase(dev, params, gpu: str) -> dict:
           f"{out['lane_ttft_s_mean']:.3f} s, prefill_tokens {out['lane_prefill_tokens']}, "
           f"requests with equal tokens "
           f"{same}/{PAGED_REQUESTS}, first differing token of the others {first_diff}",
+          flush=True)
+    return out
+
+
+def spec_requests(vocab: int, request_cls, n: int) -> list:
+    """Phase 3e(ii)/(iii): ``n`` requests whose SPEC_PROMPT-token prompts
+    repeat a seeded SPEC_PATTERN-token pattern, PAGED_GEN generated."""
+    import numpy as np
+
+    rng = np.random.default_rng(9)
+    return [request_cls(rid=f"s{i}", gen_len=PAGED_GEN,
+                        tokens=np.tile(rng.integers(0, vocab, SPEC_PATTERN),
+                                       SPEC_PROMPT // SPEC_PATTERN).astype(np.int32))
+            for i in range(n)]
+
+
+def spec_serve_phase(dev, params, gpu: str, paged_outputs: dict) -> dict:
+    """Phase 3e: speculative fused paged serving at full width, phase 2's
+    params, 3b's engine shape (page 64, 8 slots, max_len 320, 64-token
+    chunks), greedy. Each run's launches are read around it: the paged
+    kernel must launch n_layers times per decode or verify step, and no run
+    may activate a lane or refuse a request, and every request gets
+    PAGED_GEN tokens.
+    (i) fixed depth SPEC_K on 3b's requests: verify steps must run; the
+        share of requests whose tokens equal 3b's is information only (bf16
+        may flip a near-tied argmax).
+    (ii) the cost-priced depth with the n-gram drafter on SPEC_REQUESTS
+        pattern prompts, beside the same requests without speculation:
+        verify steps must run.
+    (iii) the draft-model drafter, qwen1.5-0.5b given the target's own
+        weights (``draft_params``; the engine's default would draw them from
+        seed + 2), at fixed depth SPEC_K on SPEC_DRAFT_REQUESTS of (ii)'s
+        requests: its drafts are the target's greedy tokens up to bf16
+        rounding, so drafts must be accepted."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import PagedConfig, Request, ServeEngine, SpeculationConfig
+
+    cfg = get_config(ARCH)
+    kw = dict(batch=PAGED_BATCH, max_len=PAGED_MAX_LEN, device=dev, params=params,
+              prefill_chunk=PAGED_CHUNK, paged=PagedConfig(page_size=PAGE))
+    t_phase = time.perf_counter()
+
+    def serve(name, requests, speculation, n_req, draft_params=None):
+        engine = ServeEngine(cfg, speculation=speculation, draft_params=draft_params, **kw)
+        before = read_counts()
+        report = engine.run(requests)
+        after = read_counts()
+        launched = {k: after[k] - before[k] for k in after}
+        paged, spec = report["paged"], report.get("spec")
+        steps = paged["decode_steps"] + paged["verify_steps"]
+        problems = []
+        if report["target"] != "h100":
+            problems.append(f"served with target {report['target']!r}")
+        if not paged["fused"] or paged["lane_activations"]:
+            problems.append(f"fused {paged['fused']}, lane_activations "
+                            f"{paged['lane_activations']}")
+        if report["refused"] or report["requests"] != n_req:
+            problems.append(f"{report['requests']} of {n_req} answered, refused "
+                            f"{report['refused']}")
+        short = {r: len(t) for r, t in report["outputs"].items() if len(t) != PAGED_GEN}
+        if short or len(report["outputs"]) != n_req:
+            problems.append(f"requests without {PAGED_GEN} tokens: {short}")
+        if launched["paged_attention"] != cfg.n_layers * steps:
+            problems.append(f"paged kernel launched {launched['paged_attention']} times in "
+                            f"{steps} decode or verify steps of {cfg.n_layers} layers")
+        if speculation is not None and not spec["verify_steps"]:
+            problems.append("no verify step ran")
+        if problems:
+            raise AssertionError(f"speculative paged serve {name}: " + "; ".join(problems))
+        r = {"decode_tokens_per_s": report["decode_tokens_per_s"],
+             "ttft_s_mean": report["ttft_s_mean"], "wall_s": report["wall_s"],
+             "steps": report["steps"], "decode_steps": paged["decode_steps"],
+             "verify_steps": paged["verify_steps"], "launches": launched}
+        if spec is not None:
+            r["spec"] = {k: spec[k] for k in (
+                "drafter", "k_max", "drafted_tokens", "accepted_tokens", "accepted_rate",
+                "mean_accepted_span", "steps_per_emitted_token",
+                "slot_steps_per_emitted_token")}
+            r["depth_mean"] = spec["drafted_tokens"] / max(
+                sum(m["verify_rounds"] for m in report["per_request"]), 1)
+        print(f"[phase3e] {name} on {gpu}: {json.dumps(r)}", flush=True)
+        return r, report["outputs"]
+
+    out = {}
+    out["i"], outputs = serve("(i) fixed depth, 3b's requests",
+                              paged_requests(cfg.vocab, Request),
+                              SpeculationConfig(fixed_k=SPEC_K), PAGED_REQUESTS)
+    same = sum(outputs[r] == paged_outputs[r] for r in outputs)
+    out["i"]["share_equal_to_3b"] = same / PAGED_REQUESTS
+    print(f"[phase3e] (i) requests with tokens equal to 3b's: {same}/{PAGED_REQUESTS} "
+          f"(information only)", flush=True)
+    out["ii"], _ = serve("(ii) cost-priced depth, n-gram drafter",
+                         spec_requests(cfg.vocab, Request, SPEC_REQUESTS),
+                         SpeculationConfig(), SPEC_REQUESTS)
+    out["ii_plain"], _ = serve("(ii) the same requests without speculation",
+                               spec_requests(cfg.vocab, Request, SPEC_REQUESTS), None,
+                               SPEC_REQUESTS)
+    out["iii"], _ = serve("(iii) draft-model drafter, the target's weights",
+                          spec_requests(cfg.vocab, Request, SPEC_DRAFT_REQUESTS),
+                          SpeculationConfig(drafter="draft_model", draft_arch=ARCH,
+                                            fixed_k=SPEC_K),
+                          SPEC_DRAFT_REQUESTS, draft_params=params)
+    if out["iii"]["spec"]["accepted_tokens"] <= 0:
+        raise AssertionError("speculative paged serve (iii): the draft model's drafts "
+                             "were never accepted")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[phase3e] speculative paged serve {ARCH} on {gpu}: decode_tokens_per_s (i) "
+          f"{out['i']['decode_tokens_per_s']:.1f}, (ii) "
+          f"{out['ii']['decode_tokens_per_s']:.1f} vs {out['ii_plain']['decode_tokens_per_s']:.1f}"
+          f" without speculation, (iii) {out['iii']['decode_tokens_per_s']:.1f}; accepted "
+          f"rate (i) {out['i']['spec']['accepted_rate']:.3f}, (ii) "
+          f"{out['ii']['spec']['accepted_rate']:.3f}, (iii) "
+          f"{out['iii']['spec']['accepted_rate']:.3f}; phase {out['seconds']:.1f} s",
           flush=True)
     return out
 
@@ -1564,6 +1767,7 @@ def profile_phase(dev, model, params, gpu: str) -> dict:
     donor = model.init_decode_state(1, max_len)
     tokens = torch.randint(0, cfg.vocab, (PROFILE_BATCH, 1), generator=g, device=dev)
     chunk = torch.randint(0, cfg.vocab, (1, PROFILE_CHUNK), generator=g, device=dev)
+    span = torch.randint(0, cfg.vocab, (PROFILE_BATCH, SPEC_K + 1), generator=g, device=dev)
     pos = torch.full((PROFILE_BATCH,), PROFILE_FILL, dtype=torch.int64)
     start = PROFILE_FILL - PROFILE_CHUNK
     with torch.inference_mode():
@@ -1579,17 +1783,33 @@ def profile_phase(dev, model, params, gpu: str) -> dict:
                                   "page": PAGE, "table_width": tables.shape[1],
                                   **_profile(lambda: model.decode_step_paged(
                                       params, {}, pools, tables, tokens, pos_dev))},
+            "verify_step_paged": {"batch": PROFILE_BATCH, "pos": PROFILE_FILL,
+                                  "span": SPEC_K + 1, "page": PAGE,
+                                  "table_width": tables.shape[1],
+                                  # tokens a step emits when every draft is
+                                  # accepted, against a decode step's
+                                  "emitted_at_full_acceptance": PROFILE_BATCH * (SPEC_K + 1),
+                                  "decode_emits": PROFILE_BATCH,
+                                  **_profile(lambda: model.verify_step_paged(
+                                      params, {}, pools, tables, span, pos_dev))},
             "prefill_chunk": {"chunk": PROFILE_CHUNK, "pos": start,
                               **_profile(lambda: model.prefill_chunk(params, donor,
                                                                      chunk, start))},
         }
     for kind, r in out.items():
         print(f"[phase4] {kind} on {gpu}: {json.dumps(r)}", flush=True)
-    paged = out["decode_step_paged"]
+    paged, verify = out["decode_step_paged"], out["verify_step_paged"]
     print(f"[phase4] fused paged decode step: device busy {paged['device_busy_ms']} ms, "
           f"launches {paged['launches']}, host wall {paged['wall_ms']:.2f} ms on {gpu}; the "
           f"one-block-per-sequence kernel's step read 3.64 ms and 1302 launches by the same "
           f"method (PERF.md §5)", flush=True)
+    print(f"[phase4] fused paged verify step (span {SPEC_K + 1}): device busy "
+          f"{verify['device_busy_ms']} ms, launches {verify['launches']}, host wall "
+          f"{verify['wall_ms']:.2f} ms on {gpu}, beside the decode step's "
+          f"{paged['device_busy_ms']} ms, {paged['launches']} launches, "
+          f"{paged['wall_ms']:.2f} ms; tokens a step emits at full acceptance "
+          f"{verify['emitted_at_full_acceptance']} against decode's {verify['decode_emits']}",
+          flush=True)
     return out
 
 # (B, H, KH, Sq, Sk, D, dtype, causal, kv_len, main)
@@ -2187,6 +2407,10 @@ def main() -> int:
     paged = paged_serve_phase(dev, params, gpu)
     for fn in counters().values():
         fn.launches = 0
+    spec = spec_serve_phase(dev, params, gpu, paged["outputs"])
+    spec["launches"] = read_counts()
+    for fn in counters().values():
+        fn.launches = 0
     app = app_phase(dev, gpu)
     app["launches"] = read_counts()
     for fn in counters().values():
@@ -2200,6 +2424,9 @@ def main() -> int:
         row["launches"] = path_of.get(row["name"], counts)[row["name"]]
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} never launched on its main path")
+        if row["name"] == "paged_attention":
+            # the speculative paged path (3e): decode and verify steps
+            row["launches_phase3e"] = spec["launches"]["paged_attention"]
     profile_phase(dev, lm, params, gpu)
     train = train_phase(dev, gpu)
     sources = {"flash_attention_fwd_lse": ("flash_attention.cu", "kernel.py:197"),
@@ -2236,6 +2463,7 @@ def main() -> int:
           f"serve decode_tokens_per_s {serve['decode_tokens_per_s']:.1f} ttft_s_mean "
           f"{serve['ttft_s_mean']:.3f}, paged serve decode_tokens_per_s "
           f"{paged['decode_tokens_per_s']:.1f} ttft_s_mean {paged['ttft_s_mean']:.3f}, "
+          f"speculative paged path {spec['launches']} ({spec['seconds']:.1f} s), "
           f"train launches {train['launches']}, train losses "
           f"{[x['loss'] for x in train['steps']]}, train CLI launches (9 uninterrupted "
           f"steps) {cli['launches']}, restart max |loss diff| "

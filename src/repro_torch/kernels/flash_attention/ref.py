@@ -1,8 +1,9 @@
 """Plain PyTorch attention (mirrors ``repro/kernels/flash_attention/ref.py``):
 ``attention`` is the ``torch_cpu`` flash_attention definition and what the
-Hopper forward kernel is held against; ``attention_chunked`` and
-``attention_decode`` are the prefill-chunk and decode primitives on both
-targets (jnp on every target in the JAX package too).
+Hopper forward kernel is held against; ``attention_chunked``,
+``attention_verify`` and ``attention_decode`` are the prefill-chunk, lane-mode
+verify-span and decode primitives on both targets (jnp on every target in the
+JAX package too).
 
 ``attention_fwd_lse``, ``attention_bwd_dq`` and ``attention_bwd_dkv`` are the
 plain versions of the training kernels (the forward that also returns the
@@ -175,6 +176,19 @@ def attention_chunked(q, k, v, *, causal: bool = True, scale: float | None = Non
     o = acc / l.clamp_min(1e-30)
     o = torch.where(l > 0.0, o, 0.0)
     return o.reshape(b, h, sq, d).to(q.dtype)
+
+
+def attention_verify(q, k_cache, v_cache, *, kv_len=None, scale: float | None = None,
+                     block_k: int = 1024):
+    """Speculative-decoding verify span: q (B,H,SV,D) is each slot's pending
+    token plus its drafted continuation; the caches (B,KH,S,D) already hold
+    the span's K/V rows at [kv_len-SV, kv_len). Causal, ends-aligned at
+    ``kv_len`` as :func:`attention_chunked`: row j attends up to position
+    kv_len - SV + j, so SV == 1 is the decode step and row j is independent
+    of rows > j (the accepted-prefix contract). ``kv_len`` may be a (B,)
+    vector, every slot at its own fill."""
+    return attention_chunked(q, k_cache, v_cache, causal=True, scale=scale,
+                             kv_len=kv_len, block_k=block_k)
 
 
 def attention_decode(q, k_cache, v_cache, *, kv_len=None, scale: float | None = None):

@@ -1,13 +1,14 @@
 """Attention layer on TSL primitives: GQA + RoPE + optional qk_norm/bias.
 
 Full-sequence path uses ``tsl.flash_attention`` (the CUDA C++ kernel on
-``h100``); the prefill-chunk and decode paths use
-``tsl.attention_prefill_chunk`` / ``tsl.attention_decode`` and write the KV
-cache through ``tsl.cache_update``. Cache layout (B, KH, S_max, hd),
-heads-major, as in the reference. The fused paged span
-(``attention_span_paged``) writes its rows straight into block-table pages
-and attends through ``tsl.attention_decode_paged`` (the CUDA C++ block-table
-kernel on ``h100``).
+``h100``); the prefill-chunk, speculative verify-span and decode paths use
+``tsl.attention_prefill_chunk`` / ``tsl.attention_verify`` /
+``tsl.attention_decode`` and write the KV cache through ``tsl.cache_update``.
+Cache layout (B, KH, S_max, hd), heads-major, as in the reference. The fused
+paged span (``attention_span_paged``) writes its rows straight into
+block-table pages and attends through ``tsl.attention_decode_paged`` or
+``tsl.attention_verify_paged`` (the CUDA C++ block-table kernel on
+``h100``).
 
 KV caches are written IN PLACE (the JAX reference returns new arrays): the
 caller's cache tensors are updated and returned, which is what lets the
@@ -97,17 +98,8 @@ def attention_prefill_chunk(tsl, p, x, k_cache, v_cache, pos: int, cfg):
     until the next chunk or decode step overwrites it.
 
     Returns (y (B,C,D), k_cache, v_cache)."""
-    b, c, _ = x.shape
-    h, hd = cfg.n_heads, cfg.hd
-    pos = int(pos)
-    positions = torch.arange(pos, pos + c, device=x.device)
-    q, k, v = _project_qkv(tsl, p, x, cfg, positions)
-    # cache_update writes along axis 1: hand it the (B, S, KH, hd) views
-    tsl.cache_update(k_cache.transpose(1, 2), k.transpose(1, 2), pos)
-    tsl.cache_update(v_cache.transpose(1, 2), v.transpose(1, 2), pos)
-    o = tsl.attention_prefill_chunk(q, k_cache, v_cache, kv_len=pos + c)
-    o = o.transpose(1, 2).reshape(b, c, h * hd)
-    return tsl.matmul(o, p["wo"]), k_cache, v_cache
+    return _span_attend(tsl, p, x, k_cache, v_cache, int(pos), cfg,
+                        tsl.attention_prefill_chunk)
 
 
 def attention_decode(tsl, p, x_t, k_cache, v_cache, pos, cfg):
@@ -133,19 +125,55 @@ def attention_decode(tsl, p, x_t, k_cache, v_cache, pos, cfg):
     return tsl.matmul(o, p["wo"]), k_cache, v_cache
 
 
+def attention_verify(tsl, p, x, k_cache, v_cache, pos, cfg):
+    """Speculative-decoding verify span. x (B, SV, D) holds each slot's
+    pending token and drafted continuation; ``pos`` is a (B,) tensor of
+    per-slot base write rows. Writes the span's K/V at rows [pos, pos+SV) of
+    each slot in place and scores every row in one ragged batched step
+    through ``tsl.attention_verify`` (causal, ends-aligned at pos + SV), so
+    row j's output is independent of rows > j: the accepted-prefix
+    contract. Rejected rows need no rollback: they lie past the committed
+    kv_len, where the decode mask hides them until they are overwritten.
+
+    Returns (y (B,SV,D), k_cache, v_cache)."""
+    return _span_attend(tsl, p, x, k_cache, v_cache, pos.to(x.device), cfg,
+                        tsl.attention_verify)
+
+
+def _span_attend(tsl, p, x, k_cache, v_cache, pos, cfg, span_op):
+    """The prefill-chunk / verify-span body: project the C rows at base
+    ``pos`` (an int, or a (B,) tensor of per-slot bases), write their K/V in
+    place and attend through ``span_op`` (ends-aligned at pos + C)."""
+    b, c, _ = x.shape
+    h, hd = cfg.n_heads, cfg.hd
+    if isinstance(pos, torch.Tensor):
+        positions = pos.long()[:, None] + torch.arange(c, device=x.device)[None, :]
+    else:
+        positions = torch.arange(pos, pos + c, device=x.device)
+    q, k, v = _project_qkv(tsl, p, x, cfg, positions)
+    # cache_update writes along axis 1: hand it the (B, S, KH, hd) views
+    tsl.cache_update(k_cache.transpose(1, 2), k.transpose(1, 2), pos)
+    tsl.cache_update(v_cache.transpose(1, 2), v.transpose(1, 2), pos)
+    o = span_op(q, k_cache, v_cache, kv_len=pos + c)
+    o = o.transpose(1, 2).reshape(b, c, h * hd)
+    return tsl.matmul(o, p["wo"]), k_cache, v_cache
+
+
 def attention_span_paged(tsl, p, x, k_pool, v_pool, tables, pos, cfg, span_op, *,
                          kv_len):
-    """Fused paged decode span: project C tokens per slot, write each row
-    STRAIGHT into its block-table page and attend directly against the page
-    pool — no page->lane gather anywhere.
+    """Fused paged decode or verify span: project C tokens per slot, write
+    each row STRAIGHT into its block-table page and attend directly against
+    the page pool — no page->lane gather anywhere.
 
-    x (B, C, D) span activations (C == 1 is the decode step); pools
+    x (B, C, D) span activations (C == 1 is the decode step, C = k + 1 a
+    speculative verify span); pools
     (KH, n_pages, page, hd) — one layer's slice of the serve-layer pool,
     written IN PLACE; tables (B, P) int32 page ids on x's device; ``pos`` a
     (B,) device tensor of per-slot base write positions. ``span_op`` is
-    ``tsl.attention_decode_paged``; it masks ends-aligned at ``kv_len``, the
-    (B,) int32 device tensor pos + C that every layer shares, so rows past a
-    slot's fill are dead. Inactive slots must point
+    ``tsl.attention_decode_paged`` (C == 1) or ``tsl.attention_verify_paged``;
+    both mask ends-aligned at ``kv_len``, the (B,) int32 device tensor pos + C
+    that every layer shares, so rows past a slot's fill are dead and a
+    rejected draft's rows need no rollback. Inactive slots must point
     at a scratch page (a valid id): their row writes and reads land there.
     Full-precision pools only (the int8 wire format is not ported yet).
 

@@ -5,9 +5,9 @@ so its params load 1:1 — and a Python loop over the layers replaces
 ``lax.scan``. For training, ``lm_forward(..., remat=True)`` wraps each block
 in ``torch.utils.checkpoint`` as the reference wraps its scan body in
 ``jax.checkpoint``: a block's activations are recomputed in the backward.
-Decode and prefill-chunk write the KV cache state IN PLACE (see
-``nn/attention.py``) and return it; the fused paged decode writes the page
-pools in place the same way.
+Decode, prefill-chunk and the speculative verify span write the KV cache
+state IN PLACE (see ``nn/attention.py``) and return it; the fused paged
+decode and verify steps write the page pools in place the same way.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .attention import (attention_decode, attention_forward, attention_prefill_chunk,
-                        attention_span_paged, init_attention)
+                        attention_span_paged, attention_verify, init_attention)
 from .common import apply_norm_params, init_norm
 from .mlp import init_mlp, mlp_forward
 
@@ -164,9 +164,30 @@ def lm_decode_step(tsl, params, state, tokens_t, pos, cfg):
     return lm_head(tsl, params, x, cfg)[:, 0], state
 
 
+def lm_verify_step(tsl, params, state, tokens, pos, cfg):
+    """Speculative-decoding verify span. tokens (B,SV): each slot's pending
+    token and drafted continuation; ``pos`` a (B,) tensor of per-slot base
+    write rows. The span's K/V land at rows [pos, pos+SV) in place; one
+    ragged batched attention_verify per layer scores every row (logits row j
+    validates draft j+1). Rollback is free for this family: the accepted
+    fill pos+m+1 stops short of the rejected rows, which the decode mask
+    hides until they are overwritten. Returns (logits (B,SV,V), state)."""
+    x = tsl.embed_lookup(params["embed"], tokens)
+    pos = pos.to(x.device)
+    for i, bp in enumerate(unstack_layers(params["blocks"], cfg.n_layers)):
+        h, _, _ = attention_verify(
+            tsl, bp["attn"], apply_norm_params(tsl, cfg, bp["attn_norm"], x),
+            state["k"][i], state["v"][i], pos, cfg)
+        x = x + h
+        x = x + mlp_forward(tsl, bp["mlp"],
+                            apply_norm_params(tsl, cfg, bp["mlp_norm"], x), cfg)
+    x = apply_norm_params(tsl, cfg, params["final_norm"], x)
+    return lm_head(tsl, params, x, cfg), state
+
+
 def _lm_paged_span(tsl, params, pools, tables, tokens, pos, cfg, span_op):
-    """Fused-paged span body: every layer's span attends DIRECTLY against
-    its (KH, n_pages, page, hd) slice of the (L, 1, KH, n_pages, page, hd)
+    """Fused-paged decode / verify body: every layer's span attends DIRECTLY
+    against its (KH, n_pages, page, hd) slice of the (L, 1, KH, n_pages, page, hd)
     pools (see attention_span_paged), written in place. ``kv_len`` = pos + C
     is computed once on the device and shared by every layer.
     Returns (logits (B,C,V), pools)."""
@@ -193,3 +214,14 @@ def lm_decode_step_paged(tsl, params, state, pools, tables, tokens_t, pos, cfg):
     logits, pools = _lm_paged_span(tsl, params, pools, tables, tokens_t, pos, cfg,
                                    tsl.attention_decode_paged)
     return logits[:, 0], state, pools
+
+
+def lm_verify_step_paged(tsl, params, state, pools, tables, tokens, pos, cfg):
+    """Fused paged verify span: tokens (B,SV) scored in one ragged batched
+    ``tsl.attention_verify_paged`` pass per layer (the CUDA C++ block-table
+    kernel on ``h100``); the span's K/V rows land in their pages in place,
+    and rejected rows sit past the committed kv_len — rollback is free, as
+    in the lane path. Returns (logits (B,SV,V), state, pools)."""
+    logits, pools = _lm_paged_span(tsl, params, pools, tables, tokens, pos, cfg,
+                                   tsl.attention_verify_paged)
+    return logits, state, pools

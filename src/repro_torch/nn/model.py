@@ -18,20 +18,31 @@ generated library for its device (``h100`` kernels on the card,
          arguments have no counterpart here)
     decode_step(params, state, tokens_t, pos) -> (logits (B,V), state)
         (pos: int, or a (B,) tensor of per-slot positions)
+    verify_step(params, state, tokens, pos) -> (logits (B,SV,V), state)
+        (speculative decoding: score a span of SV = k+1 tokens per slot — the
+         pending token and k drafts — in one ragged batched step at the (B,)
+         per-slot base rows ``pos``; logits row j validates draft j+1 and is
+         independent of rows > j. The span's cache rows are written in place;
+         rollback is free, the accepted fill stops short of rejected rows)
     init_decode_state(batch, max_len) -> zeroed state dict
     state_batch_axes(state) -> {leaf: slot axis}
     state_page_axes(state) -> {leaf: token axis | None}  (paged serving)
     decode_step_paged(params, state, pools, tables, tokens_t, pos)
         -> (logits (B,V), state, pools)
         (fused paged decode straight off the block-table page pools; ``state``
-         is the tail-only dict, empty for this family; ``verify_step_paged`` /
-         ``verify_commit_paged`` stay None until speculative decoding is
-         ported)
+         is the tail-only dict, empty for this family)
+    verify_step_paged(params, state, pools, tables, tokens, pos)
+        -> (logits (B,SV,V), state, pools)
+        (the verify span straight off the pools, through
+         ``attention_verify_paged``)
+    verify_commit / verify_commit_paged: None, as for the reference's KV
+        families (the verify step already committed the span's rows; only
+        its recurrent families replay the accepted prefix)
     insert_slot(state, donor, slot) / reset_slot(state, slot)
 
 Unlike the reference, state is updated IN PLACE by prefill_chunk,
-decode_step, insert_slot and reset_slot (each still returns it), and the
-page pools by decode_step_paged.
+decode_step, verify_step, insert_slot and reset_slot (each still returns
+it), and the page pools by decode_step_paged and verify_step_paged.
 
 ``load_jax_params(np_tree, cfg, device)`` turns the reference's params
 (``build_model(cfg).init(PRNGKey(s))``, ``np.asarray`` per leaf) into this
@@ -112,8 +123,15 @@ class Model:
         return lm.lm_decode_step_paged(self.tsl, params, state, pools, tables, tokens_t,
                                        pos, self.cfg)
 
-    # speculative decoding over the pools: not ported yet
-    verify_step_paged = None
+    def verify_step(self, params, state, tokens, pos):
+        return lm.lm_verify_step(self.tsl, params, state, tokens, pos, self.cfg)
+
+    def verify_step_paged(self, params, state, pools, tables, tokens, pos):
+        return lm.lm_verify_step_paged(self.tsl, params, state, pools, tables, tokens,
+                                       pos, self.cfg)
+
+    # the verify steps commit the span's rows themselves (KV family)
+    verify_commit = None
     verify_commit_paged = None
 
     # -- state surgery (continuous batching: serve/ builds on these) ---------

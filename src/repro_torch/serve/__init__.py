@@ -8,8 +8,12 @@
   the refcounted page allocator;
 - ``paging``: block-table page pools, copy-on-write prefix sharing and the
   host-spill tier;
+- ``spec``: speculative decoding — the n-gram and draft-model drafters, the
+  longest-accepted-prefix rule and the cost-priced per-slot depth
+  (``attention_verify``'s serve block and cost term);
 - ``engine``: the per-step continuous-batching loop with chunked prefill,
-  lane-mode or paged (fused decode off the pools, or the lane fallback).
+  lane-mode or paged (fused decode off the pools, or the lane fallback), and
+  its speculative decode-or-verify step.
 """
 
 from .engine import SamplingConfig, ServeEngine
@@ -17,11 +21,16 @@ from .paging import (PagedConfig, PagedKVStore, PrefixEntry, PrefixStore, prefix
                      selected_page_size, upd_page_defaults)
 from .scheduler import (BucketPolicy, CostModelAdmission, PagedAdmission, Request,
                         RequestMetrics, Scheduler, upd_serve_defaults)
-from .slots import PageAllocator, PagesExhausted, SlotPages, take_slot, validate_donor
+from .slots import (PageAllocator, PagesExhausted, SlotPages, assert_span_fits, take_slot,
+                    validate_donor)
+from .spec import (DraftModelDrafter, NGramDrafter, SpeculationConfig,
+                   SpeculationPolicy, accept_span, build_drafter, upd_verify_defaults)
 
 __all__ = [
     "BucketPolicy",
     "CostModelAdmission",
+    "DraftModelDrafter",
+    "NGramDrafter",
     "PageAllocator",
     "PagedAdmission",
     "PagedConfig",
@@ -35,10 +44,16 @@ __all__ = [
     "Scheduler",
     "ServeEngine",
     "SlotPages",
+    "SpeculationConfig",
+    "SpeculationPolicy",
+    "accept_span",
+    "assert_span_fits",
+    "build_drafter",
     "prefix_key",
     "selected_page_size",
     "take_slot",
     "upd_page_defaults",
     "upd_serve_defaults",
+    "upd_verify_defaults",
     "validate_donor",
 ]

@@ -1,6 +1,7 @@
 """Per-step continuous-batching serving engine with chunked prefill, in lane
-mode or over paged slot memory (mirrors ``repro/serve/engine.py`` without its
-speculative and mesh paths, which later slices of the port add).
+mode or over paged slot memory, with speculative decoding (mirrors
+``repro/serve/engine.py`` without its mesh path, which the sharded engine
+adds).
 
 One fixed-shape batched decode state (the slot table) runs ONE unified step
 per iteration: every in-flight prefill advances by exactly one fixed-size
@@ -36,11 +37,26 @@ block-table kernel on the card) — no page->lane gather ever runs;
 ``fused=False`` activates a request by gathering its pages into a lane and
 decodes as lane mode (the bit-identical fallback).
 
+Speculative decoding (``speculation=SpeculationConfig(...)``, ``serve/spec.py``)
+makes phase 2 a decode OR a verify step: a drafter proposes up to k tokens per
+slot, ONE batched ragged verify step (``Model.verify_step``, or
+``verify_step_paged`` -> ``attention_verify_paged``, the same CUDA C++
+block-table kernel on the card) scores every slot's span at its own position,
+and each slot emits its longest accepted prefix plus one corrected token.
+Depth is per slot and per step (``SpeculationPolicy``), and a step where every
+depth is 0 is exactly the plain decode step: the same call, the same sampler
+draw. The slot table, the donors and the block tables carry ``k_max`` rows of
+headroom past ``max_len`` for the span rows of slots whose own window is
+smaller than the step's widest.
+
 Report: per request TTFT, prefill_s/decode_s attribution, decode tokens/s,
 latency, SLA hit, bucket; per run real-token throughput, steady-state padded
 slot steps (0 == true continuous batching), TTFT percentiles by bucket,
 slot reuse, the per-step log, the admission log, every refusal with its
-reason, the cost model's pricing and, in paged mode, ``report["paged"]``.
+reason, the cost model's pricing, in paged mode ``report["paged"]`` and, with
+speculation on, ``report["spec"]`` (accepted rate, mean accepted span, steps
+per emitted token, split by bucket). Only target-emitted tokens count as
+output: rejected drafts never do.
 The reference's ``jit_cache`` key has no counterpart: eager PyTorch compiles
 no step functions.
 """
@@ -58,7 +74,9 @@ from repro_torch.nn.model import build_model
 from .paging import PagedConfig, PagedKVStore, prefix_key, selected_page_size
 from .scheduler import (BucketPolicy, CostModelAdmission, PagedAdmission, Request,
                         Scheduler)
-from .slots import PagesExhausted, validate_donor
+from .slots import PagesExhausted, assert_span_fits, validate_donor
+from .spec import SpeculationConfig, SpeculationPolicy, accept_span, build_drafter, \
+    upd_verify_defaults
 
 
 @dataclass(frozen=True)
@@ -102,11 +120,15 @@ class ServeEngine:
                  params: dict | None = None, admission: bool = True,
                  prefill_chunk: int | None = None,
                  buckets: tuple[int, ...] | None = None,
-                 paged: PagedConfig | None = None):
+                 paged: PagedConfig | None = None,
+                 speculation: SpeculationConfig | None = None,
+                 draft_params: dict | None = None):
         """``params``: weights to serve (e.g. ``load_jax_params`` of the
         reference's); default ``model.init(seed)``. ``target`` overrides the
         library the device would select (``torch_cpu`` on the card runs the
-        plain versions). ``paged`` switches on paged slot memory."""
+        plain versions). ``paged`` switches on paged slot memory,
+        ``speculation`` speculative decoding. ``draft_params``: the weights
+        of a ``draft_model`` drafter; default its ``init(seed + 2)``."""
         self.cfg = cfg
         self.batch = batch
         self.max_len = max_len
@@ -129,6 +151,17 @@ class ServeEngine:
                     f"prefill chunk of {chunk}")
             fit = (largest,)
         self.policy = BucketPolicy(fit, chunk)
+        # -- speculative depth (before the paged store: every state carries
+        # k_max rows of headroom). A verify span writes K+1 rows at each
+        # slot's fill, K the step's widest depth; a slot whose own window is
+        # smaller takes its neighbours' depth, so rows past max_len hold only
+        # drafts that are never committed
+        self.spec = speculation
+        self._k_max = 0
+        if speculation is not None:
+            self._k_max = speculation.k_max if speculation.k_max is not None \
+                else upd_verify_defaults()["k_max"]
+        self._state_len = max_len + self._k_max
         # -- paged slot memory (block-table residency under the lanes) -------
         self.paged = paged
         self._store: PagedKVStore | None = None
@@ -141,7 +174,7 @@ class ServeEngine:
         self._act_seq = 0
         self._preempt_count = 0
         if paged is not None:
-            donor = self.model.init_decode_state(1, max_len)
+            donor = self.model.init_decode_state(1, self._state_len)
             shapes = {n: (tuple(t.shape), t.dtype) for n, t in donor.items()}
             self._page_axes = self.model.state_page_axes(donor)
             psize = paged.page_size or selected_page_size(self.model.tsl)
@@ -159,7 +192,7 @@ class ServeEngine:
             self._max_inflight = paged.max_inflight_prefills or 2 * batch
         # FUSED paged decode: slots decode straight off the block-table pools
         self._fused = self._store is not None and self._store.fused
-        self._table_width = -(-max_len // self._store.page) if self._fused else 0
+        self._table_width = -(-self._state_len // self._store.page) if self._fused else 0
         self._lane_activations = 0      # full page->lane gathers (fallback)
         self._tail_restores = 0         # fused activations (tails only)
         self._gather_bytes_eliminated = 0
@@ -171,6 +204,21 @@ class ServeEngine:
         else:
             self.cost_model = CostModelAdmission(cfg, batch, max_len, lib=self.model.lib,
                                                  policy=self.policy)
+        # -- speculative decoding (draft / verify over the slot table) -------
+        self._drafter = None
+        self._spec_policy = None
+        if speculation is not None:
+            self._drafter = build_drafter(speculation, cfg, batch=batch,
+                                          state_len=self._state_len, seed=seed + 2,
+                                          device=self.device, target=target,
+                                          params=draft_params)
+            pricing = self.cost_model or CostModelAdmission(
+                cfg, batch, max_len, lib=self.model.lib, policy=self.policy)
+            if self.cost_model is not None:
+                self.cost_model.spec_k = self._k_max
+            self._spec_policy = SpeculationPolicy(
+                batch, self._k_max, pricing, speculation,
+                drafter_cost_s=self._drafter.cost_per_token_s())
         # sampling draws come from a seeded device generator (the reference
         # draws from jax.random keys: sampled streams differ, greedy is exact)
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
@@ -178,22 +226,24 @@ class ServeEngine:
     # -- helpers --------------------------------------------------------------
 
     def _sample(self, logits: torch.Tensor, temps: np.ndarray) -> np.ndarray:
-        """Per-slot-temperature sampler over (B, V) logits: temp <= 0 rows
-        take the argmax, the rest a Gumbel-max draw at their temperature
+        """Per-slot-temperature sampler over (B, V) logits, or (B, SV, V) for
+        a verify span (every span row at its slot's temperature): temp <= 0
+        rows take the argmax, the rest a Gumbel-max draw at their temperature
         (after top-k truncation). The lm head is padded_vocab wide: a padding
         id is never emitted."""
         masked = logits.float()
         masked[..., self.cfg.vocab:] = -1e30
         out = masked.argmax(-1)
         if (temps > 0).any():
+            lead = (masked.shape[0],) + (1,) * (masked.ndim - 2)
             t = torch.as_tensor(temps, device=masked.device).clamp_min(1e-6)
-            scaled = masked / t[:, None]
+            scaled = masked / t.view(lead + (1,))
             if self.sampling.top_k:
                 kth = scaled.topk(self.sampling.top_k, dim=-1).values[..., -1:]
                 scaled = torch.where(scaled < kth, -1e30, scaled)
             u = torch.rand(scaled.shape, generator=self._gen, device=masked.device)
             drawn = (scaled - torch.log(-torch.log(u.clamp_min(1e-20)))).argmax(-1)
-            use = torch.as_tensor(temps > 0, device=masked.device)
+            use = torch.as_tensor(temps > 0, device=masked.device).view(lead)
             out = torch.where(use, drawn, out)
         return out.cpu().numpy()
 
@@ -209,10 +259,12 @@ class ServeEngine:
         return logits[:, max(n_real, 1) - 1]
 
     def _new_donor(self) -> dict:
-        return self.model.init_decode_state(1, self.max_len)
+        return self.model.init_decode_state(1, self._state_len)
 
     def _init_state(self) -> dict:
-        state = self.model.init_decode_state(self.batch, self.max_len)
+        # _state_len = max_len + k_max: the verify span's headroom rows;
+        # admission and the overrun guards still cap real fill at max_len
+        state = self.model.init_decode_state(self.batch, self._state_len)
         if self._fused:
             # fused mode keeps only the TAIL leaves in the slot table (none
             # for the dense family): the paged leaves live in the pools
@@ -317,6 +369,9 @@ class ServeEngine:
         histories[slot] = info["history"]
         self._act_seq += 1
         self._act_stamp[slot] = self._act_seq
+        if self._spec_policy is not None:
+            self._spec_policy.reset(slot)
+            self._drafter.on_graft(rid, slot, histories[slot])
         return state
 
     def _activate_parked(self, sched: Scheduler, state, pending_host, pos_host,
@@ -365,6 +420,9 @@ class ServeEngine:
             "prefill_s": m.prefill_s,
             "decode_s": m.decode_s,
             "preemptions": m.preemptions + 1,
+            "spec_proposed": m.spec_proposed,
+            "spec_accepted": m.spec_accepted,
+            "verify_rounds": m.verify_rounds,
         }
         self._preempt_count += 1
         sched.requeue_front(Request(
@@ -373,19 +431,24 @@ class ServeEngine:
             shared_prefix_len=req.shared_prefix_len, resume_token=int(hist[-1])))
         self._store.free(rid)
         self._act_stamp.pop(slot, None)
+        if self._drafter is not None:
+            self._drafter.on_finish(slot)
         return self.model.reset_slot(state, slot)
 
-    def _grow_or_preempt(self, active, sched: Scheduler, state, pos_host, histories):
-        """Before the decode step: every decoding slot's pages must cover the
-        row this step commits. On exhaustion, preempt the LATEST-activated
-        slot (it has sunk the least decode work) until the grow fits —
-        possibly the growing slot itself."""
+    def _grow_or_preempt(self, active, k_vec, sched: Scheduler, state, pos_host,
+                         histories):
+        """Before phase 2: every decoding slot's pages must cover the rows
+        this step may commit (pos + depth + 1, capped at max_len: span rows
+        past it only ever hold drafts that are never committed). On
+        exhaustion, preempt the LATEST-activated slot (it has sunk the least
+        decode work) until the grow fits — possibly the growing slot
+        itself."""
         active = list(active)
         for slot in list(active):
             if slot not in active:
                 continue
             rid = sched.slots[slot].request.rid
-            need = min(int(pos_host[slot]) + 1, self.max_len)
+            need = min(int(pos_host[slot]) + int(k_vec[slot]) + 1, self.max_len)
             while True:
                 try:
                     self._store.grow(rid, need)
@@ -395,6 +458,7 @@ class ServeEngine:
                     victim = max(victims, key=lambda s: self._act_stamp.get(s, -1))
                     state = self._preempt_slot(victim, sched, state, histories)
                     active.remove(victim)
+                    k_vec[victim] = 0
                     if victim == slot:
                         break
         return active, state
@@ -470,7 +534,8 @@ class ServeEngine:
         # host mirrors of per-slot decode-loop state: the pending token
         # (emitted but not yet consumed by the model), the cache fill, the
         # sampling temperature and the committed token history (prompt +
-        # emitted: a preempted request's continuation prompt)
+        # emitted: a preempted request's continuation prompt and the
+        # drafter's lookup corpus)
         pending_host = np.zeros(self.batch, np.int64)
         pos_host = np.zeros(self.batch, np.int64)
         temps_host = np.full(self.batch, self.sampling.temperature, np.float32)
@@ -482,7 +547,13 @@ class ServeEngine:
         padded_steady = 0
         generated = 0
         prefill_tokens_total = 0
-        decode_steps = 0
+        decode_emitted = 0          # tokens emitted by phase-2 steps
+        slot_steps = 0              # per-slot phase-2 participations
+        decode_steps = 0            # plain (k = 0) decode steps
+        verify_steps = 0            # speculative verify rounds
+        spec_proposed_total = 0
+        spec_accepted_total = 0
+        spec_slot_rounds = 0        # (slot, round) pairs that speculated
         chunk = self.policy.chunk
 
         while sched.has_work() or tasks:
@@ -529,6 +600,11 @@ class ServeEngine:
                         f"prefill chunk for {task.req.rid!r} would overrun "
                         f"max_len={self.max_len} (admission off?)")
                 last = self._chunk(task, seg, n_real)
+                if self._drafter is not None:
+                    # a draft-model drafter mirrors the chunk schedule into
+                    # its own donor (a no-op for the n-gram drafter)
+                    self._drafter.on_chunk(task.req.rid, task.padded[:, c0:c0 + chunk],
+                                           n_real)
                 task.chunk_idx += 1
                 ran.append(task)
                 if n_real:
@@ -549,47 +625,101 @@ class ServeEngine:
                 # admission; a tripwire for future scheduling policies)
                 padded_steady += self.batch - len(active) - len(tasks)
 
-            # -- phase 2: one decode step over every occupied slot -----------
+            # -- phase 2: one decode OR verify step over every occupied slot -
             emitted_this_step = 0
+            # per-slot speculative depth, priced per step: clipped to the
+            # slot's remaining budget, 0 where drafting does not pay (or
+            # speculation is off)
+            k_vec = np.zeros(self.batch, np.int64)
+            if active and self._spec_policy is not None:
+                for slot in active:
+                    s_ = sched.slots[slot]
+                    remaining = s_.request.gen_len - s_.metrics.tokens_out
+                    k_vec[slot] = self._spec_policy.depth(slot, int(pos_host[slot]),
+                                                          remaining)
             if active and self._store is not None:
-                # page growth for the row this step commits; exhaustion
+                # page growth for the rows this step may commit; exhaustion
                 # preempts LIFO back to the queue head
-                active, state = self._grow_or_preempt(active, sched, state, pos_host,
-                                                      histories)
+                active, state = self._grow_or_preempt(active, k_vec, sched, state,
+                                                      pos_host, histories)
             if active:
                 if int(pos_host[active].max()) >= self.max_len:
                     raise RuntimeError(
                         f"active slot position {int(pos_host[active].max())} "
                         f"overran max_len={self.max_len}")
-                tokens = torch.as_tensor(pending_host[:, None], device=self.device)
+                K = int(k_vec.max())
                 if self._fused:
                     # the steady-state fused path: read and write the pools
                     # THROUGH the block table — no page->lane gather. Idle
-                    # slots decode at position 0 into the scratch page.
+                    # slots run at position 0 on all-scratch table rows.
                     pos_step = np.zeros(self.batch, np.int64)
                     pos_step[active] = pos_host[active]
-                    logits, state, pools = self.model.decode_step_paged(
-                        self.params, state, self._store.device_pools(),
-                        self._build_tables(sched, active), tokens,
-                        torch.as_tensor(pos_step, device=self.device))
-                    self._store.set_device_pools(pools)
+                    pos_dev = torch.as_tensor(pos_step, device=self.device)
+                    tables = self._build_tables(sched, active)
+                if K == 0:
+                    # exactly the plain decode step: the same call and the
+                    # same sampler draw, so k = 0 speculation is identical
+                    tokens = torch.as_tensor(pending_host[:, None], device=self.device)
+                    if self._fused:
+                        logits, state, pools = self.model.decode_step_paged(
+                            self.params, state, self._store.device_pools(), tables,
+                            tokens, pos_dev)
+                        self._store.set_device_pools(pools)
+                    else:
+                        logits, state = self.model.decode_step(
+                            self.params, state, tokens, torch.as_tensor(pos_host))
+                    decode_steps += 1
+                    toks = self._sample(logits, temps_host)
+                    emits = {slot: [int(toks[slot])] for slot in active}
                 else:
-                    logits, state = self.model.decode_step(
-                        self.params, state, tokens, torch.as_tensor(pos_host))
-                decode_steps += 1
-                toks = self._sample(logits, temps_host)
-                for slot in active:
-                    rid = sched.slots[slot].request.rid
-                    sched.step_done(slot)
-                    pos_host[slot] += 1
-                    pending_host[slot] = int(toks[slot])
-                    outputs[rid].append(int(toks[slot]))
+                    # speculative round: draft -> ONE ragged batched verify ->
+                    # accept the longest prefix + the corrected token
+                    drafts = self._drafter.propose(active, histories, k_vec, self.batch, K)
+                    span = torch.as_tensor(
+                        np.concatenate([pending_host[:, None], drafts], axis=1),
+                        device=self.device)
+                    if self._fused:
+                        assert_span_fits(pos_step, K + 1, self._state_len)
+                        logits, state, pools = self.model.verify_step_paged(
+                            self.params, state, self._store.device_pools(), tables,
+                            span, pos_dev)
+                        self._store.set_device_pools(pools)
+                    else:
+                        # the whole table takes the span write (idle lanes
+                        # included), so the guard covers every slot
+                        assert_span_fits(pos_host, K + 1, self._state_len)
+                        logits, state = self.model.verify_step(
+                            self.params, state, span, torch.as_tensor(pos_host))
+                    # the target token at EVERY span row (per-slot
+                    # temperature): row j validates draft j+1, row m is the
+                    # corrected token of a slot accepting m drafts
+                    tgt = self._sample(logits, temps_host)
+                    m_vec = accept_span(drafts, tgt, k_vec)
+                    verify_steps += 1
+                    emits = {}
+                    for slot in active:
+                        m, k = int(m_vec[slot]), int(k_vec[slot])
+                        emits[slot] = [int(t) for t in drafts[slot, :m]] + [int(tgt[slot, m])]
+                        if k > 0:
+                            sched.spec_round(slot, proposed=k, accepted=m)
+                            self._spec_policy.update(slot, k, m)
+                            spec_proposed_total += k
+                            spec_accepted_total += m
+                            spec_slot_rounds += 1
+                        self._drafter.on_commit(slot, m)
+                for slot, emit in emits.items():
+                    sched.step_done(slot, n=len(emit))
+                    pos_host[slot] += len(emit)
+                    pending_host[slot] = emit[-1]
+                    outputs[sched.slots[slot].request.rid].extend(emit)
                     if slot in histories:
-                        histories[slot].append(int(toks[slot]))
-                    generated += 1
-                    emitted_this_step += 1
+                        histories[slot].extend(emit)
+                    generated += len(emit)
+                    emitted_this_step += len(emit)
 
             # -- phase 3: shared-step time attribution (prefill vs decode) ---
+            decode_emitted += emitted_this_step
+            slot_steps += len(active)
             t_step = time.perf_counter() - t_step0
             pre_share, _ = sched.attribute_step_time(
                 t_step, chunk_tokens, active, decode_tokens=emitted_this_step)
@@ -629,9 +759,18 @@ class ServeEngine:
                 outputs[task.req.rid] = [first]
                 pending_host[slot] = first
                 pos_host[slot] = task.fill
+                # the committed token history (prompt + emitted): the
+                # drafter's lookup corpus, reset on every slot reuse
+                histories[slot] = [int(t) for t in np.asarray(task.req.tokens)] + [first]
+                if self._spec_policy is not None:
+                    self._spec_policy.reset(slot)
+                    self._drafter.on_graft(task.req.rid, slot, histories[slot])
                 if sched.slot_done(slot):           # gen_len == 1 edge case
                     sched.finish(slot, now())
                     state = self.model.reset_slot(state, slot)
+                    histories.pop(slot, None)
+                    if self._drafter is not None:
+                        self._drafter.on_finish(slot)
             for slot in list(active):
                 if sched.slot_done(slot):
                     rid_done = sched.slots[slot].request.rid
@@ -641,6 +780,8 @@ class ServeEngine:
                     if self._store is not None:
                         self._store.free(rid_done)
                         self._act_stamp.pop(slot, None)
+                    if self._drafter is not None:
+                        self._drafter.on_finish(slot)
 
             if ran or active:
                 step += 1           # a unified step actually did device work
@@ -697,6 +838,9 @@ class ServeEngine:
                 "prefill_seconds_largest_bucket":
                     self.cost_model.prefill_seconds(self.policy.buckets[-1]),
             }
+            if self.spec is not None:
+                report["cost_model"]["verify_seconds_k_max"] = \
+                    self.cost_model.verify_seconds(self._k_max)
         if self._store is not None:
             st = self._store
             budget_bytes = st.n_pages * st.page_bytes
@@ -734,7 +878,43 @@ class ServeEngine:
                 "tail_restores": self._tail_restores,
                 "gather_bytes_eliminated": self._gather_bytes_eliminated,
                 "gather_bytes_eliminated_per_step":
-                    self._gather_bytes_eliminated / max(decode_steps, 1),
+                    self._gather_bytes_eliminated / max(decode_steps + verify_steps, 1),
                 "decode_steps": decode_steps,
+                "verify_steps": verify_steps,
+            }
+        if self.spec is not None:
+            # accepted rate and mean accepted span, overall and by bucket
+            by_b: dict[int, list[int]] = {}
+            for m in finished:
+                acc = by_b.setdefault(m.bucket, [0, 0, 0, 0])
+                acc[0] += 1
+                acc[1] += m.spec_proposed
+                acc[2] += m.spec_accepted
+                acc[3] += m.verify_rounds
+            accept_by_bucket = {
+                b: {"n": n, "proposed": p, "accepted": a,
+                    "accepted_rate": a / max(p, 1),
+                    # each speculating round emits its accepted drafts + 1
+                    "mean_accepted_span": (a + r) / max(r, 1)}
+                for b, (n, p, a, r) in sorted(by_b.items())
+            }
+            report["spec"] = {
+                "drafter": self.spec.drafter,
+                "k_max": self._k_max,
+                "decode_steps": decode_steps,
+                "verify_steps": verify_steps,
+                "drafted_tokens": spec_proposed_total,
+                "accepted_tokens": spec_accepted_total,
+                "accepted_rate": spec_accepted_total / max(spec_proposed_total, 1),
+                "mean_accepted_span":
+                    (spec_accepted_total + spec_slot_rounds) / max(spec_slot_rounds, 1),
+                # < 1.0: speculation emitted more tokens than it ran phase-2
+                # steps
+                "steps_per_emitted_token":
+                    (decode_steps + verify_steps) / max(decode_emitted, 1),
+                # per-SLOT step participations per emitted token: exactly 1.0
+                # for plain decode, < 1.0 iff verify rounds accepted drafts
+                "slot_steps_per_emitted_token": slot_steps / max(decode_emitted, 1),
+                "accept_by_bucket": accept_by_bucket,
             }
         return report

@@ -1,6 +1,6 @@
 """Slot-table scheduler for per-step continuous batching (mirrors
-``repro/serve/scheduler.py`` without its mesh pricing and speculative
-accounting).
+``repro/serve/scheduler.py`` without its mesh pricing, which comes with the
+sharded engine).
 
 Pure host-side control plane — no torch in here. The engine owns the device
 state; the scheduler owns the request stream (arrival-gated queue), the
@@ -28,6 +28,11 @@ bucket; ``sla_infeasible`` — even the best-case estimate misses its
 deadline). Paged serving adds :class:`PagedAdmission`, whose page shortage
 DEFERS (``defer:`` reasons keep the request at the head of the queue), and a
 lane-less track of requests that prefill or park without a lane.
+
+Speculative decoding adds per-request accounting (drafts proposed and
+accepted, verify rounds; ``tokens_out`` counts only target-emitted tokens)
+and the verify step's price, ``CostModelAdmission.verify_seconds``, which the
+speculation policy weighs against expected accepted tokens.
 """
 
 from __future__ import annotations
@@ -149,6 +154,11 @@ class RequestMetrics:
     sla_s: float | None = None
     sla_met: bool | None = None     # None: no SLA attached
     admitted_at_step: int = -1      # engine step index at slot reservation
+    # speculative decoding: tokens_out and decode_tokens_per_s count only
+    # target-emitted tokens (accepted drafts + the corrected token)
+    spec_proposed: int = 0          # draft tokens proposed for this request
+    spec_accepted: int = 0          # draft tokens the target accepted
+    verify_rounds: int = 0          # verify steps this request took part in
     preemptions: int = 0            # paged serving: times preempted on page
                                     # exhaustion and requeued as a continuation
 
@@ -170,7 +180,12 @@ class CostModelAdmission:
     parameter flops plus the ``attention_prefill_chunk`` cost term summed
     over the chunk schedule, over TARGET.peak_flops_bf16.
 
-    Both are deliberately idealized (roofline = best case), so a request
+    A verify step at draft depth k is priced like a decode step with the
+    ``attention_verify`` bytes term at span k+1 (``verify_seconds``); with
+    ``spec_k`` set, admission charges the cheaper of a decode step and a
+    fully accepted span per emitted token.
+
+    All are deliberately idealized (roofline = best case), so a request
     whose deadline fails even the best case is hopeless and refusing it is
     sound. ``lib`` is the generated library the engine runs on; a missing
     cost term raises (the corpus defines every term this prices).
@@ -190,6 +205,10 @@ class CostModelAdmission:
         self.hbm_bw = float(lib.TARGET.hbm_bw)
         self.peak_flops = float(lib.TARGET.peak_flops_bf16)
         self._step_s = None             # computed lazily, cached (pure shapes)
+        # speculative decoding: the engine sets spec_k > 0 when it runs a
+        # drafter, and admission then prices decode at the best case of plain
+        # decode and a fully accepted verify span
+        self.spec_k = 0
 
     def _dtype_bytes(self) -> int:
         return 2 if "16" in self.cfg.dtype else 4
@@ -212,6 +231,29 @@ class CostModelAdmission:
         if self._step_s is None:
             self._step_s = self.decode_bytes_per_step() / self.hbm_bw
         return self._step_s
+
+    def verify_seconds(self, k: int, s: int | None = None) -> float:
+        """Best-case time of one verify step over the full slot table at
+        draft depth k (span SV = k+1): memory-bound like decode — the params
+        stream once whatever the span — plus n_layers x the
+        ``attention_verify`` bytes term at cache fill ``s`` (default
+        max_len). The price the speculation policy weighs against expected
+        accepted tokens."""
+        cfg = self.cfg
+        raw = self.lib.cost("attention_verify", "bytes", B=self.batch, H=cfg.n_heads,
+                            KH=cfg.n_kv_heads, SV=int(k) + 1,
+                            S=self.max_len if s is None else s, D=cfg.hd)
+        attn = cfg.n_layers * raw * (self._dtype_bytes() / 2.0)
+        return (self.param_bytes + attn) / self.hbm_bw
+
+    def emit_seconds_per_token(self, s: int | None = None) -> float:
+        """Best-case seconds per EMITTED token: a plain decode step or, with
+        speculation on, a fully accepted verify span at spec_k (k+1 tokens a
+        step), whichever is cheaper."""
+        per_tok = self.step_seconds(s)
+        if self.spec_k > 0:
+            per_tok = min(per_tok, self.verify_seconds(self.spec_k, s) / (self.spec_k + 1))
+        return per_tok
 
     def prefill_seconds(self, padded_len: int) -> float:
         """Best-case prefill time for ``padded_len`` prompt tokens: parameter
@@ -243,7 +285,7 @@ class CostModelAdmission:
             # charge attention reads at THIS request's maximal cache fill
             s_req = bucket + req.gen_len
             projected = (waited + self.prefill_seconds(bucket)
-                         + req.gen_len * self.step_seconds(s_req))
+                         + req.gen_len * self.emit_seconds_per_token(s_req))
             if projected > req.sla_s:
                 return False, (f"sla_infeasible: projected {projected:.3e}s "
                                f"> sla {req.sla_s:.3e}s")
@@ -319,7 +361,8 @@ class Scheduler:
       reserve(slot, req, step)         — slot enters prefill (chunks running)
       place(req, slot)                 — prefill done: slot occupied
       first_token(slot, now)           — TTFT stamp
-      step_done(slot)                  — one real token decoded in this slot
+      step_done(slot, n)               — n real tokens emitted in this slot
+      spec_round(slot, proposed, accepted) — one verify round's drafts
       attribute_step_time(...)         — split a shared step's wall time
                                          between prefill and decode tokens
       finish(slot, now) -> metrics     — request complete, slot freed
@@ -482,8 +525,17 @@ class Scheduler:
         m.tokens_out = 1
 
     def step_done(self, slot: int, n: int = 1) -> None:
-        """``n`` emitted tokens landed in this slot this step."""
+        """``n`` target-emitted tokens landed in this slot this step (n > 1:
+        a verify round accepted n-1 drafts and the corrected token; rejected
+        drafts are never counted)."""
         self.slots[slot].metrics.tokens_out += n
+
+    def spec_round(self, slot: int, proposed: int, accepted: int) -> None:
+        """Account one verify round for this slot's request."""
+        m = self.slots[slot].metrics
+        m.spec_proposed += proposed
+        m.spec_accepted += accepted
+        m.verify_rounds += 1
 
     def slot_done(self, slot: int) -> bool:
         s = self.slots[slot]

@@ -4,8 +4,9 @@ bookkeeping (mirrors ``repro/serve/slots.py``).
 The dense family carries its decode state as a dict of tensors with the
 request (slot) axis at a per-leaf position that ``Model.state_batch_axes``
 declares; ``Model.insert_slot`` / ``reset_slot`` do the surgery. This module
-reads a slot back out (``take_slot``) and validates a donor against the slot
-table on the host (``validate_donor``) before it is grafted.
+reads a slot back out (``take_slot``), validates a donor against the slot
+table on the host (``validate_donor``) before it is grafted, and checks that
+a speculative verify span fits the table's rows (``assert_span_fits``).
 
 The paged building blocks are pure host bookkeeping: :class:`PageAllocator`,
 a refcounted free list over fixed-size cache pages (the unit the paged store
@@ -17,6 +18,8 @@ and fill. The device pools and the gather/scatter through the
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+import numpy as np
 
 
 class PagesExhausted(RuntimeError):
@@ -95,6 +98,19 @@ def take_slot(state: dict, axes: dict, slot: int) -> dict:
     what ``Model.insert_slot`` expects as a donor). Views, not copies."""
     return {name: leaf.narrow(axes[name], int(slot), 1)
             for name, leaf in state.items()}
+
+
+def assert_span_fits(pos, span: int, state_len: int) -> None:
+    """Raise RuntimeError if any slot's span write [pos, pos+span) would
+    overrun the state's row capacity. The engine sizes the slot table with
+    ``k_max`` headroom rows past max_len so this never fires; the guard
+    states the broken invariant before any row is written (``cache_update``
+    would raise too, later and with a less telling message)."""
+    pos = np.asarray(pos)
+    hi = int(pos.max()) + int(span) if pos.size else 0
+    if hi > state_len:
+        raise RuntimeError(f"span write [{int(pos.max())}, {hi}) overruns the "
+                           f"state's {state_len} rows")
 
 
 def validate_donor(state: dict, donor: dict, axes: dict) -> None:

@@ -31,12 +31,15 @@ SLICE_PRIMITIVES = ("load", "set1", "embed_lookup", "cache_update", "matmul", "r
                     "set", "select", "between_inclusive", "hadd", "to_integral",
                     "range_count", "range_count_popcnt", "softmax",
                     # training: the loss and the attention backward
-                    "cross_entropy", "flash_attention_bwd")
+                    "cross_entropy", "flash_attention_bwd",
+                    # speculative decoding: the verify span, lane and paged
+                    "attention_verify", "attention_verify_paged")
 KERNEL_MODULES = {"rmsnorm": "repro_torch.kernels.rmsnorm.ops",
                   "swiglu": "repro_torch.kernels.swiglu.ops",
                   "flash_attention": "repro_torch.kernels.flash_attention.ops",
                   "flash_attention_bwd": "repro_torch.kernels.flash_attention.ops",
                   "attention_decode_paged": "repro_torch.kernels.paged.ops",
+                  "attention_verify_paged": "repro_torch.kernels.paged.ops",
                   "range_count": "repro_torch.kernels.range_count.ops",
                   "hadd": "repro_torch.kernels.hadd.ops",
                   "to_integral": "repro_torch.kernels.to_integral.ops",
@@ -198,6 +201,13 @@ def _args(prim, rng):
         tables = np.asarray([[3, 1, 0], [2, 4, 5]], np.int32)
         return (_rand(rng, 2, 4, 1, 8), _rand(rng, 2, 6, 8, 8), _rand(rng, 2, 6, 8, 8),
                 tables), {"kv_len": np.asarray([13, 24], np.int32)}
+    if prim == "attention_verify":
+        return (_rand(rng, 2, 4, 3, 8), _rand(rng, 2, 2, 12, 8),
+                _rand(rng, 2, 2, 12, 8)), {"kv_len": np.asarray([10, 5], np.int32)}
+    if prim == "attention_verify_paged":
+        tables = np.asarray([[3, 1, 0], [2, 4, 5]], np.int32)
+        return (_rand(rng, 2, 4, 3, 8), _rand(rng, 2, 6, 8, 8), _rand(rng, 2, 6, 8, 8),
+                tables), {"kv_len": np.asarray([13, 24], np.int32)}
     if prim == "cross_entropy":
         return (_rand(rng, 2, 5, 40, lo=-3, hi=3),
                 rng.integers(0, 40, (2, 5)).astype(np.int32)), {}
@@ -231,6 +241,11 @@ def test_torch_cpu_library_matches_cpu_xla(prim, libs):
     ("attention_prefill_chunk", "comms", dict(B=1, H=16, KH=16, C=64, S=256, D=64, TP=4)),
     ("attention_decode_paged", "bytes", dict(B=8, H=16, KH=16, P=5, PAGE=64, D=64)),
     ("attention_decode_paged", "flops", dict(B=8, H=16, KH=16, P=5, PAGE=64, D=64)),
+    ("attention_verify", "bytes", dict(B=8, H=16, KH=16, SV=5, S=320, D=64, TP=1)),
+    ("attention_verify", "flops", dict(B=8, H=16, KH=16, SV=5, S=320, D=64, TP=1)),
+    ("attention_verify", "comms", dict(B=8, H=16, KH=16, SV=5, S=320, D=64, TP=4)),
+    ("attention_verify_paged", "bytes", dict(B=8, H=16, KH=16, SV=5, P=5, PAGE=64, D=64)),
+    ("attention_verify_paged", "flops", dict(B=8, H=16, KH=16, SV=5, P=5, PAGE=64, D=64)),
     ("cache_page_read", "bytes", dict(N=4, PAGE=64, R=24576)),
     ("cache_page_write", "bytes", dict(N=4, PAGE=64, R=24576)),
 ])

@@ -19,9 +19,8 @@ from repro_torch.core.select import SelectGPO
 from repro_torch.core.testgen import TestGenGPO
 
 # reference tests of primitives the port carries that need what the port
-# has not ported: attention_verify_paged, and int8 page pools (which raise)
-NOT_PORTED = {"test_attention_decode_paged__decode_is_verify_span_of_one",
-              "test_attention_decode_paged__int8_pages_dequantize_per_page"}
+# has not ported: int8 page pools (which raise)
+NOT_PORTED = {"test_attention_decode_paged__int8_pages_dequantize_per_page"}
 # tests the port adds for its kernels' paths (the card's split rows, wide
 # softmax rows, bit 31, float32 promotion of a fractional bound)
 PORT_ONLY = {"test_hadd__long_rows", "test_softmax__wide_rows_with_neg_inf",
