@@ -67,6 +67,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    pools (a verify span of one is the decode step).
 3. Serve. repro_torch.launch.serve.main at full width: 16 requests of 256
    prompt tokens and 64 generated tokens over 8 slots, 64-token chunks.
+   Every serve of phases 3, 3b and 3e but 3e(i) runs twice on the same
+   requests (paired_serve; 3e(i)'s eager twin is dropped for time): with the engine's captured steps (CUDA graphs, the
+   default) and under serve.disable_graphs(), the order alternating from
+   pair to pair, each under device tracing (torch.profiler, CUDA activity
+   only) with its launches read around it. A pair fails unless the greedy
+   outputs, every report counter (SERVE_COUNTED, report["paged"] and
+   report["spec"] in full, the per-request counts) and the launch counters
+   are equal, the graphs run captured its steps (report["jit_cache"]) and
+   the eager run none; it prints both ways' decode tokens/s, TTFT mean,
+   wall and the device's idle share over the serve (1 - busy / host wall,
+   busy the union of the device records).
 3b. Paged serve. ServeEngine(paged=PagedConfig(page_size=64)) at full width
    with phase 2's params: 32 requests sharing a 128-token system prompt plus
    128 tokens each, 64 generated, 8 slots, max_len 320, 64-token chunks,
@@ -79,7 +90,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    shape with phase 2's params, greedy: (i) depth SPEC_K on 3b's 32
    requests; (ii) the cost-priced depth with the n-gram drafter on 16
    prompts that repeat a seeded 16-token pattern to 256 tokens, beside the
-   same requests without speculation; (iii) the draft-model drafter
+   same requests without speculation (a pair of its own: the two graphs
+   runs give what speculation buys end to end); (iii) the draft-model drafter
    (qwen1.5-0.5b with the target's weights) at depth SPEC_K on 8 of them.
    Each fails unless decode ran fused (no lane activation), nothing was
    refused, every request got 64 tokens and the paged kernel launched 24
@@ -99,16 +111,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    §4.1); every generated test function runs on the card; any failure
    fails the phase.
 4. Step profile. The step kinds the serving engines run, on phase 2's
-   model at the serve phases' shapes — a lane decode step, a fused paged
-   decode step and a fused paged verify step (span SPEC_K + 1) over 8 slots
-   at position 256, and one 64-token prefill chunk into a batch-1 donor —
-   each timed on the host clock (synchronised wall per step) and traced
-   with torch.profiler (device busy time, kernel launches, the kernels that
-   take the time). The device's idle share is 1 - busy / wall. The fused
-   paged step is printed against the reading of the one-block-per-sequence
-   paged kernel before the split design (3.64 ms of device busy time, 1302
-   launches; PERF.md §5), the verify step beside the decode step with the
-   tokens each emits at full acceptance (40 against 8).
+   model at the serve phases' shapes, each through the engine's own step
+   code (serve/graphs.py, input staging included) — a lane decode step, a
+   fused paged decode step and a fused paged verify step (span SPEC_K + 1)
+   over 8 slots at position 256, one 64-token prefill chunk into a batch-1
+   donor, and the draft model's decode step (3e(iii)'s drafter) — captured
+   (one replay a call) and under disable_graphs(), each timed on the host
+   clock (synchronised wall per step) and traced with torch.profiler
+   (device busy time, kernels per step, the kernels that take the time).
+   The device's idle share is 1 - busy / wall. The verify step's tokens at
+   full acceptance are printed beside the decode step's (40 against 8).
+4b. Multi-split step. One captured fused paged decode step at batch 1 over
+   MULTI_SPLIT_FILL prefilled rows, where kernel.plan splits each KV head's
+   keys (it fails on one split), so the merge runs in the step's fixed
+   workspace: its replay's logits against the same step under
+   disable_graphs() (_require_logits; the largest difference printed), and
+   the replay must add the paged launches its capture recorded.
 5. Train. qwen1.5-0.5b at full width (bf16 params, float32 AdamW moments),
    batch 8 x 512 seeded random tokens, through Model.loss (remat) and
    repro_torch.train.
@@ -157,11 +175,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    vocabulary, in the reference's arithmetic too, so two trajectories would
    compare the divergence, not the kernels.
 
-The launch counters are set to 0 before phase 2 and read after phase 3:
+A captured step adds to each counter, on every replay, the launches its
+capture recorded, so the counters read the same with graphs and without.
+The launch counters are set to 0 before phase 2 and read after phase 3
+(both runs of its pair):
 every kernel of that main path must have launched on it (flash attention in
 Model.prefill, rmsnorm and swiglu in every layer of serving). They are set
 to 0 again just before phase 3b and read just after it for the paged path
-(paged attention, rmsnorm and swiglu), just before phase 3e and read just
+(paged attention, rmsnorm and swiglu; both runs of its pair), just before
+phase 3e and read just
 after it for the speculative paged path (the paged row's launches_phase3e;
 each 3e run's own counts are read around it), just before phase 3c and read
 just after it for the app path (range_count, hadd, to_integral), and just
@@ -171,7 +193,8 @@ lse, dq, dk/dv: 48, 24 and 24 per step with remat; rmsnorm 4L + 1 and
 swiglu 2L per step), and around each train CLI run of phase 6 (twice those
 per step: two microbatches). The training kernels' rows carry both paths'
 counts (launches_phase5c, launches_phase6: the 9 uninterrupted steps).
-Launches made to compare a kernel with its plain version are not counted.
+Launches made to compare a kernel with its plain version, and those of
+phases 4 and 4b (measurements), are not counted.
 
 Stdout ends with the card's name and power limit (nvidia-smi), one JSON line
 {"kernels": [...]}, and, last, {"ok": true, "device": {...}}.
@@ -240,6 +263,17 @@ SPEC_REQUESTS, SPEC_PROMPT, SPEC_PATTERN, SPEC_DRAFT_REQUESTS = 16, 256, 16, 8
 # the first generated position, a chunk that ends there; 10 traced steps
 PROFILE_BATCH, PROFILE_FILL, PROFILE_CHUNK, PROFILE_GEN = 8, 256, 64, 64
 PROFILE_STEPS = 10
+# phase 4b: one fused paged decode step at batch 1 over MULTI_SPLIT_FILL
+# prefilled rows, where kernel.plan splits the keys of each KV head
+MULTI_SPLIT_FILL = 4096
+# the report entries two serves of the same requests must share, graphs on
+# and off (counts, not times; report["paged"] and report["spec"] in full)
+SERVE_COUNTED = ("requests", "generated_tokens", "steps", "padded_slot_steps_steady",
+                 "prefill_chunk", "buckets", "prefill_tokens", "slot_reuse", "refused",
+                 "step_log", "outputs", "paged", "spec")
+PER_REQUEST_COUNTED = ("rid", "slot", "prompt_len", "gen_len", "bucket", "tokens_out",
+                       "admitted_at_step", "spec_proposed", "spec_accepted",
+                       "verify_rounds", "preemptions")
 # app phase: the paper's range-count data (bench_fig10_applicability: 2^30
 # uniform floats in [0, 100000), 4 GiB) and 2^28 int32 in [0, 100); the
 # quickstart's range and one that selects about half
@@ -312,19 +346,24 @@ def graph_ms(fn, iters: int, replays: int = 5) -> float:
     captured in one CUDA graph, after a warm-up on the capture stream, and
     CUDA events time ``replays`` replays of it. The device runs the calls
     back to back, so unlike events around a loop of calls the time holds
-    no wait for the host's enqueue."""
+    no wait for the host's enqueue. Kernels that merge splits take a fixed
+    workspace of the graph's own, allocated by the warm-up."""
     import torch
+
+    from repro_torch.kernels.common import fixed_workspaces
 
     s = capture_stream()
     s.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(s):
-        for _ in range(3):
-            fn()
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g, stream=s):
-        for _ in range(iters):
-            fn()
+    # ``spaces`` lives to the last replay: the graph points at its buffers
+    with fixed_workspaces({}) as spaces:
+        with torch.cuda.stream(s):
+            for _ in range(3):
+                fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=s):
+            for _ in range(iters):
+                fn()
     g.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -334,7 +373,7 @@ def graph_ms(fn, iters: int, replays: int = 5) -> float:
         g.replay()
     end.record()
     torch.cuda.synchronize()
-    del g
+    del g, spaces
     return start.elapsed_time(end) / (replays * iters)
 
 
@@ -1143,28 +1182,135 @@ def softmax_cases(dev) -> list[dict]:
 
 
 def counters() -> dict:
-    from repro_torch.kernels.flash_attention.ops import (flash_attention,
-                                                         flash_attention_bwd_dkv,
-                                                         flash_attention_bwd_dq,
-                                                         flash_attention_fwd_lse)
-    from repro_torch.kernels.hadd.ops import hadd
-    from repro_torch.kernels.paged.ops import paged_attention
-    from repro_torch.kernels.range_count.ops import range_count
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm
-    from repro_torch.kernels.softmax.ops import softmax
-    from repro_torch.kernels.swiglu.ops import swiglu
-    from repro_torch.kernels.to_integral.ops import to_integral
+    from repro_torch.kernels import launch_counters
 
-    return {"rmsnorm": rmsnorm, "swiglu": swiglu, "flash_attention": flash_attention,
-            "paged_attention": paged_attention, "range_count": range_count, "hadd": hadd,
-            "to_integral": to_integral, "softmax": softmax,
-            "flash_attention_fwd_lse": flash_attention_fwd_lse,
-            "flash_attention_bwd_dq": flash_attention_bwd_dq,
-            "flash_attention_bwd_dkv": flash_attention_bwd_dkv}
+    return launch_counters()
 
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in counters().items()}
+
+
+def device_busy(prof) -> tuple[float, int]:
+    """(seconds in which the card ran at least one kernel, copy or memset,
+    device records) of a torch.profiler window: the union of the device
+    records' intervals, read from the raw records (no event tree)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e9, len(spans)
+
+
+def traced(fn):
+    """(fn(), trace): fn run synchronised under torch.profiler with device
+    tracing only; the trace holds the host wall of the call, the card's
+    busy seconds in it and its idle share (1 - busy / wall)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, records = device_busy(prof)
+    return result, {"host_wall_s": wall, "device_busy_s": busy,
+                    "device_idle_share": 1.0 - busy / wall, "device_records": records}
+
+
+def serve_counted(report: dict) -> dict:
+    out = {k: report[k] for k in SERVE_COUNTED if k in report}
+    out["per_request"] = [{k: m[k] for k in PER_REQUEST_COUNTED}
+                          for m in report["per_request"]]
+    return out
+
+
+def paired_serve(tag: str, name: str, gpu: str, run, check, graphs_first: bool | None
+                 ) -> dict:
+    """One serve twice on the same requests: with the captured steps (the
+    default) and under disable_graphs(), in the order ``graphs_first`` says
+    (None: the graphs run alone, without its eager twin), each traced
+    (device tracing only) and its launches read around it.
+    ``run()`` serves and returns the report; ``check(report, launched)``
+    returns the problems of one run. Fails unless both pass their checks,
+    the greedy outputs and every counter (SERVE_COUNTED, the per-request
+    counts) are equal, the launch counters are equal, the graphs run
+    captured its steps and the eager run none. Returns per side tokens/s,
+    TTFT, wall and idle share, and the graphs run's report."""
+    from repro_torch.serve import disable_graphs
+
+    sides = {}
+    order = ("graphs",) if graphs_first is None else \
+        ("graphs", "eager") if graphs_first else ("eager", "graphs")
+    for side in order:
+        before = read_counts()
+        with contextlib.nullcontext() if side == "graphs" else disable_graphs():
+            report, trace = traced(run)
+        after = read_counts()
+        launched = {k: after[k] - before[k] for k in after}
+        problems = check(report, launched)
+        if problems:
+            raise AssertionError(f"{tag} {name} ({side}): " + "; ".join(problems))
+        sides[side] = {"report": report, "launched": launched, "trace": trace}
+    g = sides["graphs"]
+    jc_g = g["report"]["jit_cache"]
+    if not jc_g["prefill_chunk"] or not (jc_g["decode"] or jc_g.get("verify")):
+        raise AssertionError(f"{tag} {name}: the graphs run captured {jc_g}")
+    out = {"graphs_first": graphs_first, "launches": g["launched"]}
+    if "eager" not in sides:
+        rep = g["report"]
+        out["graphs"] = {"decode_tokens_per_s": rep["decode_tokens_per_s"],
+                         "ttft_s_mean": rep["ttft_s_mean"], "wall_s": rep["wall_s"],
+                         "jit_cache": jc_g, **g["trace"]}
+        print(f"[{tag}] {name}, graphs only (no eager twin) on {gpu}: "
+              f"{json.dumps(out['graphs'])}", flush=True)
+        return {**out, "report": rep}
+    e = sides["eager"]
+    problems = []
+    differ = sorted(r for r in g["report"]["outputs"]
+                    if g["report"]["outputs"][r] != e["report"]["outputs"].get(r))
+    if differ or set(g["report"]["outputs"]) != set(e["report"]["outputs"]):
+        problems.append(f"greedy outputs differ for {differ}")
+    cg, ce = serve_counted(g["report"]), serve_counted(e["report"])
+    bad = sorted(k for k in cg if cg[k] != ce.get(k))
+    if bad:
+        problems.append(f"counters differ: {bad}")
+    if g["launched"] != e["launched"]:
+        problems.append(f"launches {g['launched']} with graphs, {e['launched']} without")
+    if any(e["report"]["jit_cache"].values()):
+        problems.append(f"the eager run captured {e['report']['jit_cache']}")
+    if problems:
+        raise AssertionError(f"{tag} {name}, graphs vs eager: " + "; ".join(problems))
+    for side, r in sides.items():
+        rep = r["report"]
+        out[side] = {"decode_tokens_per_s": rep["decode_tokens_per_s"],
+                     "ttft_s_mean": rep["ttft_s_mean"], "wall_s": rep["wall_s"],
+                     "jit_cache": rep["jit_cache"], **r["trace"]}
+    out["tokens_per_s_ratio"] = (out["graphs"]["decode_tokens_per_s"]
+                                 / out["eager"]["decode_tokens_per_s"])
+    print(f"[{tag}] {name}, graphs vs eager ({'graphs' if graphs_first else 'eager'} "
+          f"first) on {gpu}: outputs, counters and launches equal; "
+          + "; ".join(f"{side}: decode_tokens_per_s {out[side]['decode_tokens_per_s']:.2f}, "
+                      f"ttft_s_mean {out[side]['ttft_s_mean']:.4f}, wall_s "
+                      f"{out[side]['wall_s']:.3f}, device busy "
+                      f"{out[side]['device_busy_s']:.3f} s of "
+                      f"{out[side]['host_wall_s']:.3f}, idle share "
+                      f"{out[side]['device_idle_share']:.3f}, jit_cache "
+                      f"{out[side]['jit_cache']}, device records "
+                      f"{out[side]['device_records']}" for side in ("graphs", "eager"))
+          + f"; tokens/s graphs / eager {out['tokens_per_s_ratio']:.3f}", flush=True)
+    return {**out, "report": g["report"]}
 
 
 def model_phase(dev, gpu: str) -> tuple[dict, object, dict]:
@@ -1257,18 +1403,19 @@ def model_phase(dev, gpu: str) -> tuple[dict, object, dict]:
     return out, model, params
 
 
-def paged_pools(dev, model, params, batch: int, fill: int, seed: int):
+def paged_pools(dev, model, params, batch: int, fill: int, seed: int,
+                max_len: int = PAGED_MAX_LEN):
     """Fused pools (L, 1, KH, n_pages, PAGE, hd) holding ``batch`` prefilled
     prompts of ``fill`` tokens behind permuted page tables (page 0 is the
-    scratch page), room for the serve phase's max_len; and the (B, P)
-    tables on the device."""
+    scratch page), room for ``max_len`` rows (default the serve phase's);
+    and the (B, P) tables on the device."""
     import torch
 
     cfg = model.cfg
     g = torch.Generator(device=dev).manual_seed(seed)
     tokens = torch.randint(0, cfg.vocab, (batch, fill), generator=g, device=dev)
     _, state = model.prefill(params, {"tokens": tokens}, fill)
-    width = -(-PAGED_MAX_LEN // PAGE)
+    width = -(-max_len // PAGE)
     n_pages = 1 + batch * width
     perm = (torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(seed))
             + 1).view(batch, width)
@@ -1388,33 +1535,33 @@ def paged_model_check(dev, model, params) -> dict:
 
 
 def serve_phase(gpu: str) -> dict:
-    """Phase 3: the serving CLI at full width."""
+    """Phase 3: the serving CLI at full width, with the captured steps and
+    under disable_graphs() (paired_serve, graphs first)."""
     from repro_torch.launch import serve
 
-    before = read_counts()
-    result = serve.main(SERVE_ARGS)
-    after = read_counts()
-    launched = {k: after[k] - before[k] for k in after}
     n_req = int(SERVE_ARGS[SERVE_ARGS.index("--requests") + 1])
     gen = int(SERVE_ARGS[SERVE_ARGS.index("--gen-len") + 1])
-    if result["target"] != "h100":
-        raise AssertionError(f"served with target {result['target']!r}")
-    if result["requests"] != n_req or result["refused"]:
-        raise AssertionError(f"{result['requests']} of {n_req} answered, "
-                             f"refused {result['refused']}")
-    short = {r: n for r, n in result["tokens_per_request"].items() if n != gen}
-    if short or len(result["tokens_per_request"]) != n_req:
-        raise AssertionError(f"requests without {gen} tokens: {short}")
-    if result["padded_slot_steps_steady"] != 0:
-        raise AssertionError(f"padded_slot_steps_steady "
-                             f"{result['padded_slot_steps_steady']}")
-    for name in ("rmsnorm", "swiglu"):
-        if launched[name] <= 0:
-            raise AssertionError(f"{name} kernel never launched while serving")
-    print(f"[phase3] serve {ARCH} on {gpu}: decode_tokens_per_s "
-          f"{result['decode_tokens_per_s']:.1f}, ttft_s_mean {result['ttft_s_mean']:.3f}, "
-          f"launches while serving {launched}", flush=True)
-    return {**result, "launches": launched}
+
+    def check(report, launched):
+        problems = []
+        if report["target"] != "h100":
+            problems.append(f"served with target {report['target']!r}")
+        if report["requests"] != n_req or report["refused"]:
+            problems.append(f"{report['requests']} of {n_req} answered, refused "
+                            f"{report['refused']}")
+        short = {r: len(t) for r, t in report["outputs"].items() if len(t) != gen}
+        if short or len(report["outputs"]) != n_req:
+            problems.append(f"requests without {gen} tokens: {short}")
+        if report["padded_slot_steps_steady"] != 0:
+            problems.append(f"padded_slot_steps_steady {report['padded_slot_steps_steady']}")
+        for name in ("rmsnorm", "swiglu"):
+            if launched[name] <= 0:
+                problems.append(f"{name} kernel never launched while serving")
+        return problems
+
+    out = paired_serve("phase3", f"serve {ARCH}", gpu,
+                       lambda: serve.main(SERVE_ARGS)["report"], check, graphs_first=True)
+    return out
 
 
 def paged_requests(vocab: int, request_cls) -> list:
@@ -1428,43 +1575,72 @@ def paged_requests(vocab: int, request_cls) -> list:
             for i in range(PAGED_REQUESTS)]
 
 
+def paged_check(cfg, n_req: int, speculation=None):
+    """The problems of one fused paged serve (paired_serve's ``check``):
+    decode ran fused with no lane activation, nothing was refused, every
+    request got PAGED_GEN tokens, the paged kernel launched n_layers times
+    per decode or verify step, rmsnorm and swiglu launched, and with
+    ``speculation`` verify steps ran."""
+    def check(report, launched):
+        paged = report["paged"]
+        steps = paged["decode_steps"] + paged["verify_steps"]
+        problems = []
+        if report["target"] != "h100":
+            problems.append(f"served with target {report['target']!r}")
+        if not paged["fused"] or paged["lane_activations"]:
+            problems.append(f"fused {paged['fused']}, lane_activations "
+                            f"{paged['lane_activations']}")
+        if report["refused"] or report["requests"] != n_req:
+            problems.append(f"{report['requests']} of {n_req} answered, refused "
+                            f"{report['refused']}")
+        short = {r: len(t) for r, t in report["outputs"].items() if len(t) != PAGED_GEN}
+        if short or len(report["outputs"]) != n_req:
+            problems.append(f"requests without {PAGED_GEN} tokens: {short}")
+        if launched["paged_attention"] != cfg.n_layers * steps:
+            problems.append(f"paged kernel launched {launched['paged_attention']} times in "
+                            f"{steps} decode or verify steps of {cfg.n_layers} layers")
+        for name in ("rmsnorm", "swiglu"):
+            if launched[name] <= 0:
+                problems.append(f"{name} kernel never launched while serving paged")
+        if speculation is not None and not report["spec"]["verify_steps"]:
+            problems.append("no verify step ran")
+        return problems
+    return check
+
+
 def paged_serve_phase(dev, params, gpu: str) -> dict:
-    """Phase 3b: fused paged serving at full width; the counters are set to
-    0 just before the paged run and read just after it."""
+    """Phase 3b: fused paged serving at full width, with the captured steps
+    and under disable_graphs() (paired_serve, eager first); the counters are
+    set to 0 just before the pair and read just after it."""
     from repro_torch.configs import get_config
     from repro_torch.serve import PagedConfig, Request, ServeEngine
 
     cfg = get_config(ARCH)
     kw = dict(batch=PAGED_BATCH, max_len=PAGED_MAX_LEN, device=dev, params=params,
               prefill_chunk=PAGED_CHUNK)
-    engine = ServeEngine(cfg, paged=PagedConfig(page_size=PAGE), **kw)
     for fn in counters().values():
         fn.launches = 0
-    report = engine.run(paged_requests(cfg.vocab, Request))
+
+    def run():
+        engine = ServeEngine(cfg, paged=PagedConfig(page_size=PAGE), **kw)
+        requests = paged_requests(cfg.vocab, Request)
+        return engine.run(requests)
+
+    pair = paired_serve("phase3b", f"paged serve {ARCH}", gpu, run,
+                        paged_check(cfg, PAGED_REQUESTS), graphs_first=False)
     launched = read_counts()
+    # where the host's wall goes once the steps are captured: one more
+    # graphs run under cProfile (its launches are not counted)
+    pair["host_top_functions_ms"] = _host_top_functions(run, 15, calls=1)
+    for name, fn in counters().items():
+        fn.launches = launched[name]
+    print(f"[phase3b] paged serve with graphs on {gpu}, host time by Python function "
+          f"(cProfile, ms in one serve): {json.dumps(pair['host_top_functions_ms'])}",
+          flush=True)
+    report = pair.pop("report")
     paged = report["paged"]
-    problems = []
-    if report["target"] != "h100":
-        problems.append(f"served with target {report['target']!r}")
-    if not paged["fused"] or paged["lane_activations"]:
-        problems.append(f"fused {paged['fused']}, lane_activations "
-                        f"{paged['lane_activations']}")
     if paged["prefix_hits"] <= 0:
-        problems.append("no prefix hit")
-    if report["refused"] or report["requests"] != PAGED_REQUESTS:
-        problems.append(f"{report['requests']} of {PAGED_REQUESTS} answered, refused "
-                        f"{report['refused']}")
-    short = {r: len(t) for r, t in report["outputs"].items() if len(t) != PAGED_GEN}
-    if short or len(report["outputs"]) != PAGED_REQUESTS:
-        problems.append(f"requests without {PAGED_GEN} tokens: {short}")
-    if launched["paged_attention"] != cfg.n_layers * paged["decode_steps"]:
-        problems.append(f"paged kernel launched {launched['paged_attention']} times in "
-                        f"{paged['decode_steps']} decode steps of {cfg.n_layers} layers")
-    for name in ("rmsnorm", "swiglu"):
-        if launched[name] <= 0:
-            problems.append(f"{name} kernel never launched while serving paged")
-    if problems:
-        raise AssertionError("paged serve: " + "; ".join(problems))
+        raise AssertionError("paged serve: no prefix hit")
     # information, not a bar: the same requests through the lane-mode engine
     lane = ServeEngine(cfg, **kw).run(paged_requests(cfg.vocab, Request))
     same = sum(report["outputs"][r] == lane["outputs"][r] for r in report["outputs"])
@@ -1477,15 +1653,15 @@ def paged_serve_phase(dev, params, gpu: str) -> dict:
     out = {"decode_tokens_per_s": report["decode_tokens_per_s"],
            "ttft_s_mean": report["ttft_s_mean"], "wall_s": report["wall_s"],
            "steps": report["steps"], "launches": launched, "paged": paged,
-           "prefill_tokens": report["prefill_tokens"],
+           "prefill_tokens": report["prefill_tokens"], "pair": pair,
            "lane_decode_tokens_per_s": lane["decode_tokens_per_s"],
            "lane_ttft_s_mean": lane["ttft_s_mean"],
            "lane_prefill_tokens": lane["prefill_tokens"],
            "share_equal_to_lane": same / PAGED_REQUESTS,
            "first_differing_token": first_diff, "outputs": report["outputs"]}
-    print(f"[phase3b] paged serve {ARCH} on {gpu}: decode_tokens_per_s "
+    print(f"[phase3b] paged serve {ARCH} on {gpu} (graphs): decode_tokens_per_s "
           f"{out['decode_tokens_per_s']:.1f}, ttft_s_mean {out['ttft_s_mean']:.3f}, "
-          f"prefill_tokens {out['prefill_tokens']}, launches {launched}, paged "
+          f"prefill_tokens {out['prefill_tokens']}, launches of the pair {launched}, paged "
           f"{json.dumps(paged)}; lane-mode run on the same requests "
           f"{out['lane_decode_tokens_per_s']:.1f} tokens/s, ttft "
           f"{out['lane_ttft_s_mean']:.3f} s, prefill_tokens {out['lane_prefill_tokens']}, "
@@ -1510,16 +1686,18 @@ def spec_requests(vocab: int, request_cls, n: int) -> list:
 def spec_serve_phase(dev, params, gpu: str, paged_outputs: dict) -> dict:
     """Phase 3e: speculative fused paged serving at full width, phase 2's
     params, 3b's engine shape (page 64, 8 slots, max_len 320, 64-token
-    chunks), greedy. Each run's launches are read around it: the paged
-    kernel must launch n_layers times per decode or verify step, and no run
-    may activate a lane or refuse a request, and every request gets
-    PAGED_GEN tokens.
+    chunks), greedy. Each run is a paired_serve (graphs on and off, the
+    order alternating from run to run; (i) runs with graphs alone, its eager
+    twin dropped to keep the script's time) under paged_check: the paged kernel
+    launches n_layers times per decode or verify step, no run activates a
+    lane or refuses a request, every request gets PAGED_GEN tokens.
     (i) fixed depth SPEC_K on 3b's requests: verify steps must run; the
         share of requests whose tokens equal 3b's is information only (bf16
         may flip a near-tied argmax).
     (ii) the cost-priced depth with the n-gram drafter on SPEC_REQUESTS
-        pattern prompts, beside the same requests without speculation:
-        verify steps must run.
+        pattern prompts, beside the same requests without speculation (its
+        own pair): verify steps must run. The two graphs runs, in one call,
+        give what speculation buys end to end.
     (iii) the draft-model drafter, qwen1.5-0.5b given the target's own
         weights (``draft_params``; the engine's default would draw them from
         seed + 2), at fixed depth SPEC_K on SPEC_DRAFT_REQUESTS of (ii)'s
@@ -1533,37 +1711,21 @@ def spec_serve_phase(dev, params, gpu: str, paged_outputs: dict) -> dict:
               prefill_chunk=PAGED_CHUNK, paged=PagedConfig(page_size=PAGE))
     t_phase = time.perf_counter()
 
-    def serve(name, requests, speculation, n_req, draft_params=None):
-        engine = ServeEngine(cfg, speculation=speculation, draft_params=draft_params, **kw)
-        before = read_counts()
-        report = engine.run(requests)
-        after = read_counts()
-        launched = {k: after[k] - before[k] for k in after}
+    def serve(name, requests, speculation, n_req, graphs_first, draft_params=None):
+        def run():
+            engine = ServeEngine(cfg, speculation=speculation, draft_params=draft_params,
+                                 **kw)
+            return engine.run(requests())
+
+        pair = paired_serve("phase3e", name, gpu, run,
+                            paged_check(cfg, n_req, speculation), graphs_first)
+        report = pair.pop("report")
         paged, spec = report["paged"], report.get("spec")
-        steps = paged["decode_steps"] + paged["verify_steps"]
-        problems = []
-        if report["target"] != "h100":
-            problems.append(f"served with target {report['target']!r}")
-        if not paged["fused"] or paged["lane_activations"]:
-            problems.append(f"fused {paged['fused']}, lane_activations "
-                            f"{paged['lane_activations']}")
-        if report["refused"] or report["requests"] != n_req:
-            problems.append(f"{report['requests']} of {n_req} answered, refused "
-                            f"{report['refused']}")
-        short = {r: len(t) for r, t in report["outputs"].items() if len(t) != PAGED_GEN}
-        if short or len(report["outputs"]) != n_req:
-            problems.append(f"requests without {PAGED_GEN} tokens: {short}")
-        if launched["paged_attention"] != cfg.n_layers * steps:
-            problems.append(f"paged kernel launched {launched['paged_attention']} times in "
-                            f"{steps} decode or verify steps of {cfg.n_layers} layers")
-        if speculation is not None and not spec["verify_steps"]:
-            problems.append("no verify step ran")
-        if problems:
-            raise AssertionError(f"speculative paged serve {name}: " + "; ".join(problems))
         r = {"decode_tokens_per_s": report["decode_tokens_per_s"],
              "ttft_s_mean": report["ttft_s_mean"], "wall_s": report["wall_s"],
              "steps": report["steps"], "decode_steps": paged["decode_steps"],
-             "verify_steps": paged["verify_steps"], "launches": launched}
+             "verify_steps": paged["verify_steps"], "launches": pair["launches"],
+             "pair": pair}
         if spec is not None:
             r["spec"] = {k: spec[k] for k in (
                 "drafter", "k_max", "drafted_tokens", "accepted_tokens", "accepted_rate",
@@ -1571,36 +1733,48 @@ def spec_serve_phase(dev, params, gpu: str, paged_outputs: dict) -> dict:
                 "slot_steps_per_emitted_token")}
             r["depth_mean"] = spec["drafted_tokens"] / max(
                 sum(m["verify_rounds"] for m in report["per_request"]), 1)
-        print(f"[phase3e] {name} on {gpu}: {json.dumps(r)}", flush=True)
+        print(f"[phase3e] {name} on {gpu} (graphs): "
+              f"{json.dumps({k: v for k, v in r.items() if k != 'pair'})}", flush=True)
         return r, report["outputs"]
 
     out = {}
     out["i"], outputs = serve("(i) fixed depth, 3b's requests",
-                              paged_requests(cfg.vocab, Request),
-                              SpeculationConfig(fixed_k=SPEC_K), PAGED_REQUESTS)
+                              lambda: paged_requests(cfg.vocab, Request),
+                              SpeculationConfig(fixed_k=SPEC_K), PAGED_REQUESTS, None)
     same = sum(outputs[r] == paged_outputs[r] for r in outputs)
     out["i"]["share_equal_to_3b"] = same / PAGED_REQUESTS
     print(f"[phase3e] (i) requests with tokens equal to 3b's: {same}/{PAGED_REQUESTS} "
           f"(information only)", flush=True)
     out["ii"], _ = serve("(ii) cost-priced depth, n-gram drafter",
-                         spec_requests(cfg.vocab, Request, SPEC_REQUESTS),
-                         SpeculationConfig(), SPEC_REQUESTS)
+                         lambda: spec_requests(cfg.vocab, Request, SPEC_REQUESTS),
+                         SpeculationConfig(), SPEC_REQUESTS, False)
     out["ii_plain"], _ = serve("(ii) the same requests without speculation",
-                               spec_requests(cfg.vocab, Request, SPEC_REQUESTS), None,
-                               SPEC_REQUESTS)
+                               lambda: spec_requests(cfg.vocab, Request, SPEC_REQUESTS),
+                               None, SPEC_REQUESTS, True)
     out["iii"], _ = serve("(iii) draft-model drafter, the target's weights",
-                          spec_requests(cfg.vocab, Request, SPEC_DRAFT_REQUESTS),
+                          lambda: spec_requests(cfg.vocab, Request, SPEC_DRAFT_REQUESTS),
                           SpeculationConfig(drafter="draft_model", draft_arch=ARCH,
                                             fixed_k=SPEC_K),
-                          SPEC_DRAFT_REQUESTS, draft_params=params)
+                          SPEC_DRAFT_REQUESTS, False, draft_params=params)
     if out["iii"]["spec"]["accepted_tokens"] <= 0:
         raise AssertionError("speculative paged serve (iii): the draft model's drafts "
                              "were never accepted")
     out["seconds"] = time.perf_counter() - t_phase
-    print(f"[phase3e] speculative paged serve {ARCH} on {gpu}: decode_tokens_per_s (i) "
-          f"{out['i']['decode_tokens_per_s']:.1f}, (ii) "
-          f"{out['ii']['decode_tokens_per_s']:.1f} vs {out['ii_plain']['decode_tokens_per_s']:.1f}"
-          f" without speculation, (iii) {out['iii']['decode_tokens_per_s']:.1f}; accepted "
+    ii, plain = out["ii"]["pair"], out["ii_plain"]["pair"]
+    out["speculation_speedup"] = {
+        side: ii[side]["decode_tokens_per_s"] / plain[side]["decode_tokens_per_s"]
+        for side in ("graphs", "eager")}
+    print(f"[phase3e] speculative paged serve {ARCH} on {gpu}: decode_tokens_per_s "
+          f"graphs / eager (i) {out['i']['pair']['graphs']['decode_tokens_per_s']:.1f} / "
+          f"(no twin), (ii) "
+          f"{ii['graphs']['decode_tokens_per_s']:.1f} / "
+          f"{ii['eager']['decode_tokens_per_s']:.1f} vs "
+          f"{plain['graphs']['decode_tokens_per_s']:.1f} / "
+          f"{plain['eager']['decode_tokens_per_s']:.1f} without speculation "
+          f"(speculation x{out['speculation_speedup']['graphs']:.3f} graphs, "
+          f"x{out['speculation_speedup']['eager']:.3f} eager), (iii) "
+          f"{out['iii']['pair']['graphs']['decode_tokens_per_s']:.1f} / "
+          f"{out['iii']['pair']['eager']['decode_tokens_per_s']:.1f}; accepted "
           f"rate (i) {out['i']['spec']['accepted_rate']:.3f}, (ii) "
           f"{out['ii']['spec']['accepted_rate']:.3f}, (iii) "
           f"{out['iii']['spec']['accepted_rate']:.3f}; phase {out['seconds']:.1f} s",
@@ -1694,9 +1868,9 @@ def suite_phase(gpu: str) -> dict:
     return out
 
 
-def _host_top_functions(fn, n: int = 10) -> dict:
-    """Host time by Python function over PROFILE_STEPS calls, ms per call:
-    the top ``n`` by cProfile self time and by cumulative time (where a
+def _host_top_functions(fn, n: int = 10, calls: int = PROFILE_STEPS) -> dict:
+    """Host time by Python function over ``calls`` calls, ms per call: the
+    top ``n`` by cProfile self time and by cumulative time (where a
     host-bound step spends its wall)."""
     import cProfile
     import pstats
@@ -1705,7 +1879,7 @@ def _host_top_functions(fn, n: int = 10) -> dict:
 
     prof = cProfile.Profile()
     prof.enable()
-    for _ in range(PROFILE_STEPS):
+    for _ in range(calls):
         fn()
     torch.cuda.synchronize()
     prof.disable()
@@ -1713,17 +1887,19 @@ def _host_top_functions(fn, n: int = 10) -> dict:
 
     def top(col):
         rows = sorted(stats.items(), key=lambda kv: -kv[1][col])[:n]
-        return {f"{Path(file).name}:{line}({name}) x{v[1] / PROFILE_STEPS:g}":
-                v[col] * 1e3 / PROFILE_STEPS for (file, line, name), v in rows}
+        return {f"{Path(file).name}:{line}({name}) x{v[1] / calls:g}":
+                v[col] * 1e3 / calls for (file, line, name), v in rows}
 
     return {"self": top(2), "cumulative": top(3)}
 
 
 def _profile(fn) -> dict:
     """Host wall per call (synchronised), host time by Python function and,
-    from one profiled window of PROFILE_STEPS calls, device busy time,
-    kernel launches and top kernels."""
+    from one window of PROFILE_STEPS calls under device tracing (CUDA
+    activity only, read from the raw records), device busy time, kernels
+    per call and top kernels."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -1734,16 +1910,17 @@ def _profile(fn) -> dict:
         fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILE_STEPS):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]
+    busy_us = sum(e.duration_ns() for e in kernels) / 1e3
     by_name: dict[str, float] = {}       # kernel name (first 80 chars) -> us
     for e in kernels:
-        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.time_range.elapsed_us()
+        name = e.name()[:80]
+        by_name[name] = by_name.get(name, 0.0) + e.duration_ns() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     out = {"wall_ms": wall_ms, "launches": len(kernels) / PROFILE_STEPS,
            "host_top_functions_ms": _host_top_functions(fn)}
@@ -1757,60 +1934,142 @@ def _profile(fn) -> dict:
 
 
 def profile_phase(dev, model, params, gpu: str) -> dict:
-    """Phase 4: where the time of one serving step goes, per step kind."""
+    """Phase 4: where the time of one serving step goes, per step kind, each
+    step through the engine's own code (serve/graphs.py: its input staging
+    included), captured (one replay a call) and eager (disable_graphs())."""
+    import numpy as np
     import torch
+
+    from repro_torch.serve import DraftModelDrafter, StepGraphs, disable_graphs
+    from repro_torch.serve.graphs import run_model_step, run_prefill_chunk
 
     cfg = model.cfg
     max_len = PROFILE_FILL + PROFILE_GEN          # the engine's slot-table length
-    g = torch.Generator(device=dev).manual_seed(2)
+    rng = np.random.default_rng(2)
     state = model.init_decode_state(PROFILE_BATCH, max_len)
     donor = model.init_decode_state(1, max_len)
-    tokens = torch.randint(0, cfg.vocab, (PROFILE_BATCH, 1), generator=g, device=dev)
-    chunk = torch.randint(0, cfg.vocab, (1, PROFILE_CHUNK), generator=g, device=dev)
-    span = torch.randint(0, cfg.vocab, (PROFILE_BATCH, SPEC_K + 1), generator=g, device=dev)
-    pos = torch.full((PROFILE_BATCH,), PROFILE_FILL, dtype=torch.int64)
+    tokens = rng.integers(0, cfg.vocab, (PROFILE_BATCH, 1))
+    chunk = rng.integers(0, cfg.vocab, (1, PROFILE_CHUNK))
+    span = rng.integers(0, cfg.vocab, (PROFILE_BATCH, SPEC_K + 1))
+    pos = np.full(PROFILE_BATCH, PROFILE_FILL, np.int64)
     start = PROFILE_FILL - PROFILE_CHUNK
     with torch.inference_mode():
         pools, tables = paged_pools(dev, model, params, PROFILE_BATCH, PROFILE_FILL,
                                     seed=6)
-        pos_dev = pos.to(dev)
-        out = {
-            "decode_step": {"batch": PROFILE_BATCH, "pos": PROFILE_FILL,
-                            "max_len": max_len,
-                            **_profile(lambda: model.decode_step(params, state,
-                                                                 tokens, pos))},
-            "decode_step_paged": {"batch": PROFILE_BATCH, "pos": PROFILE_FILL,
-                                  "page": PAGE, "table_width": tables.shape[1],
-                                  **_profile(lambda: model.decode_step_paged(
-                                      params, {}, pools, tables, tokens, pos_dev))},
-            "verify_step_paged": {"batch": PROFILE_BATCH, "pos": PROFILE_FILL,
-                                  "span": SPEC_K + 1, "page": PAGE,
-                                  "table_width": tables.shape[1],
-                                  # tokens a step emits when every draft is
-                                  # accepted, against a decode step's
-                                  "emitted_at_full_acceptance": PROFILE_BATCH * (SPEC_K + 1),
-                                  "decode_emits": PROFILE_BATCH,
-                                  **_profile(lambda: model.verify_step_paged(
-                                      params, {}, pools, tables, span, pos_dev))},
-            "prefill_chunk": {"chunk": PROFILE_CHUNK, "pos": start,
-                              **_profile(lambda: model.prefill_chunk(params, donor,
-                                                                     chunk, start))},
+        tables = tables.cpu().numpy()
+        lane, fused = StepGraphs(dev), StepGraphs(dev)
+        drafter = DraftModelDrafter(cfg, cfg, batch=PROFILE_BATCH,
+                                    state_len=max_len + SPEC_K, device=dev, params=params)
+        steps = {
+            "decode_step": ({"batch": PROFILE_BATCH, "pos": PROFILE_FILL,
+                             "max_len": max_len},
+                            lambda: run_model_step(lane, "decode", model, params, state,
+                                                   tokens, pos)),
+            "decode_step_paged": ({"batch": PROFILE_BATCH, "pos": PROFILE_FILL, "page": PAGE,
+                                   "table_width": tables.shape[1]},
+                                  lambda: run_model_step(fused, "decode", model, params, {},
+                                                         tokens, pos, pools=pools,
+                                                         tables=tables)),
+            "verify_step_paged": ({"batch": PROFILE_BATCH, "pos": PROFILE_FILL,
+                                   "span": SPEC_K + 1, "page": PAGE,
+                                   "table_width": tables.shape[1],
+                                   # tokens a step emits when every draft is
+                                   # accepted, against a decode step's
+                                   "emitted_at_full_acceptance": PROFILE_BATCH * (SPEC_K + 1),
+                                   "decode_emits": PROFILE_BATCH},
+                                  lambda: run_model_step(fused, "verify", model, params, {},
+                                                         span, pos, pools=pools,
+                                                         tables=tables)),
+            "prefill_chunk": ({"chunk": PROFILE_CHUNK, "pos": start},
+                              lambda: run_prefill_chunk(lane, model, params, donor, chunk,
+                                                        start)),
+            # the draft model's step of 3e(iii): a lane decode step and the
+            # greedy tokens read back to the host
+            "draft_decode_step": ({"batch": PROFILE_BATCH, "pos": PROFILE_FILL,
+                                   "state_len": max_len + SPEC_K},
+                                  lambda: drafter._feed(tokens[:, 0], pos)),
         }
+        out = {}
+        for kind, (info, fn) in steps.items():
+            def eager(fn=fn):
+                with disable_graphs():
+                    return fn()
+            out[kind] = {**info, "captured": _profile(fn), "eager": _profile(eager)}
+    out["jit_cache"] = {"lane": lane.sizes(("prefill_chunk", "decode")),
+                        "fused": fused.sizes(("decode", "verify")),
+                        "drafter": drafter.graphs.sizes(("decode",))}
     for kind, r in out.items():
         print(f"[phase4] {kind} on {gpu}: {json.dumps(r)}", flush=True)
-    paged, verify = out["decode_step_paged"], out["verify_step_paged"]
-    print(f"[phase4] fused paged decode step: device busy {paged['device_busy_ms']} ms, "
-          f"launches {paged['launches']}, host wall {paged['wall_ms']:.2f} ms on {gpu}; the "
-          f"one-block-per-sequence kernel's step read 3.64 ms and 1302 launches by the same "
-          f"method (PERF.md §5)", flush=True)
-    print(f"[phase4] fused paged verify step (span {SPEC_K + 1}): device busy "
-          f"{verify['device_busy_ms']} ms, launches {verify['launches']}, host wall "
-          f"{verify['wall_ms']:.2f} ms on {gpu}, beside the decode step's "
-          f"{paged['device_busy_ms']} ms, {paged['launches']} launches, "
-          f"{paged['wall_ms']:.2f} ms; tokens a step emits at full acceptance "
-          f"{verify['emitted_at_full_acceptance']} against decode's {verify['decode_emits']}",
-          flush=True)
+    for kind in steps:
+        c, e = out[kind]["captured"], out[kind]["eager"]
+        print(f"[phase4] {kind} on {gpu}, captured vs eager: host wall {c['wall_ms']:.3f} vs "
+              f"{e['wall_ms']:.3f} ms, device busy {c['device_busy_ms']} vs "
+              f"{e['device_busy_ms']} ms, idle share {c.get('device_idle_share')} vs "
+              f"{e.get('device_idle_share')}, kernels per step {c['launches']} vs "
+              f"{e['launches']}", flush=True)
     return out
+
+
+def multi_split_phase(dev, model, params, gpu: str) -> dict:
+    """Phase 4b: one captured fused paged decode step at batch 1 over
+    MULTI_SPLIT_FILL prefilled rows, where kernel.plan splits the keys of
+    each KV head (fails if it plans one split), so the step's fixed
+    workspace carries the merge. The step runs twice (the capture, then a
+    replay) on one copy of the pools and once under disable_graphs() on
+    another: the replay's logits must pass _require_logits against the eager
+    step's, and the replay must add the paged launches its capture
+    recorded."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.common import sm_count
+    from repro_torch.kernels.paged import kernel as paged_kernel
+    from repro_torch.serve import StepGraphs, disable_graphs
+    from repro_torch.serve.graphs import run_model_step
+
+    cfg = model.cfg
+    fill = MULTI_SPLIT_FILL
+    with torch.inference_mode():
+        pools, tables = paged_pools(dev, model, params, 1, fill, seed=11,
+                                    max_len=fill + PAGE)
+        tables = tables.cpu().numpy()
+        splits, pps = paged_kernel.plan(1, cfg.n_kv_heads, tables.shape[1], PAGE,
+                                        sm_count(dev))
+        if splits < 2:
+            raise AssertionError(f"phase 4b: kernel.plan gives {splits} split(s) at batch 1, "
+                                 f"kv_len {fill + 1}, width {tables.shape[1]}")
+        tokens = np.random.default_rng(12).integers(0, cfg.vocab, (1, 1))
+        pos = np.full(1, fill, np.int64)
+        graphs = StepGraphs(dev)
+        captured = {n: t.clone() for n, t in pools.items()}
+        before = read_counts()["paged_attention"]
+
+        def step(g, p):
+            return run_model_step(g, "decode", model, params, {}, tokens, pos, pools=p,
+                                  tables=tables)
+        step(graphs, captured)
+        replayed = step(graphs, captured).clone()
+        launched = read_counts()["paged_attention"] - before
+        with disable_graphs():
+            eager = step(StepGraphs(dev), pools)
+        entry = graphs.steps["decode", 1]
+    r = {"batch": 1, "kv_len": fill + 1, "table_width": int(tables.shape[1]),
+         "splits": splits, "pps": pps, "replays": entry.replays,
+         "launches_per_replay": entry.launches, "paged_launches": launched,
+         "workspace_words": entry.workspaces["paged_attention"][0].numel(),
+         **_logits_check(replayed, eager, cfg.vocab),
+         "max_abs_diff_vs_eager": (replayed.float() - eager.float()).abs().max().item()}
+    _require_logits("phase 4b: the captured multi-split step vs its eager twin", r)
+    if entry.replays != 1 or launched != 2 * cfg.n_layers \
+            or entry.launches.get("paged_attention") != cfg.n_layers:
+        raise AssertionError(f"phase 4b: {entry.replays} replays, {launched} paged launches "
+                             f"(recorded {entry.launches}); want 1 replay and "
+                             f"{2 * cfg.n_layers} launches")
+    print(f"[phase4b] captured fused paged decode step, batch 1 at kv_len {fill + 1} on "
+          f"{gpu}: plan {splits} splits x {pps} entries, replay vs eager max abs diff "
+          f"{r['max_abs_diff_vs_eager']:.3g}, rel L2 {r['logits_rel_l2']:.3g}; {json.dumps(r)}",
+          flush=True)
+    return r
 
 # (B, H, KH, Sq, Sk, D, dtype, causal, kv_len, main)
 TRAIN_FA_CASES = [
@@ -2427,7 +2686,11 @@ def main() -> int:
         if row["name"] == "paged_attention":
             # the speculative paged path (3e): decode and verify steps
             row["launches_phase3e"] = spec["launches"]["paged_attention"]
+    saved = read_counts()
     profile_phase(dev, lm, params, gpu)
+    multi_split_phase(dev, lm, params, gpu)
+    for name, fn in counters().items():       # measurements, not a main path
+        fn.launches = saved[name]
     train = train_phase(dev, gpu)
     sources = {"flash_attention_fwd_lse": ("flash_attention.cu", "kernel.py:197"),
                "flash_attention_bwd_dq": ("flash_attention_bwd.cu", "kernel.py:300"),
@@ -2460,8 +2723,9 @@ def main() -> int:
           f"({suite['passed']}/{suite['tests']} passed); per prefill "
           f"{model['prefill_launches']}, per decode step {model['decode_step_launches']}, "
           f"per prefill chunk {model['prefill_chunk_launches']}; "
-          f"serve decode_tokens_per_s {serve['decode_tokens_per_s']:.1f} ttft_s_mean "
-          f"{serve['ttft_s_mean']:.3f}, paged serve decode_tokens_per_s "
+          f"serve decode_tokens_per_s {serve['graphs']['decode_tokens_per_s']:.1f} "
+          f"(eager {serve['eager']['decode_tokens_per_s']:.1f}) ttft_s_mean "
+          f"{serve['graphs']['ttft_s_mean']:.3f}, paged serve decode_tokens_per_s "
           f"{paged['decode_tokens_per_s']:.1f} ttft_s_mean {paged['ttft_s_mean']:.3f}, "
           f"speculative paged path {spec['launches']} ({spec['seconds']:.1f} s), "
           f"train launches {train['launches']}, train losses "

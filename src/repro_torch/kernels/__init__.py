@@ -14,3 +14,25 @@ Each package mirrors the JAX package's split:
 Neither Triton nor the CUDA toolkit is imported when a module is imported:
 the host that runs the tests has neither.
 """
+
+
+def launch_counters() -> dict:
+    """{name: wrapper} of every kernel wrapper that counts its launches in
+    ``wrapper.launches`` (imported here, not when this package is)."""
+    from .flash_attention.ops import (flash_attention, flash_attention_bwd_dkv,
+                                      flash_attention_bwd_dq, flash_attention_fwd_lse)
+    from .hadd.ops import hadd
+    from .paged.ops import paged_attention
+    from .range_count.ops import range_count
+    from .rmsnorm.ops import rmsnorm
+    from .softmax.ops import softmax
+    from .swiglu.ops import swiglu
+    from .to_integral.ops import to_integral
+
+    return {"rmsnorm": rmsnorm, "swiglu": swiglu, "flash_attention": flash_attention,
+            "paged_attention": paged_attention, "range_count": range_count, "hadd": hadd,
+            "to_integral": to_integral, "softmax": softmax,
+            "flash_attention_fwd_lse": flash_attention_fwd_lse,
+            "flash_attention_bwd_dq": flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": flash_attention_bwd_dkv}
+

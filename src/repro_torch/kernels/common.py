@@ -13,10 +13,13 @@ half-written file. A failed build raises with the compiler's output; nothing
 falls back to a plain version.
 
 Kernels that finish a reduction across blocks in the same launch take a
-scratch buffer and a ticket array from :func:`workspace`."""
+scratch buffer and a ticket array from :func:`workspace`: cached per stream
+for eager calls, or, inside :func:`fixed_workspaces`, the fixed buffers of
+one captured step (``serve/graphs.py``)."""
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -33,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LOADED: dict[Path, ctypes.CDLL] = {}
 _WORKSPACES: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+_FIXED: list[dict] = []         # fixed_workspaces() stack, innermost last
 
 
 def use_checkout_triton_cache() -> None:
@@ -129,19 +133,62 @@ def load_shared_library(name: str, sources: list[Path],
     return _LOADED[path]
 
 
+def allocate_workspace(device: torch.device | str, words: int,
+                       tickets: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A workspace of ``words`` 4-byte words and ``tickets`` zeroed int32
+    counters on ``device``, for :func:`fixed_workspaces`."""
+    return (torch.empty(max(int(words), 1), dtype=torch.float32, device=device),
+            torch.zeros(max(int(tickets), 1), dtype=torch.int32, device=device))
+
+
+@contextlib.contextmanager
+def fixed_workspaces(spaces: dict):
+    """Hand the kernels launched inside the fixed workspaces of one captured
+    step: ``spaces`` maps a kernel name to its (scratch, tickets). A kernel
+    whose name is missing gets one allocated into ``spaces`` at its first
+    request, which must come before capture (a warm-up call). A buffer is
+    never grown or replaced, so a graph that captured it keeps pointing at
+    live memory; a request it cannot hold raises."""
+    _FIXED.append(spaces)
+    try:
+        yield spaces
+    finally:
+        _FIXED.pop()
+
+
 def workspace(name: str, device: torch.device, words: int,
               tickets: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Scratch for kernel ``name`` on ``device`` and the current stream: at
-    least ``words`` 4-byte words (float32 storage, any 4-byte type to the
-    kernel) and ``tickets`` int32 counters, zeroed when allocated. Cached per
-    (kernel, device, stream) and grown, never shrunk, so repeated calls at
-    one shape allocate nothing; sized from shapes only, never from data on
-    the device. A kernel that takes tickets leaves every one at 0 when it
-    finishes. Not safe under CUDA graphs: growing frees the old buffer that
-    a graph captured earlier still points at, and a graph replayed on
-    another stream shares its scratch and tickets with eager calls on its
-    capture stream. A captured step needs a fixed workspace of its own
-    (ROADMAP queue 1, item 4)."""
+    """Scratch for kernel ``name`` on ``device``: at least ``words`` 4-byte
+    words (float32 storage, any 4-byte type to the kernel) and ``tickets``
+    int32 counters, zeroed when allocated; sized from shapes only, never
+    from data on the device. A kernel that takes tickets leaves every one
+    at 0 when it finishes.
+
+    Inside :func:`fixed_workspaces` it is the captured step's own buffer.
+    Otherwise it is cached per (kernel, device, stream) and grown, never
+    shrunk, so repeated eager calls at one shape allocate nothing. Growing
+    frees the old buffer, which a graph could still point at, and a cached
+    buffer is shared by every call on its stream: so outside a fixed
+    workspace this raises while the current stream is capturing."""
+    capturing = device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+    if _FIXED:
+        spaces = _FIXED[-1]
+        if name not in spaces:
+            if capturing:
+                raise RuntimeError(f"workspace({name!r}) first requested while capturing: "
+                                   f"a captured step's workspace is allocated before "
+                                   f"capture (warm-up, or sized from its shapes)")
+            spaces[name] = allocate_workspace(device, words, tickets)
+        ws, ct = spaces[name]
+        if ws.numel() < words or ct.numel() < tickets or ws.device.type != device.type:
+            raise ValueError(f"fixed workspace of {name!r} holds {ws.numel()} words and "
+                             f"{ct.numel()} tickets on {ws.device}; the launch needs "
+                             f"{words} and {tickets} on {device}")
+        return ws, ct
+    if capturing:
+        raise RuntimeError(f"workspace({name!r}) called while the stream is capturing: "
+                           f"hand the captured kernels a fixed workspace "
+                           f"(common.fixed_workspaces)")
     key = (name, device.index, torch.cuda.current_stream(device).cuda_stream)
     ws, ct = _WORKSPACES.get(key, (None, None))
     if ws is None or ws.numel() < words:

@@ -13,8 +13,9 @@ a device-side assert (reported at the next synchronise).
 One launch per call: the keys of each (sequence, KV head) are split over
 ``splits`` blocks of ``pps`` table entries each (:func:`plan`), and the last
 block of each merges the splits inside the same launch, through a workspace
-cached per device and stream (``common.workspace``; not yet fit for capture
-in a CUDA graph that outlives a larger call, see its docstring).
+(``common.workspace``: cached per device and stream for eager calls; a
+captured step hands it a fixed one sized by :func:`workspace_size` for
+MAX_SPLITS, so any plan fits).
 """
 
 from __future__ import annotations
@@ -59,6 +60,16 @@ def plan(b: int, kh: int, table_width: int, page: int, sms: int) -> tuple[int, i
     return cdiv(table_width, pps), pps
 
 
+def workspace_size(b: int, h: int, kh: int, sq: int, d: int,
+                   splits: int = MAX_SPLITS) -> tuple[int, int]:
+    """(scratch words, tickets) of a launch on q (b, h, sq, d) over ``kh`` KV
+    heads with ``splits`` splits: each split of each (sequence, KV head)
+    leaves acc, m and l of its group * sq rows, D + 4 words a row (the
+    kernel's ``part_floats``); one ticket per (sequence, KV head). The
+    default covers every plan."""
+    return b * kh * splits * (h // kh) * sq * (d + 4), b * kh
+
+
 def bind(lib: ctypes.CDLL):
     """The C function of a built library, with its signature."""
     fn = lib.tsl_paged_attention
@@ -85,7 +96,7 @@ def paged_attention_4d(q, k_pool, v_pool, tables, kv_len, out, *, tile: int, sca
     ws = counters = None
     if splits > 1:
         ws, counters = workspace("paged_attention", q.device,
-                                 b * kh * splits * (h // kh) * sq * (d + 4), b * kh)
+                                 *workspace_size(b, h, kh, sq, d, splits))
     with torch.cuda.device(q.device):
         err = _fn()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
                     kv_len.data_ptr(), out.data_ptr(),

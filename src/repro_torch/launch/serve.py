@@ -93,10 +93,11 @@ def main(argv=None) -> dict:
         "buckets": report["buckets"],
         "ttft_by_bucket": report["ttft_by_bucket"],
         "refused": report["refused"],
+        "jit_cache": report["jit_cache"],
         "sample_output": first[:8],
     }
     print("[serve] done:", json.dumps(result))
-    return result
+    return {**result, "report": report}
 
 
 if __name__ == "__main__":

@@ -83,11 +83,13 @@ def attention_forward(tsl, p, x, cfg, *, causal: bool = True, positions=None):
     return tsl.matmul(o, p["wo"]), (k, v)
 
 
-def attention_prefill_chunk(tsl, p, x, k_cache, v_cache, pos: int, cfg):
+def attention_prefill_chunk(tsl, p, x, k_cache, v_cache, pos, cfg):
     """Continuation prefill of one chunk into an existing cache.
 
     x: (B, C, D) chunk activations; caches (B, KH, S_max, hd) filled to
-    ``pos`` real rows. Writes the chunk's K/V at rows [pos, pos+C) in place
+    ``pos`` real rows: an int, or a (B,) int device tensor (what a captured
+    step takes: no host value enters the step). Writes the chunk's K/V at
+    rows [pos, pos+C) in place
     and attends the chunk queries against the whole cache through
     ``tsl.attention_prefill_chunk`` (causal, ends-aligned at pos+C).
 
@@ -98,7 +100,9 @@ def attention_prefill_chunk(tsl, p, x, k_cache, v_cache, pos: int, cfg):
     until the next chunk or decode step overwrites it.
 
     Returns (y (B,C,D), k_cache, v_cache)."""
-    return _span_attend(tsl, p, x, k_cache, v_cache, int(pos), cfg,
+    if not isinstance(pos, torch.Tensor):
+        pos = int(pos)
+    return _span_attend(tsl, p, x, k_cache, v_cache, pos, cfg,
                         tsl.attention_prefill_chunk)
 
 

@@ -126,11 +126,12 @@ def lm_prefill(tsl, params, tokens, cfg, *, max_len: int):
     return logits[:, -1], state
 
 
-def lm_prefill_chunk(tsl, params, state, tokens, pos: int, cfg):
+def lm_prefill_chunk(tsl, params, state, tokens, pos, cfg):
     """Continuation prefill of one chunk into a live decode state (in place).
 
     tokens (B,C): the next chunk of the prompt; ``pos`` is the cache fill
-    before this chunk — the chunk's K/V land at rows [pos, pos+C) and its
+    before this chunk (an int, or a (B,) int device tensor, as a captured
+    step passes it) — the chunk's K/V land at rows [pos, pos+C) and its
     queries attend causally to everything up to themselves. Trailing padding
     rows in the chunk need no masking (see attention_prefill_chunk); the
     caller reads logits at its last real row.

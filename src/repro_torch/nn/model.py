@@ -12,7 +12,8 @@ generated library for its device (``h100`` kernels on the card,
          params leaves that require grad, serving keeps inference mode)
     prefill(params, batch, max_len) -> (last_logits (B,V), state)
     prefill_chunk(params, state, tokens, pos) -> (logits (B,C,V), state)
-        (continuation prefill of one chunk at cache fill ``pos``; trailing
+        (continuation prefill of one chunk at cache fill ``pos``, an int or
+         a (B,) device tensor; trailing
          padding rows need no masking in the dense family — see
          nn/attention.py — so the reference's ``kv_len``/``n_real``/``embeds``
          arguments have no counterpart here)
@@ -104,7 +105,7 @@ class Model:
         return lm.lm_prefill(self.tsl, params, batch["tokens"], self.cfg,
                              max_len=max_len)
 
-    def prefill_chunk(self, params, state, tokens, pos: int):
+    def prefill_chunk(self, params, state, tokens, pos):
         return lm.lm_prefill_chunk(self.tsl, params, state, tokens, pos, self.cfg)
 
     def decode_step(self, params, state, tokens_t, pos):

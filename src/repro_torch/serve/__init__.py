@@ -11,12 +11,16 @@
 - ``spec``: speculative decoding — the n-gram and draft-model drafters, the
   longest-accepted-prefix rule and the cost-priced per-slot depth
   (``attention_verify``'s serve block and cost term);
+- ``graphs``: the compiled steps — decode, verify and prefill chunk captured
+  in CUDA graphs on the card (the reference's jitted steps and its
+  ``jit_cache``), and ``disable_graphs()``, the one way to run them eagerly;
 - ``engine``: the per-step continuous-batching loop with chunked prefill,
   lane-mode or paged (fused decode off the pools, or the lane fallback), and
   its speculative decode-or-verify step.
 """
 
 from .engine import SamplingConfig, ServeEngine
+from .graphs import StepGraphs, disable_graphs
 from .paging import (PagedConfig, PagedKVStore, PrefixEntry, PrefixStore, prefix_key,
                      selected_page_size, upd_page_defaults)
 from .scheduler import (BucketPolicy, CostModelAdmission, PagedAdmission, Request,
@@ -46,9 +50,11 @@ __all__ = [
     "SlotPages",
     "SpeculationConfig",
     "SpeculationPolicy",
+    "StepGraphs",
     "accept_span",
     "assert_span_fits",
     "build_drafter",
+    "disable_graphs",
     "prefix_key",
     "selected_page_size",
     "take_slot",

@@ -23,6 +23,15 @@ proportionally to prefill vs decode tokens.
 The slot table, the donors and the KV caches are updated IN PLACE on the
 device (the reference donates its buffers to jit for the same effect).
 
+The device steps are compiled as the reference jits them
+(``serve/graphs.py``): on the card the decode step, each verify span width
+and the prefill chunk are captured in CUDA graphs at first use and replayed
+after, in lane and fused paged mode alike; the sampler, slot insert and
+reset, and the page bookkeeping stay eager. The slot table is allocated once
+per engine (zeroed at each run) so the graphs keep pointing at it, and every
+prefill chunk runs through one staging donor. ``graphs.disable_graphs()``
+runs every step eagerly, op by op.
+
 Paged mode (``paged=PagedConfig(...)``): admission and residency are PAGE
 decisions (``serve/paging.py``). Prefills run lane-less into donors (up to
 ``max_inflight_prefills`` at once) and commit their rows into pages at
@@ -56,9 +65,10 @@ slot reuse, the per-step log, the admission log, every refusal with its
 reason, the cost model's pricing, in paged mode ``report["paged"]`` and, with
 speculation on, ``report["spec"]`` (accepted rate, mean accepted span, steps
 per emitted token, split by bucket). Only target-emitted tokens count as
-output: rejected drafts never do.
-The reference's ``jit_cache`` key has no counterpart: eager PyTorch compiles
-no step functions.
+output: rejected drafts never do. ``report["jit_cache"]`` counts the compiled
+entries per step kind with the reference's keys: ``prefill_chunk``,
+``decode`` (the lane or the fused paged step) and, with speculation on,
+``verify`` (one per span width); the dense family has no ``commit``.
 """
 
 from __future__ import annotations
@@ -71,6 +81,7 @@ import torch
 
 from repro_torch.nn.model import build_model
 
+from .graphs import StepGraphs, run_model_step, run_prefill_chunk
 from .paging import PagedConfig, PagedKVStore, prefix_key, selected_page_size
 from .scheduler import (BucketPolicy, CostModelAdmission, PagedAdmission, Request,
                         Scheduler)
@@ -222,6 +233,9 @@ class ServeEngine:
         # sampling draws come from a seeded device generator (the reference
         # draws from jax.random keys: sampled streams differ, greedy is exact)
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
+        # the compiled steps, and the slot table they point at
+        self._graphs = StepGraphs(self.device)
+        self._state: dict | None = None
 
     # -- helpers --------------------------------------------------------------
 
@@ -251,17 +265,24 @@ class ServeEngine:
         return self.sampling.temperature if req.temperature is None \
             else float(req.temperature)
 
-    def _chunk(self, task: _PrefillTask, seg: torch.Tensor, n_real: int):
-        """One continuation-prefill chunk into the task's donor; returns the
-        logits row at the chunk's last REAL token, (1, V)."""
-        logits, task.donor = self.model.prefill_chunk(self.params, task.donor, seg,
-                                                      task.fill)
-        return logits[:, max(n_real, 1) - 1]
+    def _chunk(self, task: _PrefillTask, seg: np.ndarray, n_real: int):
+        """One continuation-prefill chunk into the task's donor; returns a
+        copy of the logits row at the chunk's last REAL token, (1, V) (the
+        step's logits are overwritten by the next step)."""
+        logits = run_prefill_chunk(self._graphs, self.model, self.params, task.donor, seg,
+                                   task.fill)
+        return logits[:, max(n_real, 1) - 1].clone()
 
     def _new_donor(self) -> dict:
         return self.model.init_decode_state(1, self._state_len)
 
     def _init_state(self) -> dict:
+        """The slot table, allocated at the first run and zeroed at every
+        later one: the compiled steps keep pointing at it."""
+        if self._state is not None:
+            for t in self._state.values():
+                t.zero_()
+            return self._state
         # _state_len = max_len + k_max: the verify span's headroom rows;
         # admission and the overrun guards still cap real fill at max_len
         state = self.model.init_decode_state(self.batch, self._state_len)
@@ -269,6 +290,7 @@ class ServeEngine:
             # fused mode keeps only the TAIL leaves in the slot table (none
             # for the dense family): the paged leaves live in the pools
             state = {n: state[n] for n, ax in self._page_axes.items() if ax is None}
+        self._state = state
         return state
 
     def _tails_template(self) -> dict:
@@ -278,16 +300,16 @@ class ServeEngine:
         return {n: torch.zeros(shape, dtype=dt, device=self.device)
                 for n, (shape, dt) in self._store.tail_leaves.items()}
 
-    def _build_tables(self, sched: Scheduler, active) -> torch.Tensor:
-        """(B, P) int32 block table for this step on the device: active
-        slots' page lists (scratch-padded past coverage), all-scratch rows
-        for idle slots — every entry is a valid page id."""
+    def _build_tables(self, sched: Scheduler, active) -> np.ndarray:
+        """(B, P) int32 block table for this step: active slots' page lists
+        (scratch-padded past coverage), all-scratch rows for idle slots —
+        every entry is a valid page id."""
         tabs = np.full((self.batch, self._table_width), self._store.scratch_page,
                        np.int32)
         for slot in active:
             tabs[slot] = self._store.table_row(sched.slots[slot].request.rid,
                                                self._table_width)
-        return torch.as_tensor(tabs, device=self.device)
+        return tabs
 
     # -- paged serving helpers ------------------------------------------------
 
@@ -592,8 +614,7 @@ class ServeEngine:
             ran: list[_PrefillTask] = []
             for task in tasks:
                 c0 = task.chunk_idx * chunk
-                seg = torch.as_tensor(task.padded[:, c0:c0 + chunk],
-                                      device=self.device)
+                seg = task.padded[:, c0:c0 + chunk]
                 n_real = max(0, min(task.req.prompt_len - c0, chunk))
                 if task.fill + chunk > self.max_len:
                     raise RuntimeError(
@@ -648,26 +669,22 @@ class ServeEngine:
                         f"active slot position {int(pos_host[active].max())} "
                         f"overran max_len={self.max_len}")
                 K = int(k_vec.max())
+                # the steady-state fused path reads and writes the pools
+                # THROUGH the block table — no page->lane gather; idle slots
+                # run at position 0 on all-scratch table rows
+                paged_kw = {}
+                pos_step = pos_host
                 if self._fused:
-                    # the steady-state fused path: read and write the pools
-                    # THROUGH the block table — no page->lane gather. Idle
-                    # slots run at position 0 on all-scratch table rows.
                     pos_step = np.zeros(self.batch, np.int64)
                     pos_step[active] = pos_host[active]
-                    pos_dev = torch.as_tensor(pos_step, device=self.device)
-                    tables = self._build_tables(sched, active)
+                    paged_kw = {"pools": self._store.pools,
+                                "tables": self._build_tables(sched, active)}
                 if K == 0:
                     # exactly the plain decode step: the same call and the
                     # same sampler draw, so k = 0 speculation is identical
-                    tokens = torch.as_tensor(pending_host[:, None], device=self.device)
-                    if self._fused:
-                        logits, state, pools = self.model.decode_step_paged(
-                            self.params, state, self._store.device_pools(), tables,
-                            tokens, pos_dev)
-                        self._store.set_device_pools(pools)
-                    else:
-                        logits, state = self.model.decode_step(
-                            self.params, state, tokens, torch.as_tensor(pos_host))
+                    logits = run_model_step(self._graphs, "decode", self.model, self.params,
+                                            state, pending_host[:, None], pos_step,
+                                            **paged_kw)
                     decode_steps += 1
                     toks = self._sample(logits, temps_host)
                     emits = {slot: [int(toks[slot])] for slot in active}
@@ -675,21 +692,12 @@ class ServeEngine:
                     # speculative round: draft -> ONE ragged batched verify ->
                     # accept the longest prefix + the corrected token
                     drafts = self._drafter.propose(active, histories, k_vec, self.batch, K)
-                    span = torch.as_tensor(
-                        np.concatenate([pending_host[:, None], drafts], axis=1),
-                        device=self.device)
-                    if self._fused:
-                        assert_span_fits(pos_step, K + 1, self._state_len)
-                        logits, state, pools = self.model.verify_step_paged(
-                            self.params, state, self._store.device_pools(), tables,
-                            span, pos_dev)
-                        self._store.set_device_pools(pools)
-                    else:
-                        # the whole table takes the span write (idle lanes
-                        # included), so the guard covers every slot
-                        assert_span_fits(pos_host, K + 1, self._state_len)
-                        logits, state = self.model.verify_step(
-                            self.params, state, span, torch.as_tensor(pos_host))
+                    span = np.concatenate([pending_host[:, None], drafts], axis=1)
+                    # lane mode: the whole table takes the span write (idle
+                    # lanes included), so the guard covers every slot
+                    assert_span_fits(pos_step, K + 1, self._state_len)
+                    logits = run_model_step(self._graphs, "verify", self.model, self.params,
+                                            state, span, pos_step, **paged_kw)
                     # the target token at EVERY span row (per-slot
                     # temperature): row j validates draft j+1, row m is the
                     # corrected token of a slot accepting m drafts
@@ -826,6 +834,8 @@ class ServeEngine:
             "slot_reuse": sched.slot_reuse(),
             "admission_log": sched.admission_log,
             "step_log": step_log,
+            "jit_cache": self._graphs.sizes(
+                ("prefill_chunk", "decode") + (("verify",) if self.spec is not None else ())),
             "per_request": [asdict(m) for m in finished],
             "refused": [{"rid": r.rid, "reason": r.reason}
                         for r in sched.refused],

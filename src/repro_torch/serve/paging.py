@@ -226,6 +226,7 @@ class PagedKVStore:
         self.prefix_store = PrefixStore(self.allocator)
         self.tail_pages = -(-tail_bytes // self.page_bytes) if tail_bytes else 0
         self.fused = bool(fused) and bool(self.paged)
+        # written in place only, never rebound: captured steps point at them
         self.pools: dict[str, torch.Tensor] = {}
         for name, (ax, row_shape, dt) in self.paged.items():
             if self.fused:
@@ -572,16 +573,6 @@ class PagedKVStore:
         return out
 
     # -- fused-decode interface -----------------------------------------------
-
-    def device_pools(self) -> dict:
-        """The device pool tensors, keyed by leaf name — what the engine
-        hands the fused decode step (which writes them in place)."""
-        return dict(self.pools)
-
-    def set_device_pools(self, pools: dict) -> None:
-        """Adopt the pool tensors a fused step returned."""
-        for n in self.pools:
-            self.pools[n] = pools[n]
 
     def table_row(self, rid: str, width: int) -> np.ndarray:
         """``rid``'s block-table row, padded to ``width`` entries with the

@@ -32,6 +32,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .graphs import StepGraphs, run_model_step, run_prefill_chunk
+
+
 def upd_verify_defaults() -> dict:
     """The ``serve:`` block declared on the attention_verify primitive:
     {"k_max": int}, the largest drafted span the engine may propose per slot
@@ -207,7 +210,9 @@ class DraftModelDrafter:
     token a step (slots already caught up re-feed their newest fed token at
     its own row, an idempotent rewrite), and (2) runs K greedy draft decode
     steps. Rows written for drafts later rejected need no rollback: the next
-    catch-up overwrites them (kv_len-masked until then).
+    catch-up overwrites them (kv_len-masked until then). Its decode step and
+    mirrored chunks are compiled entries of its own (``graphs``, at its batch
+    and ``state_len``), the chunks staged through one donor as the engine's.
 
     The draft model shares the target's vocabulary: the acceptance rule
     compares token ids verbatim. ``params`` None draws the draft model's
@@ -232,6 +237,7 @@ class DraftModelDrafter:
         self.device = self.model.device
         self.params = self.model.init(seed) if params is None else params
         self.state = self.model.init_decode_state(batch, self.state_len)
+        self.graphs = StepGraphs(self.device)
         # tokens of the committed history already fed into the draft cache
         self.consumed = np.zeros(batch, np.int64)
         self._len_before = np.zeros(batch, np.int64)
@@ -257,8 +263,8 @@ class DraftModelDrafter:
         if rid not in self._donors:
             self._donors[rid] = (self.model.init_decode_state(1, self.state_len), 0)
         donor, fill = self._donors[rid]
-        self.model.prefill_chunk(self.params, donor,
-                                 torch.as_tensor(seg, device=self.device), fill)
+        run_prefill_chunk(self.graphs, self.model, self.params, donor,
+                          np.asarray(seg, np.int64), fill)
         self._donors[rid] = (donor, fill + int(n_real))
 
     def on_graft(self, rid, slot, history) -> None:
@@ -281,9 +287,8 @@ class DraftModelDrafter:
 
     def _feed(self, tok_vec: np.ndarray, pos_vec: np.ndarray) -> np.ndarray:
         """One draft decode step; the greedy token per slot, (batch,)."""
-        logits, self.state = self.model.decode_step(
-            self.params, self.state, torch.as_tensor(tok_vec[:, None], device=self.device),
-            torch.as_tensor(pos_vec, device=self.device))
+        logits = run_model_step(self.graphs, "decode", self.model, self.params, self.state,
+                                tok_vec[:, None], pos_vec)
         return logits[..., :self.cfg.vocab].argmax(-1).cpu().numpy().astype(np.int64)
 
     def propose(self, active, histories, k_vec, batch: int, K: int) -> np.ndarray:
