@@ -150,10 +150,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    within 5e-3 of the kernels'. Where the step's device time goes: the top
    kernels, the three training kernels' share, the GEMMs' share and the
    152064-wide cross-entropy's forward + backward (timed alone).
+5d. The compiled train step (train/graphs.py: compile_train_step, one CUDA
+   graph over the donated train state) against the eager step under
+   disable_graphs(), from clones of one state on the same SyntheticTokens
+   batches of 8 x 512, with warmup over every step (lr and both bias
+   corrections change each step): float32 moments for 6 steps; int8
+   moments, 2 microbatches and --compress-grads for 3 each. Fails unless
+   every metric at every step (loss, ce, aux, grad_norm, lr, compress_err)
+   and every param and moment leaf at the end are bit-equal, each run's
+   launches per step are phase 5c's (twice with 2 microbatches), lr changes
+   every step, the compiled step has one entry and replays every step after
+   the first. Prints per configuration, captured and eager: host wall of
+   the synchronised steps, the traced step's host wall, device busy, idle
+   share and device records, kernels per step, the first call's and the
+   capture's seconds, peak allocated and reserved memory (absolute, and
+   above the run's start: the eager run holds its input state and makes a
+   new one, the captured run updates its state in place beside the pool).
 6. Train CLI. repro_torch.launch.train.main at full width (phase 5's
    model and batch, SyntheticTokens batches), checkpoints in a temporary
    directory removed at the end; each run's launch counters are set to 0
-   just before it and read just after.
+   just before it and read just after. The CLI runs the compiled step
+   (a restart restores into a fresh compiled step).
 6a. int8 optimizer moments and two microbatches: 6 steps with a checkpoint
    every 3, a restart at --steps 9 that restores step 6, and the same 9
    steps uninterrupted. Fails unless step_3, step_6 and step_9 are
@@ -161,8 +178,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    steps 7-9 are within LOSS_REL of the uninterrupted run's (the largest
    difference is printed), every run launches exactly twice phase 5c's
    kernels per step, and the int8 moments (q + scale, from the manifest)
-   take at most INT8_STATE_SHARE of float32 moments' bytes. Prints tokens/s,
-   peak memory and the loop's seconds in checkpoint saves.
+   take at most INT8_STATE_SHARE of float32 moments' bytes. The same 9
+   steps again under disable_graphs() (the eager twin): every logged loss,
+   the first and the final loss equal to the compiled run's, the same
+   launches. Prints tokens/s of each run, peak memory and the loop's
+   seconds in checkpoint saves.
 6b. --compress-grads against none, 5 steps each: every loss finite and
    within LOSS_REL; compress_err of make_train_step on the first batch in
    (0, max|g| (1/254 + 2^-8)]: the wire format's amax/254 plus one bf16
@@ -190,9 +210,11 @@ just after it for the app path (range_count, hadd, to_integral), and just
 before phase 3d and read just after it for the suite (softmax), and just
 before phase 5c and read just after it for training (flash forward with
 lse, dq, dk/dv: 48, 24 and 24 per step with remat; rmsnorm 4L + 1 and
-swiglu 2L per step), and around each train CLI run of phase 6 (twice those
-per step: two microbatches). The training kernels' rows carry both paths'
-counts (launches_phase5c, launches_phase6: the 9 uninterrupted steps).
+swiglu 2L per step), around each run of phase 5d (the same per step), and
+around each train CLI run of phase 6 (twice those per step: two
+microbatches). The training kernels' rows carry the three paths' counts
+(launches_phase5c; launches_phase5d: the compiled float32 run's 6 steps;
+launches_phase6: the 9 uninterrupted steps).
 Launches made to compare a kernel with its plain version, and those of
 phases 4 and 4b (measurements), are not counted.
 
@@ -297,6 +319,18 @@ CLI_ARGS = ["--arch", ARCH, "--device", "cuda", "--batch", str(TRAIN_BATCH),
             "--seq", str(TRAIN_SEQ), "--log-every", "1"]
 CLI_INT8 = ["--microbatches", "2", "--moment-dtype", "int8"]
 CLI_STEPS, CLI_RESTART_STEPS, CLI_CKPT_EVERY, CLI_COMPRESS_STEPS = 6, 9, 3, 5
+# phase 5d: the compiled train step against eager at phase 5's batch, on
+# SyntheticTokens batches; warmup over every step, so lr and both bias
+# corrections change each step (a scalar baked into the graph would show as
+# a diverging trajectory). Case: (OptConfig kwargs, make_train_step kwargs,
+# steps)
+GRAPH_TRAIN_OPT = dict(lr=3e-4, warmup_steps=10, total_steps=100)
+GRAPH_TRAIN_CASES = {
+    "float32": ({}, {}, 6),
+    "int8": ({"moment_dtype": "int8"}, {}, 3),
+    "microbatches2": ({}, {"microbatches": 2}, 3),
+    "compress": ({}, {"compress_grads": True}, 3),
+}
 # int8 moments: 1 byte per element plus a float32 scale per row, against 4
 # bytes per element for each float32 moment (0.25 + 1/row width)
 INT8_STATE_SHARE = 0.26
@@ -2432,6 +2466,175 @@ def train_phase(dev, gpu: str) -> dict:
     return out
 
 
+def train_launches_want(cfg, microbatches: int = 1) -> dict:
+    """Kernel launches of one train step (remat: the forward twice)."""
+    L = cfg.n_layers
+    return {k: microbatches * n for k, n in (
+        ("flash_attention_fwd_lse", 2 * L), ("flash_attention_bwd_dq", L),
+        ("flash_attention_bwd_dkv", L), ("rmsnorm", 4 * L + 1), ("swiglu", 2 * L))}
+
+
+def _clone_state(state: dict) -> dict:
+    import torch
+
+    from repro_torch.train.optimizer import tree_map
+
+    opt = state["opt"]
+    return {"params": tree_map(torch.clone, state["params"]),
+            "opt": {"m": tree_map(torch.clone, opt["m"]), "v": tree_map(torch.clone, opt["v"]),
+                    "count": opt["count"]}}
+
+
+def _run_steps(dev, fn, state, batches) -> tuple[dict, dict]:
+    """len(batches) steps of ``fn`` (the launch counters set to 0 just
+    before and read just after): the last state and the run's record, each
+    step's metrics (host floats) and host wall (synchronised), and peak
+    memory, absolute and above what was allocated (reserved) when the run
+    began, the allocator's cache emptied; the last step runs under device
+    tracing (``traced``)."""
+    import torch
+
+    for c in counters().values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    start = torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
+    steps = []
+    for i, b in enumerate(batches):
+        if i == len(batches) - 1:
+            (state, m), rec = traced(lambda s=state, b=b: fn(s, b))
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = fn(state, b)
+            torch.cuda.synchronize()
+            rec = {"host_wall_s": time.perf_counter() - t0}
+        steps.append({**{k: (v if isinstance(v, float) else v.item()) for k, v in m.items()},
+                      **rec})
+    peak = torch.cuda.max_memory_allocated(dev), torch.cuda.max_memory_reserved(dev)
+    return state, {"steps": steps, "launches": read_counts(),
+                   "peak_allocated_gib": peak[0] / 2**30, "peak_reserved_gib": peak[1] / 2**30,
+                   "peak_allocated_above_start_gib": (peak[0] - start[0]) / 2**30,
+                   "peak_reserved_above_start_gib": (peak[1] - start[1]) / 2**30}
+
+
+def _tensor_leaves(state: dict) -> list:
+    from repro_torch.train.optimizer import tree_items
+
+    return tree_items({"params": state["params"], "m": state["opt"]["m"],
+                       "v": state["opt"]["v"]})
+
+
+def compiled_train_phase(dev, gpu: str) -> dict:
+    """Phase 5d: compile_train_step (one CUDA graph over the donated state)
+    against the eager step under disable_graphs(), from clones of one state
+    on the same SyntheticTokens batches, in four configurations: every
+    metric at every step and every param and moment leaf at the end equal
+    bit for bit, the same launches per step; host wall, device busy and
+    idle share, kernels per step, capture seconds and peak memory of each."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.graphs import disable_graphs
+    from repro_torch.nn.model import build_model
+    from repro_torch.train import (OptConfig, compile_train_step, init_train_state,
+                                   make_train_step)
+
+    t_phase = time.perf_counter()
+    cfg = get_config(ARCH)
+    model = build_model(cfg, device=dev)
+    source = SyntheticTokens(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=5)
+    out: dict = {"gpu": gpu, "opt": GRAPH_TRAIN_OPT, "cases": {}}
+    failures = []
+    for name, (opt_kw, step_kw, n) in GRAPH_TRAIN_CASES.items():
+        opt_cfg = OptConfig(**GRAPH_TRAIN_OPT, **opt_kw)
+        step = make_train_step(model, opt_cfg, **step_kw)
+        init = init_train_state(model, opt_cfg, seed=0)
+        host = [source.batch_at(i) for i in range(n)]
+        on_card = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()} for b in host]
+
+        def eager(s, b):
+            with disable_graphs():
+                return step(s, b)
+
+        e_state, e_run = _run_steps(dev, eager, init, on_card)
+        compiled = compile_train_step(step)
+        t0 = time.perf_counter()
+        c_state, c_run = _run_steps(dev, compiled, _clone_state(init), host)
+        c_run["first_call_s"] = c_run["steps"][0]["host_wall_s"]
+        c_run["capture_s"] = compiled.step.capture_s
+        c_run["entries"] = compiled.entries
+        c_run["run_s"] = time.perf_counter() - t0
+        want = train_launches_want(cfg, step_kw.get("microbatches", 1))
+        for run, tag in ((c_run, "captured"), (e_run, "eager")):
+            got = {k: run["launches"][k] / n for k in want}
+            run["launches_per_step"] = got
+            if got != want:
+                failures.append(f"{name} {tag}: launches per step {got}, want {want}")
+            untimed = run["steps"][1:-1] if tag == "captured" else run["steps"][:-1]
+            run["host_wall_ms"] = [x["host_wall_s"] * 1e3 for x in untimed]
+            last = run["steps"][-1]
+            run["traced_step"] = {"host_wall_ms": last["host_wall_s"] * 1e3,
+                                  "device_busy_ms": last["device_busy_s"] * 1e3,
+                                  "device_idle_share": last["device_idle_share"],
+                                  "device_records": last["device_records"]}
+        differ = [f"step {i + 1} {k}: captured {c[k]!r} eager {e[k]!r}"
+                  for i, (c, e) in enumerate(zip(c_run["steps"], e_run["steps"]))
+                  for k in e if k not in ("host_wall_s", "device_busy_s",
+                                          "device_idle_share", "device_records")
+                  and c[k] != e[k]]
+        leaves = list(zip(_tensor_leaves(c_state), _tensor_leaves(e_state)))
+        differ += [f"leaf {p}: max |captured - eager| "
+                   f"{(a.double() - b.double()).abs().max().item()!r}"
+                   for (p, a), (_, b) in leaves if not torch.equal(a, b)]
+        lrs = [x["lr"] for x in e_run["steps"]]
+        if len(set(lrs)) != n:
+            differ.append(f"lr does not change every step: {lrs}")
+        if not all(math.isfinite(x["loss"]) for x in e_run["steps"]):
+            differ.append("a loss is not finite")
+        if compiled.entries != 1 or compiled.step.replays != n - 1:
+            differ.append(f"entries {compiled.entries}, replays {compiled.step.replays}")
+        failures += [f"{name}: {d}" for d in differ]
+        rec = {"steps": n, "bit_equal": not differ, "leaves_compared": len(leaves),
+               "differences": differ[:20], "losses": [x["loss"] for x in e_run["steps"]],
+               "lr": lrs, "captured": c_run, "eager": e_run}
+        out["cases"][name] = rec
+        c, e = c_run, e_run
+        print(f"[phase5d] {name} ({n} steps, {TRAIN_BATCH}x{TRAIN_SEQ}) on {gpu}, captured vs "
+              f"eager: host wall {json.dumps(c['host_wall_ms'])} vs "
+              f"{json.dumps(e['host_wall_ms'])} ms a step; traced step host wall "
+              f"{c['traced_step']['host_wall_ms']:.2f} vs {e['traced_step']['host_wall_ms']:.2f}"
+              f" ms, device busy {c['traced_step']['device_busy_ms']:.2f} vs "
+              f"{e['traced_step']['device_busy_ms']:.2f} ms, idle share "
+              f"{c['traced_step']['device_idle_share']:.4f} vs "
+              f"{e['traced_step']['device_idle_share']:.4f}, device records "
+              f"{c['traced_step']['device_records']} vs {e['traced_step']['device_records']}; "
+              f"kernels per step {json.dumps(c['launches_per_step'])} vs "
+              f"{json.dumps(e['launches_per_step'])}; first call {c['first_call_s']:.3f} s "
+              f"(capture {c['capture_s']:.3f} s); peak allocated "
+              f"{c['peak_allocated_gib']:.2f} vs {e['peak_allocated_gib']:.2f} GiB "
+              f"({c['peak_allocated_above_start_gib']:.2f} vs "
+              f"{e['peak_allocated_above_start_gib']:.2f} above the run's start), reserved "
+              f"{c['peak_reserved_gib']:.2f} vs {e['peak_reserved_gib']:.2f} GiB "
+              f"({c['peak_reserved_above_start_gib']:.2f} vs "
+              f"{e['peak_reserved_above_start_gib']:.2f}); losses "
+              f"{rec['losses']}; bit-equal {rec['bit_equal']} ({len(leaves)} leaves)"
+              + (f"; differences {differ[:20]}" if differ else ""), flush=True)
+        del compiled, c_state, e_state, init, on_card, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[phase5d] compiled train step vs eager, {len(GRAPH_TRAIN_CASES)} configurations "
+          f"on {gpu}: {json.dumps({k: v['bit_equal'] for k, v in out['cases'].items()})}; "
+          f"phase {out['seconds']:.1f} s", flush=True)
+    if failures:
+        raise AssertionError(f"phase 5d: {failures}")
+    return out
+
 
 class _Tee(io.TextIOBase):
     """Writes to ``out`` and keeps a copy (the train CLI's log lines)."""
@@ -2451,6 +2654,10 @@ def run_train_cli(args: list[str]) -> tuple[dict, dict, str, dict]:
     """repro_torch.launch.train.main(args) with the launch counters set to 0
     just before and read just after: (result, {0-based step: loss} from the
     log lines, the log, the launches)."""
+    import gc
+
+    import torch
+
     from repro_torch.launch import train as train_cli
 
     for fn in counters().values():
@@ -2459,6 +2666,8 @@ def run_train_cli(args: list[str]) -> tuple[dict, dict, str, dict]:
     with contextlib.redirect_stdout(tee):
         result = train_cli.main(args)
     launched = read_counts()
+    gc.collect()                  # the run's compiled step and its graph pool go
+    torch.cuda.empty_cache()
     log = tee.buf.getvalue()
     losses = {int(s): float(v) for s, v in
               re.findall(r"^\[train\] step (\d+) loss=(\S+)", log, re.MULTILINE)}
@@ -2480,6 +2689,7 @@ def train_cli_phase(dev, gpu: str) -> dict:
     from repro_torch import gates
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.graphs import disable_graphs
     from repro_torch.nn.model import build_model
     from repro_torch.train import OptConfig, init_train_state, loss_and_grads, make_train_step
     from repro_torch.train.optimizer import tree_leaves
@@ -2534,6 +2744,15 @@ def train_cli_phase(dev, gpu: str) -> dict:
     whole, losses3, _, launched3 = run_train_cli(
         CLI_ARGS + CLI_INT8 + ["--steps", str(CLI_RESTART_STEPS)])
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    # the eager twin of the uninterrupted run, in the same call
+    with disable_graphs():
+        twin, losses3e, _, launched3e = run_train_cli(
+            CLI_ARGS + CLI_INT8 + ["--steps", str(CLI_RESTART_STEPS)])
+    if losses3e != losses3 or (twin["first_loss"], twin["final_loss"]) != (
+            whole["first_loss"], whole["final_loss"]):
+        raise AssertionError(f"6a: the compiled run's losses {losses3} (final "
+                             f"{whole['final_loss']!r}) differ from its eager twin's "
+                             f"{losses3e} (final {twin['final_loss']!r})")
     _all_finite("6a", list(losses1.values()) + list(losses2.values())
                 + list(losses3.values()))
     if sorted(losses2) != list(range(CLI_STEPS, CLI_RESTART_STEPS)):
@@ -2545,7 +2764,8 @@ def train_cli_phase(dev, gpu: str) -> dict:
                                  f"uninterrupted {losses3[s]}")
     for name, launched, steps in (("6a run", launched1, CLI_STEPS),
                                   ("6a restart", launched2, CLI_RESTART_STEPS - CLI_STEPS),
-                                  ("6a uninterrupted", launched3, CLI_RESTART_STEPS)):
+                                  ("6a uninterrupted", launched3, CLI_RESTART_STEPS),
+                                  ("6a eager twin", launched3e, CLI_RESTART_STEPS)):
         out.setdefault("launches_per_step", {})[name] = per_step(name, launched, steps)
     out["launches"] = launched3
     out["6a"] = {"losses_first": losses1, "losses_restart": losses2,
@@ -2554,7 +2774,10 @@ def train_cli_phase(dev, gpu: str) -> dict:
                  "final_loss_diff": abs(second["final_loss"] - whole["final_loss"]),
                  "tokens_per_s": {"run": first["tokens_per_s"],
                                   "restart": second["tokens_per_s"],
-                                  "uninterrupted": whole["tokens_per_s"]},
+                                  "uninterrupted": whole["tokens_per_s"],
+                                  "uninterrupted_eager_twin": twin["tokens_per_s"]},
+                 "losses_eager_twin": losses3e,
+                 "final_loss": {"compiled": whole["final_loss"], "eager": twin["final_loss"]},
                  "ckpt_save_s": {"run": first["ckpt_save_s"],
                                  "restart": second["ckpt_save_s"]},
                  "peak_gib": peak_gib, "int8_state_share": share}
@@ -2610,6 +2833,7 @@ def train_cli_phase(dev, gpu: str) -> dict:
     curves = {"kernels": [], "plain": [], "grad_norm_kernels": [], "grad_norm_plain": []}
     s = init_train_state(model, opt_cfg, seed=0)
     for b in batches:
+        # both steps eager and functional (no donation): s serves both
         _, pm = p_step(s, b)
         s, km = k_step(s, b)
         for name, m in (("kernels", km), ("plain", pm)):
@@ -2713,10 +2937,13 @@ def main() -> int:
     for row in kernels:
         if row["name"] in train["kernel_cases"]["plain_backward_ms"]:
             row["plain_backward_ms"] = train["kernel_cases"]["plain_backward_ms"][row["name"]]
+    compiled = compiled_train_phase(dev, gpu)
     cli = train_cli_phase(dev, gpu)
-    for row in kernels:           # the training kernels: launches on both train paths
+    for row in kernels:           # the training kernels: launches on every train path
         if row["name"] in cli["launches_per_step"]["6a uninterrupted"]:
             row["launches_phase5c"] = train["launches"][row["name"]]
+            row["launches_phase5d"] = compiled["cases"]["float32"]["captured"]["launches"][
+                row["name"]]
             row["launches_phase6"] = cli["launches"][row["name"]]
     print(f"[done] main-path launches {counts}, paged path {paged['launches']}, app "
           f"{app['launches']}, generated suite {suite['launches']} "
@@ -2729,7 +2956,9 @@ def main() -> int:
           f"{paged['decode_tokens_per_s']:.1f} ttft_s_mean {paged['ttft_s_mean']:.3f}, "
           f"speculative paged path {spec['launches']} ({spec['seconds']:.1f} s), "
           f"train launches {train['launches']}, train losses "
-          f"{[x['loss'] for x in train['steps']]}, train CLI launches (9 uninterrupted "
+          f"{[x['loss'] for x in train['steps']]}, compiled train step bit-equal to eager "
+          f"{ {k: v['bit_equal'] for k, v in compiled['cases'].items()} } "
+          f"({compiled['seconds']:.1f} s), train CLI launches (9 uninterrupted "
           f"steps) {cli['launches']}, restart max |loss diff| "
           f"{cli['6a']['restart_max_abs_diff_logged']} on {gpu}; total "
           f"{time.perf_counter() - t_start:.1f} s",

@@ -15,7 +15,7 @@ falls back to a plain version.
 Kernels that finish a reduction across blocks in the same launch take a
 scratch buffer and a ticket array from :func:`workspace`: cached per stream
 for eager calls, or, inside :func:`fixed_workspaces`, the fixed buffers of
-one captured step (``serve/graphs.py``)."""
+one captured step (``repro_torch/graphs.py``)."""
 
 from __future__ import annotations
 

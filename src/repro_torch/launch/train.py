@@ -16,8 +16,13 @@ either launcher continues the other's run. The schedule is
 as in the reference: a restart continues the same schedule only when it is
 run with the same ``--steps`` (or two values that give the same pair).
 
-Unlike the reference, the step runs eagerly (no ``jax.jit`` and no buffer
-donation), the initial params are the port's own seeded init
+The step is compiled where the reference jits it, after the restore:
+``compile_train_step`` captures it in one CUDA graph at its first call on the
+card and replays it after, over the donated train state (updated in place;
+the first call adopts the restored state). Each batch from the prefetcher is
+staged through the step (pinned, ``non_blocking``). Under
+``repro_torch.graphs.disable_graphs()`` the loop runs the eager step, op by
+op. Unlike the reference, the initial params are the port's own seeded init
 (``init_train_state``), and ``--dp`` / ``--tp`` other than 1 raise: the
 sharded engine is not ported yet (ROADMAP.md, queue 1, item 9). The
 watchdog flags steps slower than ``factor`` x the running median; here it
@@ -31,12 +36,11 @@ import json
 import statistics
 import time
 
-import torch
-
 from repro_torch.ckpt.checkpoint import Checkpointer
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataState, Prefetcher, SyntheticTokens
 from repro_torch.nn.model import build_model
+from repro_torch.train.graphs import compile_train_step
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.step import init_train_state, make_train_step
 
@@ -112,6 +116,7 @@ def main(argv=None) -> dict:
             data_state = DataState.from_dict(extra.get("data", {}))
             print(f"[train] restored checkpoint at step {start_step}")
 
+    jstep = compile_train_step(train_step)
     source = SyntheticTokens(cfg.vocab, args.batch, args.seq, seed=args.seed)
     data_state.step = start_step
     prefetch = Prefetcher(source, data_state, depth=2)
@@ -129,8 +134,7 @@ def main(argv=None) -> dict:
     try:
         for step in range(start_step, args.steps):
             t0 = time.perf_counter()
-            batch = {k: torch.from_numpy(v).to(dev) for k, v in prefetch.get().items()}
-            state, metrics = train_step(state, batch)
+            state, metrics = jstep(state, prefetch.get())
             loss = float(metrics["loss"])
             losses.append(loss)
             dt = time.perf_counter() - t0

@@ -72,8 +72,11 @@ def lm_forward(tsl, params, tokens, cfg, *, collect_cache: bool = False,
     kvs = []
     for bp in unstack_layers(params["blocks"], cfg.n_layers):
         if remat:
+            # no op of a block draws random numbers, so not saving and
+            # restoring the RNG state (a host-side step inside a CUDA graph
+            # capture) changes no result
             x, kv = checkpoint(_block_forward, tsl, bp, x, cfg, positions,
-                               use_reentrant=False)
+                               use_reentrant=False, preserve_rng_state=False)
         else:
             x, kv = _block_forward(tsl, bp, x, cfg, positions)
         if collect_cache:

@@ -7,15 +7,21 @@ dict, dequantized before the update and quantized again after it.
 
 Params, grads and moments are nested dicts of tensors (the model's param
 tree); ``apply_updates`` is functional, as in the reference: it returns new
-params and a new state and leaves its inputs untouched. The step count is a
-host int, so the schedule costs no device sync.
+params and a new state and leaves its inputs untouched. ``apply_updates_``
+is the same update written into the params' and moments' own tensors, for a
+donated state (``train/graphs.py``). The step count is a host int; the
+schedule's scalars (lr and the two bias corrections) are computed from it on
+the host in float32, as the reference computes them, and enter the update as
+one (3,) float32 device tensor, so a captured update reads them from a
+staged buffer. The update divides by the bias corrections on the device
+(true division, as the reference), and both forms share that arithmetic.
 """
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 MOMENT_DTYPES = ("float32", "int8")
@@ -40,13 +46,25 @@ class OptConfig:
                              f"{MOMENT_DTYPES}")
 
 
+def schedule(cfg: OptConfig, count: int) -> np.ndarray:
+    """(lr, b1c, b2c) of the update that follows ``count`` updates, in
+    float32 as the reference computes them: linear warmup + cosine decay at
+    (0-based) step ``count``, and the bias corrections 1 - b ** (count + 1)."""
+    f32 = np.float32
+    step = f32(count)
+    warm = np.minimum(f32(1), (step + f32(1)) / f32(max(cfg.warmup_steps, 1)))
+    prog = np.clip((step - f32(cfg.warmup_steps))
+                   / f32(max(cfg.total_steps - cfg.warmup_steps, 1)), f32(0), f32(1))
+    cos = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * prog))
+    scale = f32(cfg.min_lr_ratio) + f32(1 - cfg.min_lr_ratio) * cos
+    lr = f32(cfg.lr) * warm * scale
+    n = f32(count + 1)
+    return np.array([lr, f32(1) - f32(cfg.b1) ** n, f32(1) - f32(cfg.b2) ** n], np.float32)
+
+
 def lr_at(cfg: OptConfig, step: int) -> float:
     """Linear warmup + cosine decay at (0-based) ``step``."""
-    warm = min(1.0, (step + 1) / max(cfg.warmup_steps, 1))
-    prog = min(max((step - cfg.warmup_steps) / max(cfg.total_steps - cfg.warmup_steps, 1),
-                   0.0), 1.0)
-    cos = 0.5 * (1 + math.cos(math.pi * prog))
-    return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
+    return float(schedule(cfg, step)[0])
 
 
 def tree_map(fn, tree, *rest):
@@ -121,30 +139,70 @@ def _global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(leaf.float().square().sum() for leaf in tree_leaves(tree)))
 
 
+def _leaf_update(cfg: OptConfig, p, g, m, v, clip, sched):
+    """One leaf's AdamW update: (new param in p's dtype, m, v in float32)."""
+    quant = cfg.moment_dtype == "int8"
+    lr, b1c, b2c = sched[0], sched[1], sched[2]
+    g = g.float() * clip
+    m = cfg.b1 * (_dequantize(m) if quant else m) + (1 - cfg.b1) * g
+    v = cfg.b2 * (_dequantize(v) if quant else v) + (1 - cfg.b2) * g.square()
+    update = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+    if p.ndim >= 2:                       # decoupled wd on matrices only
+        update = update + cfg.weight_decay * p.float()
+    return (p.float() - lr * update).to(p.dtype), m, v
+
+
+def _clip(cfg: OptConfig, grads) -> tuple[torch.Tensor, torch.Tensor]:
+    """(global norm of ``grads`` before clipping, the factor that clips it)."""
+    gnorm = _global_norm(grads)
+    return gnorm, torch.clamp(cfg.grad_clip / gnorm.clamp_min(1e-12), max=1.0)
+
+
+def _leaves(params, grads, moments) -> list:
+    return list(zip(tree_leaves(params), flatten_up_to(params, grads),
+                    flatten_up_to(params, moments["m"]),
+                    flatten_up_to(params, moments["v"])))
+
+
+def update(cfg: OptConfig, params, grads, moments: dict, sched: torch.Tensor):
+    """The functional update with the schedule's (3,) device scalars:
+    (new_params, {"m", "v"}, grad_norm)."""
+    gnorm, clip = _clip(cfg, grads)
+    store = _quantize if cfg.moment_dtype == "int8" else (lambda x: x)
+    out = []
+    for leaves in _leaves(params, grads, moments):
+        new_p, m, v = _leaf_update(cfg, *leaves, clip, sched)
+        out.append((new_p, store(m), store(v)))
+    new_p, new_m, new_v = (unflatten(params, [o[i] for o in out]) for i in range(3))
+    return new_p, {"m": new_m, "v": new_v}, gnorm
+
+
+def apply_updates_(cfg: OptConfig, params, grads, moments: dict,
+                   sched: torch.Tensor) -> torch.Tensor:
+    """:func:`update` written into each param's and moment's own tensor (a
+    donated state: nothing is allocated that outlives one leaf's update).
+    Returns grad_norm."""
+    gnorm, clip = _clip(cfg, grads)
+    for p, g, m, v in _leaves(params, grads, moments):
+        new_p, new_m, new_v = _leaf_update(cfg, p, g, m, v, clip, sched)
+        p.copy_(new_p)
+        for dst, src in ((m, new_m), (v, new_v)):
+            if is_q(dst):
+                q = _quantize(src)
+                dst["q"].copy_(q["q"])
+                dst["scale"].copy_(q["scale"])
+            else:
+                dst.copy_(src)
+    return gnorm
+
+
 def apply_updates(cfg: OptConfig, params, grads, opt_state):
     """One AdamW step. Returns (new_params, new_opt_state, metrics) with
     metrics {"grad_norm": 0-d f32 tensor (before clipping), "lr": float}."""
-    count = opt_state["count"] + 1
-    gnorm = _global_norm(grads)
-    clip = torch.clamp(cfg.grad_clip / gnorm.clamp_min(1e-12), max=1.0)
-    lr = lr_at(cfg, opt_state["count"])
-    b1c = 1 - cfg.b1 ** count
-    b2c = 1 - cfg.b2 ** count
-    quant = cfg.moment_dtype == "int8"
-
-    def upd(p, g, m, v):
-        g = g.float() * clip
-        m = cfg.b1 * (_dequantize(m) if quant else m) + (1 - cfg.b1) * g
-        v = cfg.b2 * (_dequantize(v) if quant else v) + (1 - cfg.b2) * g.square()
-        update = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-        if p.ndim >= 2:                       # decoupled wd on matrices only
-            update = update + cfg.weight_decay * p.float()
-        new_p = (p.float() - lr * update).to(p.dtype)
-        return new_p, (_quantize(m) if quant else m), (_quantize(v) if quant else v)
-
-    out = [upd(*leaves) for leaves in zip(tree_leaves(params), flatten_up_to(params, grads),
-                                          flatten_up_to(params, opt_state["m"]),
-                                          flatten_up_to(params, opt_state["v"]))]
-    new_p, new_m, new_v = (unflatten(params, [o[i] for o in out]) for i in range(3))
-    return new_p, {"m": new_m, "v": new_v, "count": count}, \
-        {"grad_norm": gnorm, "lr": lr}
+    count = opt_state["count"]
+    sched = schedule(cfg, count)
+    device = tree_leaves(params)[0].device
+    new_p, moments, gnorm = update(cfg, params, grads, opt_state,
+                                   torch.from_numpy(sched).to(device))
+    return new_p, {**moments, "count": count + 1}, \
+        {"grad_norm": gnorm, "lr": float(sched[0])}

@@ -23,7 +23,7 @@ R |want| elementwise):
 * the logsumexp: |got - want| <= 1e-5 max(1, |want|), exactly 0 on rows that
   see no key;
 * AdamW state after 3 steps: rel 1e-6 per leaf (the same f32 arithmetic;
-  the schedule's scalars are taken in float64 here, float32 there);
+  the schedule's scalars in float32 on both sides, numpy's and XLA's);
 * train-step losses over 3 steps: 1e-4 relative.
 """
 
