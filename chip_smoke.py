@@ -100,6 +100,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the mean accepted span, slot steps per emitted token and the mean
    depth, and the share of (i)'s requests whose tokens equal 3b's
    (information only).
+3f. int8 paged serve. 3b's requests and engine shape under
+   PagedConfig(int8=True), the page budget the bytes of 3b's default bf16
+   pool, paired (graphs first; both sides untraced: reading a side's ~1.7
+   million device records took longer than the serve; a captured int8
+   decode step's idle share is phase 4's). Fails unless
+   report["paged"]["int8"] is true, decode ran fused, every request got 64
+   tokens and the paged kernel launched no time (int8 pools take the plain
+   version by their dtype, as the reference's take its jnp scan), rmsnorm
+   and swiglu launching. Prints the pages against 3b's, tokens/s, TTFT, and
+   the share of requests whose tokens equal 3b's (information only). Then
+   one fused int8 decode step at batch 8 over 256 rows against the same
+   step through the
+   CUDA kernel over bf16 pools holding the dequantized rows
+   (_require_logits), and captured against eager through the engine's step
+   code: logits and pools bit-equal, launches equal.
+3g. Long-context serve. 8 requests sharing a 3584-token document plus 512
+   tokens each, 64 generated, batch 4, max_len 4160, page 64, 256-token
+   chunks, one bucket of 4096: fails unless kernel.plan splits each KV
+   head's keys at the engine's table width (65); paired (eager first) under
+   3b's checks (24 paged launches a decode step, the document shared).
+3h. Streaming. run() on 4 of 3b's requests while a thread submit()s 12 more
+   at seeded Poisson times once decoding is under way, then a duplicate rid
+   and a gen_len of 0: every valid request answered with the tokens of an
+   all-at-once run of the 16 (run first, not counted), both invalid ones
+   refused, the streamed run under 3b's checks (fused, 24 paged launches a
+   decode step), a streamed request admitted after the first step; prints
+   arrival-to-first-token times.
 3c. App. The paper's range-count app (Fig 8) through
    repro_torch.launch.quickstart.main on 2^30 float32 uniforms in
    [0, 100000) (4 GiB, the paper's size) and 2^28 int32 in [0, 100), each
@@ -113,7 +140,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 4. Step profile. The step kinds the serving engines run, on phase 2's
    model at the serve phases' shapes, each through the engine's own step
    code (serve/graphs.py, input staging included) — a lane decode step, a
-   fused paged decode step and a fused paged verify step (span SPEC_K + 1)
+   fused paged decode step on bf16 and on int8 pools and a fused paged
+   verify step (span SPEC_K + 1)
    over 8 slots at position 256, one 64-token prefill chunk into a batch-1
    donor, and the draft model's decode step (3e(iii)'s drafter) — captured
    (one replay a call) and under disable_graphs(), each timed on the host
@@ -205,7 +233,12 @@ to 0 again just before phase 3b and read just after it for the paged path
 (paged attention, rmsnorm and swiglu; both runs of its pair), just before
 phase 3e and read just
 after it for the speculative paged path (the paged row's launches_phase3e;
-each 3e run's own counts are read around it), just before phase 3c and read
+each 3e run's own counts are read around it), just before phase 3f and read
+just after it for the int8 paged path (launches_phase3f: the paged kernel
+none), just before phase 3g and read just after it for the long-context path
+(launches_phase3g), just before phase 3h's streamed run and read just
+after it for the streaming path (launches_phase3h; 3h's all-at-once
+comparison run comes before and is not counted), just before phase 3c and read
 just after it for the app path (range_count, hadd, to_integral), and just
 before phase 3d and read just after it for the suite (softmax), and just
 before phase 5c and read just after it for training (flash forward with
@@ -288,6 +321,16 @@ PROFILE_STEPS = 10
 # phase 4b: one fused paged decode step at batch 1 over MULTI_SPLIT_FILL
 # prefilled rows, where kernel.plan splits the keys of each KV head
 MULTI_SPLIT_FILL = 4096
+# phase 3g: a long-context fused paged serve on which the paged kernel splits:
+# LONG_REQUESTS requests share a LONG_DOC-token document and add LONG_OWN
+# tokens each (one bucket), then generate LONG_GEN; batch LONG_BATCH,
+# LONG_CHUNK-token chunks, room for LONG_MAX_LEN rows (a table of 65 pages)
+LONG_REQUESTS, LONG_DOC, LONG_OWN, LONG_GEN = 8, 3584, 512, 64
+LONG_BATCH, LONG_CHUNK, LONG_MAX_LEN = 4, 256, 4160
+# phase 3h: run() starts on STREAM_FIRST of 3b's requests; a thread submits
+# the rest of the first STREAM_TOTAL at seeded Poisson times, STREAM_GAP_S
+# apart on average, once decoding is under way
+STREAM_FIRST, STREAM_TOTAL, STREAM_GAP_S = 4, 16, 0.01
 # the report entries two serves of the same requests must share, graphs on
 # and off (counts, not times; report["paged"] and report["spec"] in full)
 SERVE_COUNTED = ("requests", "generated_tokens", "steps", "padded_slot_steps_steady",
@@ -1270,12 +1313,20 @@ def serve_counted(report: dict) -> dict:
     return out
 
 
-def paired_serve(tag: str, name: str, gpu: str, run, check, graphs_first: bool | None
-                 ) -> dict:
+def _fmt(x) -> str:
+    """A measured number to 3 decimals, or the text that stands in its place."""
+    return f"{x:.3f}" if isinstance(x, float) else str(x)
+
+
+def paired_serve(tag: str, name: str, gpu: str, run, check, graphs_first: bool | None,
+                 trace: tuple = ("graphs", "eager")) -> dict:
     """One serve twice on the same requests: with the captured steps (the
     default) and under disable_graphs(), in the order ``graphs_first`` says
-    (None: the graphs run alone, without its eager twin), each traced
-    (device tracing only) and its launches read around it.
+    (None: the graphs run alone, without its eager twin), each side named
+    in ``trace`` traced (device tracing only; a side left out runs
+    untraced, where reading millions of its device records would take more
+    host time than the serve: its busy time and idle share are then not
+    measured) and its launches read around it.
     ``run()`` serves and returns the report; ``check(report, launched)``
     returns the problems of one run. Fails unless both pass their checks,
     the greedy outputs and every counter (SERVE_COUNTED, the per-request
@@ -1290,13 +1341,19 @@ def paired_serve(tag: str, name: str, gpu: str, run, check, graphs_first: bool |
     for side in order:
         before = read_counts()
         with contextlib.nullcontext() if side == "graphs" else disable_graphs():
-            report, trace = traced(run)
+            if side in trace:
+                report, record = traced(run)
+            else:
+                report = run()
+                record = {"host_wall_s": report["wall_s"], "device_busy_s": "not measured",
+                          "device_idle_share": "not measured",
+                          "device_records": "not measured"}
         after = read_counts()
         launched = {k: after[k] - before[k] for k in after}
         problems = check(report, launched)
         if problems:
             raise AssertionError(f"{tag} {name} ({side}): " + "; ".join(problems))
-        sides[side] = {"report": report, "launched": launched, "trace": trace}
+        sides[side] = {"report": report, "launched": launched, "trace": record}
     g = sides["graphs"]
     jc_g = g["report"]["jit_cache"]
     if not jc_g["prefill_chunk"] or not (jc_g["decode"] or jc_g.get("verify")):
@@ -1338,9 +1395,9 @@ def paired_serve(tag: str, name: str, gpu: str, run, check, graphs_first: bool |
           + "; ".join(f"{side}: decode_tokens_per_s {out[side]['decode_tokens_per_s']:.2f}, "
                       f"ttft_s_mean {out[side]['ttft_s_mean']:.4f}, wall_s "
                       f"{out[side]['wall_s']:.3f}, device busy "
-                      f"{out[side]['device_busy_s']:.3f} s of "
+                      f"{_fmt(out[side]['device_busy_s'])} s of "
                       f"{out[side]['host_wall_s']:.3f}, idle share "
-                      f"{out[side]['device_idle_share']:.3f}, jit_cache "
+                      f"{_fmt(out[side]['device_idle_share'])}, jit_cache "
                       f"{out[side]['jit_cache']}, device records "
                       f"{out[side]['device_records']}" for side in ("graphs", "eager"))
           + f"; tokens/s graphs / eager {out['tokens_per_s_ratio']:.3f}", flush=True)
@@ -1609,30 +1666,39 @@ def paged_requests(vocab: int, request_cls) -> list:
             for i in range(PAGED_REQUESTS)]
 
 
-def paged_check(cfg, n_req: int, speculation=None):
+def paged_check(cfg, n_req: int, speculation=None, int8: bool = False,
+                refused: set = frozenset()):
     """The problems of one fused paged serve (paired_serve's ``check``):
-    decode ran fused with no lane activation, nothing was refused, every
+    decode ran fused with no lane activation, the rids refused are
+    ``refused`` (none by default), every
     request got PAGED_GEN tokens, the paged kernel launched n_layers times
-    per decode or verify step, rmsnorm and swiglu launched, and with
-    ``speculation`` verify steps ran."""
+    per decode or verify step (``int8``: the pages are int8, and the kernel
+    launched no time: int8 pools take the plain version by their dtype),
+    rmsnorm and swiglu launched, and with ``speculation`` verify steps
+    ran."""
     def check(report, launched):
         paged = report["paged"]
         steps = paged["decode_steps"] + paged["verify_steps"]
+        per_step = 0 if int8 else cfg.n_layers
         problems = []
+        if paged["int8"] != int8:
+            problems.append(f"report['paged']['int8'] is {paged['int8']}")
         if report["target"] != "h100":
             problems.append(f"served with target {report['target']!r}")
         if not paged["fused"] or paged["lane_activations"]:
             problems.append(f"fused {paged['fused']}, lane_activations "
                             f"{paged['lane_activations']}")
-        if report["refused"] or report["requests"] != n_req:
+        if {r["rid"] for r in report["refused"]} != set(refused) \
+                or len(report["refused"]) != len(refused) or report["requests"] != n_req:
             problems.append(f"{report['requests']} of {n_req} answered, refused "
                             f"{report['refused']}")
         short = {r: len(t) for r, t in report["outputs"].items() if len(t) != PAGED_GEN}
         if short or len(report["outputs"]) != n_req:
             problems.append(f"requests without {PAGED_GEN} tokens: {short}")
-        if launched["paged_attention"] != cfg.n_layers * steps:
+        if launched["paged_attention"] != per_step * steps:
             problems.append(f"paged kernel launched {launched['paged_attention']} times in "
-                            f"{steps} decode or verify steps of {cfg.n_layers} layers")
+                            f"{steps} decode or verify steps of {cfg.n_layers} layers "
+                            f"(want {per_step} a step)")
         for name in ("rmsnorm", "swiglu"):
             if launched[name] <= 0:
                 problems.append(f"{name} kernel never launched while serving paged")
@@ -1816,6 +1882,306 @@ def spec_serve_phase(dev, params, gpu: str, paged_outputs: dict) -> dict:
     return out
 
 
+def int8_pools(pools: dict) -> dict:
+    """Absmax-int8 copies of bf16 fused pools (repro_torch.dist.compression,
+    per (token, head) row): the int8 payloads and their float32 scale pools
+    as ``{leaf}__scale``, the layout PagedKVStore(int8=True) keeps."""
+    from repro_torch.dist.compression import quantize_absmax_int8
+
+    out = {}
+    for n in ("k", "v"):
+        out[n], out[f"{n}__scale"] = quantize_absmax_int8(pools[n])
+    return out
+
+
+def int8_step_check(dev, model, params) -> dict:
+    """Phase 3f's step check: one fused paged decode step at batch 8 over 256
+    prefilled rows held as int8 pools (the plain version, which dequantizes
+    per touched page), against the same step run by the CUDA kernel over
+    bf16 pools holding the dequantized rows: _require_logits. Then the same
+    int8 step through the engine's step code, captured (a capture and a
+    replay) against its eager twin under disable_graphs(): logits and
+    every pool bit-equal, the replay's recorded launches equal to an eager
+    step's, and the paged kernel launched no time."""
+    import numpy as np
+    import torch
+
+    from repro_torch.nn import lm
+    from repro_torch.serve import StepGraphs, disable_graphs
+    from repro_torch.serve.graphs import run_model_step
+
+    cfg, batch, fill = model.cfg, PROFILE_BATCH, PROFILE_FILL
+    with torch.inference_mode():
+        pools, tables = paged_pools(dev, model, params, batch, fill, seed=13)
+        q8 = int8_pools(pools)
+        deq = {n: (q8[n].float() * q8[f"{n}__scale"]).to(model.dtype) for n in ("k", "v")}
+        tokens = np.random.default_rng(14).integers(0, cfg.vocab, (batch, 1))
+        pos = np.full(batch, fill, np.int64)
+        t_tokens = torch.from_numpy(tokens).to(dev)
+        t_pos = torch.from_numpy(pos).to(dev)
+        got, _, _ = lm.lm_decode_step_paged(model.tsl, params, {},
+                                            {n: t.clone() for n, t in q8.items()}, tables,
+                                            t_tokens, t_pos, cfg)
+        want, _, _ = lm.lm_decode_step_paged(model.tsl, params, {}, deq, tables, t_tokens,
+                                             t_pos, cfg)
+        out = {"batch": batch, "kv_len": fill + 1,
+               "vs_kernel_on_dequantized": _logits_check(got, want, cfg.vocab)}
+        _require_logits("fused int8 decode step vs the kernel over the dequantized rows",
+                        out["vs_kernel_on_dequantized"])
+        tables_np = tables.cpu().numpy()
+        captured = {n: t.clone() for n, t in q8.items()}
+        eager_pools = {n: t.clone() for n, t in q8.items()}
+        graphs = StepGraphs(dev)
+        before = read_counts()
+        for _ in range(2):          # the capture (after its warm-up), then a replay
+            replayed = run_model_step(graphs, "decode", model, params, {}, tokens, pos,
+                                      pools=captured, tables=tables_np)
+        replayed = replayed.clone()
+        mid = read_counts()
+        with disable_graphs():
+            eager = run_model_step(StepGraphs(dev), "decode", model, params, {}, tokens,
+                                   pos, pools=eager_pools, tables=tables_np).clone()
+        after = read_counts()
+        torch.cuda.synchronize()
+    entry = graphs.steps["decode", 1]
+    eager_launches = {k: after[k] - mid[k] for k in after if after[k] != mid[k]}
+    both = {k: mid[k] - before[k] for k in mid if mid[k] != before[k]}
+    out.update({
+        "replays": entry.replays, "launches_per_replay": entry.launches,
+        "eager_launches": eager_launches,
+        "logits_bit_equal": bool(torch.equal(replayed, eager)),
+        "pools_bit_equal": all(bool(torch.equal(captured[n], eager_pools[n]))
+                               for n in captured),
+        "max_abs_diff_vs_eager": (replayed.float() - eager.float()).abs().max().item()})
+    problems = []
+    if not (out["logits_bit_equal"] and out["pools_bit_equal"]):
+        problems.append(f"captured vs eager not bit-equal (logits {out['logits_bit_equal']}, "
+                        f"pools {out['pools_bit_equal']}, max abs diff "
+                        f"{out['max_abs_diff_vs_eager']:.3g})")
+    if entry.replays != 1 or entry.launches != eager_launches \
+            or both != {k: 2 * v for k, v in eager_launches.items()}:
+        problems.append(f"launches: replay {entry.launches}, eager {eager_launches}, "
+                        f"capture + replay {both} ({entry.replays} replays)")
+    if "paged_attention" in eager_launches or "paged_attention" in both:
+        problems.append("the paged kernel launched on int8 pools")
+    if problems:
+        raise AssertionError("phase 3f, int8 step: " + "; ".join(problems))
+    return out
+
+
+def int8_serve_phase(dev, model, params, gpu: str, paged_out: dict) -> dict:
+    """Phase 3f: 3b's requests and engine shape under PagedConfig(int8=True),
+    the page budget set to the bytes of 3b's default bf16 pool: paired_serve
+    (graphs first, both sides untraced) under paged_check(int8=True): the
+    pages are int8, the
+    paged kernel launches no time (int8 pools route to the plain version by
+    their dtype), rmsnorm and swiglu launch. Prints, as information, the
+    pages against 3b's, tokens/s, TTFT, the share of requests
+    whose tokens equal 3b's and where the others first differ. Then
+    int8_step_check."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import PagedConfig, Request, ServeEngine
+
+    cfg = get_config(ARCH)
+    budget = paged_out["paged"]["hbm_budget_bytes"]
+    config = PagedConfig(page_size=PAGE, int8=True, hbm_budget_bytes=budget)
+    kw = dict(batch=PAGED_BATCH, max_len=PAGED_MAX_LEN, device=dev, params=params,
+              prefill_chunk=PAGED_CHUNK)
+    t_phase = time.perf_counter()
+
+    def run():
+        return ServeEngine(cfg, paged=config, **kw).run(paged_requests(cfg.vocab, Request))
+
+    pair = paired_serve("phase3f", f"int8 paged serve {ARCH}", gpu, run,
+                        paged_check(cfg, PAGED_REQUESTS, int8=True), graphs_first=True,
+                        trace=())
+    report = pair.pop("report")
+    paged = report["paged"]
+    ref = paged_out["outputs"]
+    same = sum(report["outputs"][r] == ref[r] for r in report["outputs"])
+    first_diff = sorted(next(i for i, (a, b) in enumerate(zip(toks, ref[r])) if a != b)
+                        for r, toks in report["outputs"].items() if toks != ref[r])
+    saved = read_counts()
+    step = int8_step_check(dev, model, params)
+    for name, fn in counters().items():       # a comparison, not the main path
+        fn.launches = saved[name]
+    out = {"n_pages": paged["n_pages"], "n_pages_3b": paged_out["paged"]["n_pages"],
+           "page_bytes": paged["page_bytes"], "page_bytes_3b": paged_out["paged"]["page_bytes"],
+           "pages_ratio": paged["n_pages"] / paged_out["paged"]["n_pages"],
+           "hbm_budget_bytes": budget, "paged": paged, "launches": pair["launches"],
+           "share_equal_to_3b": same / PAGED_REQUESTS, "first_differing_token": first_diff,
+           "pair": pair, "step": step, "seconds": time.perf_counter() - t_phase}
+    g = pair["graphs"]
+    print(f"[phase3f] int8 paged serve {ARCH} on {gpu}: {out['n_pages']} pages of "
+          f"{out['page_bytes']} B against 3b's {out['n_pages_3b']} of {out['page_bytes_3b']} B "
+          f"in {budget} B (x{out['pages_ratio']:.3f}); graphs decode_tokens_per_s "
+          f"{g['decode_tokens_per_s']:.2f}, ttft_s_mean {g['ttft_s_mean']:.4f} (both sides "
+          f"untraced; a captured int8 decode step's idle share is phase 4's "
+          f"decode_step_paged_int8 row); requests with tokens equal to 3b's {same}/"
+          f"{PAGED_REQUESTS}, first differing token of the others {first_diff} (information "
+          f"only); one int8 step vs the kernel on the dequantized rows rel L2 "
+          f"{step['vs_kernel_on_dequantized']['logits_rel_l2']:.3g}, captured vs eager "
+          f"bit-equal, launches per replay {step['launches_per_replay']}; phase "
+          f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def long_requests(vocab: int, request_cls) -> list:
+    """Phase 3g: LONG_REQUESTS requests sharing a LONG_DOC-token document,
+    each with LONG_OWN tokens of its own, LONG_GEN generated."""
+    import numpy as np
+
+    rng = np.random.default_rng(17)
+    doc = rng.integers(0, vocab, LONG_DOC)
+    return [request_cls(rid=f"l{i}", gen_len=LONG_GEN, shared_prefix_len=LONG_DOC,
+                        tokens=np.concatenate([doc, rng.integers(0, vocab, LONG_OWN)])
+                        .astype(np.int32))
+            for i in range(LONG_REQUESTS)]
+
+
+def long_context_phase(dev, params, gpu: str) -> dict:
+    """Phase 3g: a long-context fused paged serve on which the paged kernel
+    splits: batch LONG_BATCH, max_len LONG_MAX_LEN, page PAGE, chunk
+    LONG_CHUNK, one bucket of LONG_DOC + LONG_OWN. Fails unless kernel.plan
+    gives more than one split at the engine's table width; paired_serve
+    (eager first) under paged_check (the paged kernel n_layers times a
+    decode step). The counters are set to 0 just before the pair and read
+    just after it (row 7's launches_phase3g)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.common import sm_count
+    from repro_torch.kernels.paged import kernel as paged_kernel
+    from repro_torch.serve import PagedConfig, Request, ServeEngine
+
+    cfg = get_config(ARCH)
+    kw = dict(batch=LONG_BATCH, max_len=LONG_MAX_LEN, device=dev, params=params,
+              prefill_chunk=LONG_CHUNK, buckets=(LONG_DOC + LONG_OWN,),
+              paged=PagedConfig(page_size=PAGE))
+    t_phase = time.perf_counter()
+    width = -(-LONG_MAX_LEN // PAGE)
+    splits, pps = paged_kernel.plan(LONG_BATCH, cfg.n_kv_heads, width, PAGE, sm_count(dev))
+    if splits < 2:
+        raise AssertionError(f"phase 3g: kernel.plan gives {splits} split(s) at batch "
+                             f"{LONG_BATCH}, table width {width}")
+    widths = []
+
+    def run():
+        engine = ServeEngine(cfg, **kw)
+        widths.append(engine._table_width)
+        return engine.run(long_requests(cfg.vocab, Request))
+
+    for fn in counters().values():
+        fn.launches = 0
+    pair = paired_serve("phase3g", f"long-context paged serve {ARCH}", gpu, run,
+                        paged_check(cfg, LONG_REQUESTS), graphs_first=False)
+    launched = read_counts()
+    if set(widths) != {width}:
+        raise AssertionError(f"phase 3g: the engines' table widths {widths}, want {width}")
+    report = pair.pop("report")
+    paged = report["paged"]
+    if paged["prefix_hits"] <= 0:
+        raise AssertionError("phase 3g: the document was never shared")
+    out = {"batch": LONG_BATCH, "max_len": LONG_MAX_LEN, "table_width": width,
+           "splits": splits, "pps": pps, "launches": launched, "paged": paged,
+           "decode_steps": paged["decode_steps"], "pair": pair,
+           "seconds": time.perf_counter() - t_phase}
+    print(f"[phase3g] long-context paged serve {ARCH} on {gpu}: {LONG_REQUESTS} x "
+          f"({LONG_DOC} shared + {LONG_OWN} + {LONG_GEN}) at batch {LONG_BATCH}, table "
+          f"width {width}: plan {splits} splits x {pps} entries per decode step; "
+          + "; ".join(f"{side}: decode_tokens_per_s {pair[side]['decode_tokens_per_s']:.2f}, "
+                      f"ttft_s_mean {pair[side]['ttft_s_mean']:.4f}, idle share "
+                      f"{pair[side]['device_idle_share']:.3f}" for side in ("graphs", "eager"))
+          + f"; launches of the pair {launched}, decode steps {paged['decode_steps']}, "
+          f"pool {paged['n_pages']} pages of {paged['page_bytes']} B, prefix hits "
+          f"{paged['prefix_hits']}; phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def stream_phase(dev, params, gpu: str) -> dict:
+    """Phase 3h: submit() into a running engine. run() starts on the first
+    STREAM_FIRST of 3b's requests; a host thread waits until the paged
+    kernel has launched (decoding is under way), then submits the next
+    STREAM_TOTAL - STREAM_FIRST at seeded Poisson times (mean
+    STREAM_GAP_S apart), then one with a duplicate rid and one with
+    gen_len 0. The all-at-once run of the same STREAM_TOTAL requests comes
+    first; the counters are set to 0 just before the streamed run and read
+    just after it (row 7's launches_phase3h). Fails unless every valid
+    request is answered with the all-at-once run's tokens, the streamed run
+    passes paged_check (fused, the paged kernel n_layers times a decode
+    step) with exactly the two invalid submissions in report["refused"],
+    their reasons invalid, and a streamed request was admitted after the
+    loop's first step. Prints each streamed request's arrival-to-first-token
+    time."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged import ops as paged_ops
+    from repro_torch.serve import PagedConfig, Request, ServeEngine
+
+    cfg = get_config(ARCH)
+    kw = dict(batch=PAGED_BATCH, max_len=PAGED_MAX_LEN, device=dev, params=params,
+              prefill_chunk=PAGED_CHUNK, paged=PagedConfig(page_size=PAGE))
+    t_phase = time.perf_counter()
+    reqs = paged_requests(cfg.vocab, Request)[:STREAM_TOTAL]
+    want = ServeEngine(cfg, **kw).run(paged_requests(cfg.vocab, Request)[:STREAM_TOTAL])
+    invalid = [Request(rid=reqs[1].rid, tokens=reqs[1].tokens, gen_len=4),
+               Request(rid="zero", tokens=reqs[2].tokens, gen_len=0)]
+    engine = ServeEngine(cfg, **kw)
+    gaps = np.random.default_rng(19).exponential(STREAM_GAP_S, len(reqs) - STREAM_FIRST + 2)
+    submitted = {}
+    t0 = time.perf_counter()
+
+    def feed():
+        start = paged_ops.paged_attention.launches
+        while paged_ops.paged_attention.launches == start:
+            time.sleep(0.001)
+        for gap, r in zip(gaps, reqs[STREAM_FIRST:] + invalid):
+            time.sleep(gap)
+            engine.submit(r)
+            submitted.setdefault(r.rid, time.perf_counter() - t0)
+
+    for fn in counters().values():
+        fn.launches = 0
+    thread = threading.Thread(target=feed, daemon=True)
+    thread.start()
+    got = engine.run(reqs[:STREAM_FIRST])
+    launched = read_counts()
+    thread.join(timeout=60)
+    problems = paged_check(cfg, STREAM_TOTAL, refused={reqs[1].rid, "zero"})(got, launched)
+    if thread.is_alive():
+        problems.append("the submitting thread did not finish")
+    differ = sorted(r for r in want["outputs"] if got["outputs"].get(r) != want["outputs"][r])
+    if differ or set(got["outputs"]) != set(want["outputs"]):
+        problems.append(f"outputs differ from the all-at-once run for {differ} (answered "
+                        f"{len(got['outputs'])} of {len(want['outputs'])})")
+    if not all(r["reason"].startswith("invalid:") for r in got["refused"]):
+        problems.append(f"refused {got['refused']}")
+    admitted = {m["rid"]: m["admitted_at_step"] for m in got["per_request"]}
+    streamed = [r.rid for r in reqs[STREAM_FIRST:]]
+    if not streamed or max(admitted.get(r, 0) for r in streamed) <= 0:
+        problems.append(f"no streamed request was admitted after the first step: {admitted}")
+    if problems:
+        raise AssertionError("phase 3h: " + "; ".join(problems))
+    ttft = {m["rid"]: m["ttft_s"] for m in got["per_request"] if m["rid"] in streamed}
+    out = {"first": STREAM_FIRST, "streamed": len(streamed), "refused": got["refused"],
+           "launches": launched, "decode_steps": got["paged"]["decode_steps"],
+           "submitted_s": submitted, "admitted_at_step": admitted,
+           "arrival_to_first_token_s": ttft,
+           "decode_tokens_per_s": got["decode_tokens_per_s"],
+           "all_at_once_decode_tokens_per_s": want["decode_tokens_per_s"],
+           "seconds": time.perf_counter() - t_phase}
+    print(f"[phase3h] submit() into a running engine, {ARCH} on {gpu}: {STREAM_FIRST} "
+          f"requests at start, {len(streamed)} streamed (mean gap {STREAM_GAP_S} s) and 2 "
+          f"invalid; outputs equal to the all-at-once run; refused {got['refused']}; "
+          f"arrival-to-first-token s {json.dumps(ttft)}; admitted at step "
+          f"{json.dumps(admitted)}; decode_tokens_per_s {got['decode_tokens_per_s']:.2f} "
+          f"(all at once {want['decode_tokens_per_s']:.2f}); launches of the streamed run "
+          f"{launched} in {out['decode_steps']} decode steps; phase {out['seconds']:.1f} s",
+          flush=True)
+    return out
+
+
 def app_phase(dev, gpu: str) -> dict:
     """The paper's range-count app on the card: quickstart.main (the entry
     point a user runs) on each APP_CASES data set and range, whose four
@@ -1991,7 +2357,8 @@ def profile_phase(dev, model, params, gpu: str) -> dict:
         pools, tables = paged_pools(dev, model, params, PROFILE_BATCH, PROFILE_FILL,
                                     seed=6)
         tables = tables.cpu().numpy()
-        lane, fused = StepGraphs(dev), StepGraphs(dev)
+        q8 = int8_pools(pools)
+        lane, fused, fused8 = StepGraphs(dev), StepGraphs(dev), StepGraphs(dev)
         drafter = DraftModelDrafter(cfg, cfg, batch=PROFILE_BATCH,
                                     state_len=max_len + SPEC_K, device=dev, params=params)
         steps = {
@@ -2004,6 +2371,12 @@ def profile_phase(dev, model, params, gpu: str) -> dict:
                                   lambda: run_model_step(fused, "decode", model, params, {},
                                                          tokens, pos, pools=pools,
                                                          tables=tables)),
+            "decode_step_paged_int8": ({"batch": PROFILE_BATCH, "pos": PROFILE_FILL,
+                                        "page": PAGE, "table_width": tables.shape[1],
+                                        "pools": "int8 + float32 scales"},
+                                       lambda: run_model_step(fused8, "decode", model, params,
+                                                              {}, tokens, pos, pools=q8,
+                                                              tables=tables)),
             "verify_step_paged": ({"batch": PROFILE_BATCH, "pos": PROFILE_FILL,
                                    "span": SPEC_K + 1, "page": PAGE,
                                    "table_width": tables.shape[1],
@@ -2031,6 +2404,7 @@ def profile_phase(dev, model, params, gpu: str) -> dict:
             out[kind] = {**info, "captured": _profile(fn), "eager": _profile(eager)}
     out["jit_cache"] = {"lane": lane.sizes(("prefill_chunk", "decode")),
                         "fused": fused.sizes(("decode", "verify")),
+                        "fused_int8": fused8.sizes(("decode",)),
                         "drafter": drafter.graphs.sizes(("decode",))}
     for kind, r in out.items():
         print(f"[phase4] {kind} on {gpu}: {json.dumps(r)}", flush=True)
@@ -2894,6 +3268,12 @@ def main() -> int:
     spec["launches"] = read_counts()
     for fn in counters().values():
         fn.launches = 0
+    int8 = int8_serve_phase(dev, lm, params, gpu, paged)
+    int8["launches"] = read_counts()
+    long = long_context_phase(dev, params, gpu)
+    stream = stream_phase(dev, params, gpu)
+    for fn in counters().values():
+        fn.launches = 0
     app = app_phase(dev, gpu)
     app["launches"] = read_counts()
     for fn in counters().values():
@@ -2908,8 +3288,14 @@ def main() -> int:
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} never launched on its main path")
         if row["name"] == "paged_attention":
-            # the speculative paged path (3e): decode and verify steps
+            # the speculative paged path (3e): decode and verify steps; the
+            # int8 paged path (3f: none, int8 pools take the plain version);
+            # the long-context path (3g, several splits a step); streaming
+            # (3h)
             row["launches_phase3e"] = spec["launches"]["paged_attention"]
+            row["launches_phase3f"] = int8["launches"]["paged_attention"]
+            row["launches_phase3g"] = long["launches"]["paged_attention"]
+            row["launches_phase3h"] = stream["launches"]["paged_attention"]
     saved = read_counts()
     profile_phase(dev, lm, params, gpu)
     multi_split_phase(dev, lm, params, gpu)
@@ -2954,7 +3340,10 @@ def main() -> int:
           f"(eager {serve['eager']['decode_tokens_per_s']:.1f}) ttft_s_mean "
           f"{serve['graphs']['ttft_s_mean']:.3f}, paged serve decode_tokens_per_s "
           f"{paged['decode_tokens_per_s']:.1f} ttft_s_mean {paged['ttft_s_mean']:.3f}, "
-          f"speculative paged path {spec['launches']} ({spec['seconds']:.1f} s), "
+          f"speculative paged path {spec['launches']} ({spec['seconds']:.1f} s), int8 "
+          f"paged path {int8['launches']} ({int8['n_pages']} pages against "
+          f"{int8['n_pages_3b']}), long-context path {long['launches']} ({long['splits']} "
+          f"splits a step), streaming path {stream['launches']}, "
           f"train launches {train['launches']}, train losses "
           f"{[x['loss'] for x in train['steps']]}, compiled train step bit-equal to eager "
           f"{ {k: v['bit_equal'] for k, v in compiled['cases'].items()} } "

@@ -3,6 +3,14 @@
 block-table kernel (or raises on what it does not take), a CPU tensor takes
 the plain version. ``paged_attention.launches`` counts kernel launches.
 
+int8 pools (``k_scale`` / ``v_scale`` given) take the plain version on both
+devices, as the reference routes them to its jnp scan
+(``repro/kernels/paged/ops.py:46-49``): each touched page is dequantized in
+float32 inside the loop. This route is chosen by the operands alone, before
+anything is built or launched; it is not a fallback from a failed build or
+launch, and it launches no kernel (the counter does not move). It reads no
+device value on the host, so a captured serving step holds it as it is.
+
 The page size is not a parameter: it is read off the pool's page axis. The
 key block is clamped to divide the page (``block_k`` candidates smaller than
 the page tile it; anything else degrades to one block per page), and the
@@ -29,9 +37,8 @@ def paged_attention(q, k_pool, v_pool, tables, kv_len, *, k_scale=None, v_scale=
     """q (B,H,SQ,D); k_pool/v_pool (KH, n_pages, page, D); tables (B,P) int32
     page ids; kv_len (B,) int32 (a scalar broadcasts; a device tensor stays
     on the device). Returns (B,H,SQ,D) in q's dtype."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError("int8 page pools (k_scale/v_scale) are not ported "
-                                  "yet: see ROADMAP.md, queue 1, item 5")
+    if k_scale is not None or v_scale is not None or k_pool.dtype == torch.int8:
+        return _int8_pages(q, k_pool, v_pool, tables, kv_len, k_scale, v_scale, scale)
     if q.device.type == "cpu":
         return ref.paged_attention_ref(q, k_pool, v_pool, tables, kv_len, scale=scale)
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
@@ -78,5 +85,25 @@ def paged_attention(q, k_pool, v_pool, tables, kv_len, *, k_scale=None, v_scale=
 
 
 paged_attention.launches = 0
+
+
+def _int8_pages(q, k_pool, v_pool, tables, kv_len, k_scale, v_scale, scale):
+    """The int8 route: absmax-int8 pools with their float32 (KH, n_pages,
+    page, 1) scale pools, through the plain version on either device."""
+    if k_scale is None or v_scale is None:
+        raise ValueError("paged_attention: int8 pools need both k_scale and v_scale")
+    if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
+        raise ValueError(f"paged_attention: k_scale / v_scale go with int8 pools, got "
+                         f"{k_pool.dtype} / {v_pool.dtype}")
+    want = tuple(k_pool.shape[:-1]) + (1,)
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t.dtype != torch.float32 or tuple(t.shape) != want:
+            raise ValueError(f"paged_attention: {name} must be float32 {want}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if len({t.device for t in (q, k_pool, v_pool, k_scale, v_scale)}) != 1:
+        raise ValueError("paged_attention: q, the int8 pools and their scales must share "
+                         "one device")
+    return ref.paged_attention_ref(q, k_pool, v_pool, tables, kv_len, k_scale=k_scale,
+                                   v_scale=v_scale, scale=scale)
 
 __all__ = ["paged_attention", "ref"]

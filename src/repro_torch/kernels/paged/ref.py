@@ -69,11 +69,15 @@ def paged_attention_ref(q, k_pool, v_pool, tables, kv_len, *, k_scale=None,
     ``pages_per_step`` is the key-block knob: each step of the loop fetches
     that many table entries and runs one online-softmax update; the table is
     padded to a multiple with each sequence's first entry (those positions
-    lie past every query row and mask out). int8 pools (``k_scale`` /
-    ``v_scale``) are not ported yet and raise."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError("int8 page pools (k_scale/v_scale) are not ported "
-                                  "yet: see ROADMAP.md, queue 1, item 5")
+    lie past every query row and mask out).
+
+    int8 pools pass per-row ``k_scale`` / ``v_scale`` pools of shape
+    (KH, n_pages, page, 1), float32: each touched page is dequantized in
+    float32 inside the loop, never at a park or activate boundary. The loop
+    reads no device value on the host, so it can be captured in a CUDA
+    graph."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("paged_attention_ref: pass both k_scale and v_scale, or neither")
     b, h, sq, d = q.shape
     kh, _, page, _ = k_pool.shape
     group = h // kh
@@ -97,8 +101,12 @@ def paged_attention_ref(q, k_pool, v_pool, tables, kv_len, *, k_scale=None,
     acc = torch.zeros((b, kh, r, d), device=dev)
     for p in range(n_steps):
         pid = grouped[:, p]                                       # (B, G)
-        k = k_pool[:, pid].movedim(1, 0).float().reshape(b, kh, width, d)
-        v = v_pool[:, pid].movedim(1, 0).float().reshape(b, kh, width, d)
+        k, v = k_pool[:, pid].float(), v_pool[:, pid].float()     # (KH, B, G, page, D)
+        if k_scale is not None:
+            k = k * k_scale[:, pid]
+            v = v * v_scale[:, pid]
+        k = k.movedim(1, 0).reshape(b, kh, width, d)
+        v = v.movedim(1, 0).reshape(b, kh, width, d)
         s = torch.einsum("bkrd,bkcd->bkrc", qf, k) * sc
         kpos = p * width + torch.arange(width, device=dev)        # logical positions
         valid = (kpos[None, None, :] <= qi[:, :, None])[:, None]  # (B, 1, R, width)

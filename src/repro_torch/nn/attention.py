@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.dist.compression import quantize_absmax_int8
+
 from .rope import rope_tables
 
 
@@ -164,7 +166,7 @@ def _span_attend(tsl, p, x, k_cache, v_cache, pos, cfg, span_op):
 
 
 def attention_span_paged(tsl, p, x, k_pool, v_pool, tables, pos, cfg, span_op, *,
-                         kv_len):
+                         kv_len, k_scale=None, v_scale=None):
     """Fused paged decode or verify span: project C tokens per slot, write
     each row STRAIGHT into its block-table page and attend directly against
     the page pool — no page->lane gather anywhere.
@@ -179,7 +181,11 @@ def attention_span_paged(tsl, p, x, k_pool, v_pool, tables, pos, cfg, span_op, *
     that every layer shares, so rows past a slot's fill are dead and a
     rejected draft's rows need no rollback. Inactive slots must point
     at a scratch page (a valid id): their row writes and reads land there.
-    Full-precision pools only (the int8 wire format is not ported yet).
+    ``k_scale`` / ``v_scale`` (KH, n_pages, page, 1) float32 switch the
+    pools to the absmax-int8 wire format (``dist/compression.py``): each
+    written row is quantized, its int8 payload and its scale written in
+    place at the same (page, offset), and the primitive dequantizes per
+    touched page.
 
     Returns (y (B,C,D), k_pool, v_pool)."""
     b, c, _ = x.shape
@@ -191,8 +197,17 @@ def attention_span_paged(tsl, p, x, k_pool, v_pool, tables, pos, cfg, span_op, *
     off = positions % page
     # pool[:, pid, off] broadcasts the (B, C) index pair under the KH slice:
     # (KH, B, C, hd) slabs, heads-major like the pool
-    k_pool[:, pid, off] = k.transpose(0, 1).to(k_pool.dtype)
-    v_pool[:, pid, off] = v.transpose(0, 1).to(v_pool.dtype)
-    o = span_op(q.contiguous(), k_pool, v_pool, tables, kv_len=kv_len)
+    kr, vr = k.transpose(0, 1), v.transpose(0, 1)
+    if k_scale is not None:
+        (qk, sk), (qv, sv) = quantize_absmax_int8(kr), quantize_absmax_int8(vr)
+        k_pool[:, pid, off] = qk
+        v_pool[:, pid, off] = qv
+        k_scale[:, pid, off] = sk
+        v_scale[:, pid, off] = sv
+    else:
+        k_pool[:, pid, off] = kr.to(k_pool.dtype)
+        v_pool[:, pid, off] = vr.to(v_pool.dtype)
+    o = span_op(q.contiguous(), k_pool, v_pool, tables, kv_len=kv_len, k_scale=k_scale,
+                v_scale=v_scale)
     o = o.transpose(1, 2).reshape(b, c, h * hd)
     return tsl.matmul(o, p["wo"]), k_pool, v_pool

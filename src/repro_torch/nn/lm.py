@@ -193,15 +193,20 @@ def _lm_paged_span(tsl, params, pools, tables, tokens, pos, cfg, span_op):
     """Fused-paged decode / verify body: every layer's span attends DIRECTLY
     against its (KH, n_pages, page, hd) slice of the (L, 1, KH, n_pages, page, hd)
     pools (see attention_span_paged), written in place. ``kv_len`` = pos + C
-    is computed once on the device and shared by every layer.
+    is computed once on the device and shared by every layer. int8 pools
+    carry their (L, 1, KH, n_pages, page, 1) float32 scale pools as
+    ``k__scale`` / ``v__scale``, each layer's slice beside its payload's.
     Returns (logits (B,C,V), pools)."""
     x = tsl.embed_lookup(params["embed"], tokens)
     kv_len = (pos + tokens.shape[1]).to(torch.int32)
+    int8 = "k__scale" in pools
     for i, bp in enumerate(unstack_layers(params["blocks"], cfg.n_layers)):
+        scales = {"k_scale": pools["k__scale"][i, 0],
+                  "v_scale": pools["v__scale"][i, 0]} if int8 else {}
         h, _, _ = attention_span_paged(
             tsl, bp["attn"], apply_norm_params(tsl, cfg, bp["attn_norm"], x),
             pools["k"][i, 0], pools["v"][i, 0], tables, pos, cfg, span_op,
-            kv_len=kv_len)
+            kv_len=kv_len, **scales)
         x = x + h
         x = x + mlp_forward(tsl, bp["mlp"],
                             apply_norm_params(tsl, cfg, bp["mlp_norm"], x), cfg)

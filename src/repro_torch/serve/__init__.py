@@ -6,8 +6,8 @@
 - ``slots``: reading a slot back out, validating a donor against the slot
   table (the surgery itself is ``Model.insert_slot`` / ``reset_slot``), and
   the refcounted page allocator;
-- ``paging``: block-table page pools, copy-on-write prefix sharing and the
-  host-spill tier;
+- ``paging``: block-table page pools (full precision, or absmax int8 with
+  float32 scales), copy-on-write prefix sharing and the host-spill tier;
 - ``spec``: speculative decoding — the n-gram and draft-model drafters, the
   longest-accepted-prefix rule and the cost-priced per-slot depth
   (``attention_verify``'s serve block and cost term);
@@ -15,8 +15,8 @@
   in CUDA graphs on the card (the reference's jitted steps and its
   ``jit_cache``), and ``disable_graphs()``, the one way to run them eagerly;
 - ``engine``: the per-step continuous-batching loop with chunked prefill,
-  lane-mode or paged (fused decode off the pools, or the lane fallback), and
-  its speculative decode-or-verify step.
+  lane-mode or paged (fused decode off the pools, or the lane fallback), its
+  speculative decode-or-verify step, and ``submit()`` into a running loop.
 """
 
 from .engine import SamplingConfig, ServeEngine

@@ -18,7 +18,10 @@ bucketed prefill gives the same tokens as whole-prompt prefill.
 Requests may arrive on a trace: a preset ``arrival_s`` makes a request
 visible to admission only once the engine clock reaches it; TTFT and SLA
 accounting run from that arrival, and shared-step wall time is attributed
-proportionally to prefill vs decode tokens.
+proportionally to prefill vs decode tokens. ``submit()`` hands a request to a
+RUNNING ``run()`` from another thread: the loop drains its inbox at the top
+of every step, and a duplicate rid or ``gen_len < 1`` among submitted
+requests becomes a recorded refusal instead of an error.
 
 The slot table, the donors and the KV caches are updated IN PLACE on the
 device (the reference donates its buffers to jit for the same effect).
@@ -44,7 +47,11 @@ off the pools through per-step (B, P) block tables
 (``Model.decode_step_paged`` -> ``attention_decode_paged``, the CUDA C++
 block-table kernel on the card) — no page->lane gather ever runs;
 ``fused=False`` activates a request by gathering its pages into a lane and
-decodes as lane mode (the bit-identical fallback).
+decodes as lane mode (the bit-identical fallback). ``PagedConfig(int8=True)``
+keeps the pages as absmax int8 with a float32 scale per row: the fused steps
+quantize each written row into the pools and dequantize per touched page in
+the plain paged attention (the reference runs no Pallas kernel on int8 pools
+either), and a lane activation dequantizes on its gather.
 
 Speculative decoding (``speculation=SpeculationConfig(...)``, ``serve/spec.py``)
 makes phase 2 a decode OR a verify step: a drafter proposes up to k tokens per
@@ -83,8 +90,8 @@ from repro_torch.nn.model import build_model
 
 from .graphs import StepGraphs, run_model_step, run_prefill_chunk
 from .paging import PagedConfig, PagedKVStore, prefix_key, selected_page_size
-from .scheduler import (BucketPolicy, CostModelAdmission, PagedAdmission, Request,
-                        Scheduler)
+from .scheduler import (BucketPolicy, CostModelAdmission, PagedAdmission, Refusal,
+                        Request, Scheduler)
 from .slots import PagesExhausted, assert_span_fits, validate_donor
 from .spec import SpeculationConfig, SpeculationPolicy, accept_span, build_drafter, \
     upd_verify_defaults
@@ -194,12 +201,14 @@ class ServeEngine:
                 # default budget: pages for 2x the lane count at worst-case
                 # length — paged strictly dominates the contiguous table
                 probe = PagedKVStore(shapes, self._page_axes, page_size=psize,
-                                     ops=self.model.tsl, n_pages=1, device="meta")
+                                     ops=self.model.tsl, n_pages=1, int8=paged.int8,
+                                     device="meta")
                 n_pages = 2 * batch * max(probe.pages_for_rows(max_len), 1)
             self._store = PagedKVStore(
                 shapes, self._page_axes, page_size=psize,
                 hbm_budget_bytes=paged.hbm_budget_bytes, n_pages=n_pages,
-                fused=paged.fused, device=self.device, ops=self.model.tsl)
+                int8=paged.int8, fused=paged.fused, device=self.device,
+                ops=self.model.tsl)
             self._max_inflight = paged.max_inflight_prefills or 2 * batch
         # FUSED paged decode: slots decode straight off the block-table pools
         self._fused = self._store is not None and self._store.fused
@@ -236,6 +245,9 @@ class ServeEngine:
         # the compiled steps, and the slot table they point at
         self._graphs = StepGraphs(self.device)
         self._state: dict | None = None
+        # requests handed to a running loop (submit): any thread appends, the
+        # loop alone pops (list append and pop are atomic under the GIL)
+        self._inbox: list[Request] = []
 
     # -- helpers --------------------------------------------------------------
 
@@ -331,7 +343,8 @@ class ServeEngine:
         if t < chunk:
             return None, 0
         key = prefix_key(arch=self.cfg.name, page_size=self._store.page,
-                         seed=self._seed, tokens=np.asarray(req.tokens, np.int64)[:t])
+                         int8=self._store.int8, seed=self._seed,
+                         tokens=np.asarray(req.tokens, np.int64)[:t])
         return key, t
 
     def _reserve_paged(self, sched: Scheduler, tasks: list, now, step: int) -> None:
@@ -412,7 +425,7 @@ class ServeEngine:
                 donor = self._store.load_donor(rid, self._tails_template())
                 self._tail_restores += 1
                 self._gather_bytes_eliminated += \
-                    self._store.requests[rid].fill * self._store.row_bytes
+                    self._store.requests[rid].fill * self._store.fp_row_bytes
             else:
                 donor = self._store.load_donor(rid, self._new_donor())
                 self._lane_activations += 1
@@ -531,6 +544,33 @@ class ServeEngine:
             self._store.unpin(rid)      # parked: cold, host-spillable
         return state, gen_inc
 
+    # -- async ingestion ------------------------------------------------------
+
+    def submit(self, req: Request) -> None:
+        """Hand a request to a RUNNING ``run()`` (from any thread): it is
+        drained into the scheduler at the next step boundary and gated by its
+        ``arrival_s`` like any trace-driven request. A request submitted
+        when no loop runs waits for the next ``run()``."""
+        self._inbox.append(req)
+
+    def _drain_inbox(self, sched: Scheduler, seen_rids: set, now: float) -> None:
+        """Move every submitted request into the scheduler, popping one at a
+        time (a submit that lands meanwhile is kept). A duplicate rid or
+        ``gen_len < 1`` is recorded as a refusal, as ``run()``'s list would
+        raise: one bad submission must not stop the loop for the others."""
+        while self._inbox:
+            r = self._inbox.pop(0)
+            if r.rid in seen_rids:
+                sched.refused.append(Refusal(r.rid, "invalid: duplicate rid in this run"))
+                continue
+            if r.gen_len < 1:
+                sched.refused.append(Refusal(
+                    r.rid, "invalid: gen_len must be >= 1 (the first token always "
+                           "comes from prefill)"))
+                continue
+            seen_rids.add(r.rid)
+            sched.submit(r, now)
+
     # -- the serving loop -----------------------------------------------------
 
     @torch.inference_mode()
@@ -578,8 +618,10 @@ class ServeEngine:
         spec_slot_rounds = 0        # (slot, round) pairs that speculated
         chunk = self.policy.chunk
 
-        while sched.has_work() or tasks:
+        seen_rids = set(rids)
+        while sched.has_work() or tasks or self._inbox:
             t_step0 = time.perf_counter()
+            self._drain_inbox(sched, seen_rids, now())
             sched.release(now())
 
             # -- reservation: every free slot starts a chunk schedule --------
@@ -677,7 +719,7 @@ class ServeEngine:
                 if self._fused:
                     pos_step = np.zeros(self.batch, np.int64)
                     pos_step[active] = pos_host[active]
-                    paged_kw = {"pools": self._store.pools,
+                    paged_kw = {"pools": self._store.device_pools(),
                                 "tables": self._build_tables(sched, active)}
                 if K == 0:
                     # exactly the plain decode step: the same call and the
@@ -795,7 +837,7 @@ class ServeEngine:
                 step += 1           # a unified step actually did device work
             elif not sched.active_slots() and not tasks:
                 nxt = sched.next_arrival_s()
-                if nxt is not None and not sched.queue:
+                if nxt is not None and not sched.queue and not self._inbox:
                     # idle until the next scheduled arrival
                     time.sleep(max(0.0, min(nxt - now(), 0.05)))
 
@@ -873,7 +915,7 @@ class ServeEngine:
                 "prefix_entries": len(st.prefix_store.entries),
                 "cow_copies": st.cow_copies,
                 "preemptions": self._preempt_count,
-                "int8": False,
+                "int8": st.int8,
                 "fused": self._fused,
                 # host spill tier: cold unshared pages evicted to host memory
                 "spills": st.spills,

@@ -6,7 +6,8 @@ staging and :func:`disable_graphs`).
 
 Each decode, verify and prefill-chunk step is one :class:`Step`, keyed by
 its width. Donation becomes buffers updated in place: the slot table, the
-page pools and a drafter's state stay where the graph captured them, and a
+page pools (int8 pools' scale pools too) and a drafter's state stay where
+the graph captured them, and a
 batch-1 prefill donor is staged through the step's own donor (``inout``:
 copied in before the replay and out after it), so one chunk graph serves
 every in-flight prefill. Every entry of one engine or drafter shares one
@@ -68,9 +69,10 @@ def run_model_step(graphs: StepGraphs, kind: str, model, params, state: dict,
     tokens (B, K+1)) step of ``model`` at the (B,) per-slot positions
     ``pos``, keyed by its width: in lane mode on the slot table ``state``,
     fused paged (``pools`` and the (B, P) ``tables`` given) off the page
-    pools. ``state`` and ``pools`` are updated in place and must stay the
-    tensors the graph captured. Returns the static (B, V) or (B, SV, V)
-    logits."""
+    pools (int8 pools with their ``{leaf}__scale`` pools beside them, which
+    the step writes and reads as it does the payloads). ``state`` and
+    ``pools`` are updated in place and must stay the tensors the graph
+    captured. Returns the static (B, V) or (B, SV, V) logits."""
     args = {"tokens": tokens, "pos": pos}
     sizes = None
     if pools is None:

@@ -1,6 +1,5 @@
-"""Paged slot memory: block-table KV pools, copy-on-write prefix sharing and
-a host-spill tier (mirrors ``repro/serve/paging.py`` for full-precision
-pools; its int8 pages are not ported yet).
+"""Paged slot memory: block-table KV pools, copy-on-write prefix sharing, a
+host-spill tier and opt-in int8 pages (mirrors ``repro/serve/paging.py``).
 
 The contiguous slot table reserves a max-length cache per lane, so
 residency is bounded by worst-case length. This layer turns the cache into a
@@ -19,7 +18,12 @@ the tokens a request has actually produced:
   everything that determines page content) and shared read-only with
   refcounts; a write into a shared page goes through copy-on-write
   (:meth:`PagedKVStore._cow`), so a sharer never mutates another request's
-  prefix.
+  prefix;
+* ``int8=True`` stores pages in the absmax-int8 wire format of
+  ``repro_torch.dist.compression`` (an int8 pool with a float32 scale per
+  last-axis row beside it): rows quantize on every write and dequantize per
+  touched page inside the paged attention primitive, or on a lane
+  activation's gather. Opt-in because it changes numerics.
 
 FUSED mode (``PagedConfig.fused``, the default) keeps each leaf's own layout
 with the token axis split in place into ``(n_pages, page)`` — the
@@ -36,7 +40,8 @@ prefix entry is evictable, the coldest parked request's exclusive pages are
 copied to host memory and their device pages released; they rehydrate into
 fresh pages when the request is pinned (activated) again.
 
-The pools live on the engine's device and are written IN PLACE. Page size is
+The pools (and the scale pools) live on the engine's device and are written
+IN PLACE, never rebound: captured steps hold their addresses. Page size is
 UPD data: the ``serve:`` block on ``cache_page_read`` declares the
 candidates and :func:`selected_page_size` probes the generated library for
 the selected definition. Gather/scatter of the flat layout run through the
@@ -52,6 +57,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+from repro_torch.dist.compression import dequantize_absmax_int8, quantize_absmax_int8
 from repro_torch.kernels.paged import ref as _pref
 
 from .slots import PageAllocator, PagesExhausted, SlotPages
@@ -81,12 +88,13 @@ def selected_page_size(ops) -> int:
     return int(out.shape[0])
 
 
-def prefix_key(*, arch: str, page_size: int, seed: int, tokens) -> str:
+def prefix_key(*, arch: str, page_size: int, int8: bool, seed: int, tokens) -> str:
     """Content address of a shareable prefix: a sha256 digest over what
     determines the page content — the arch and param seed, the page
-    geometry, and the prefix token ids."""
+    geometry and precision (int8 and full-precision pages never share a
+    key), and the prefix token ids."""
     h = hashlib.sha256()
-    h.update(repr((arch, int(page_size), int(seed))).encode())
+    h.update(repr((arch, int(page_size), bool(int8), int(seed))).encode())
     h.update(np.ascontiguousarray(np.asarray(tokens, np.int64)).tobytes())
     return h.hexdigest()[:16]
 
@@ -101,8 +109,10 @@ class PagedConfig:
     ``max_inflight_prefills`` caps concurrent chunk schedules (None: 2x
     lanes). ``fused`` decodes straight off the block table through
     ``attention_decode_paged``; ``False`` forces the activate-into-a-lane
-    fallback (bit-identical to contiguous decode). ``int8`` pages are not
-    ported yet and raise."""
+    fallback (bit-identical to contiguous decode). ``int8`` stores pages
+    quantized (absmax int8 + a float32 scale per row): about half the
+    bytes of bf16 pages, so one budget holds about twice the pages; it
+    changes numerics, hence opt-in."""
 
     hbm_budget_bytes: int | None = None
     page_size: int | None = None
@@ -110,11 +120,6 @@ class PagedConfig:
     prefix_sharing: bool = True
     max_inflight_prefills: int | None = None
     fused: bool = True
-
-    def __post_init__(self):
-        if self.int8:
-            raise NotImplementedError("int8 pages are not ported yet: see ROADMAP.md, "
-                                      "queue 1, item 5")
 
 
 @dataclass
@@ -192,18 +197,29 @@ class PagedKVStore:
     ``None`` leaves are TAIL state, stored as whole host snapshots per
     request and charged to the same page budget as a ceil(tail_bytes /
     page_bytes) reservation. ``ops`` is the generated library's primitive
-    namespace (cache_page_read/write for the flat layout)."""
+    namespace (cache_page_read/write for the flat layout).
+
+    ``int8``: every paged leaf's pool holds int8 payloads, and a float32
+    scale pool of the same layout with a last axis of 1 sits beside it
+    (``scale_pools``; ``{leaf}__scale`` in :meth:`device_pools`); a row costs
+    its elements plus 4 bytes per last-axis row. ``device``: the card by
+    default (``resolve_device``); ``"cpu"`` must be asked for, and ``"meta"``
+    prices a layout without allocating it."""
 
     def __init__(self, donor_shapes: dict, page_axes: dict, *, page_size: int, ops,
                  hbm_budget_bytes: int | None = None, n_pages: int | None = None,
-                 fused: bool = False, device: torch.device | str = "cpu"):
+                 int8: bool = False, fused: bool = False,
+                 device: torch.device | str = "cuda"):
         self.page = int(page_size)
-        self.device = torch.device(device)
+        self.int8 = bool(int8)
+        dev = torch.device(device)
+        self.device = dev if dev.type == "meta" else resolve_device(dev)
         self._ops = ops
         self.paged: dict[str, tuple[int, tuple, torch.dtype]] = {}
         self.tail_leaves: dict[str, tuple[tuple, torch.dtype]] = {}
         tail_bytes = 0
         row_bytes = 0
+        fp_row_bytes = 0
         for name, (shape, dtype) in donor_shapes.items():
             ax = page_axes.get(name)
             itemsize = dtype.itemsize
@@ -213,8 +229,13 @@ class PagedKVStore:
                 continue
             row_shape = tuple(int(s) for i, s in enumerate(shape) if i != ax)
             self.paged[name] = (int(ax), row_shape, dtype)
-            row_bytes += int(np.prod(row_shape)) * itemsize
+            n_elem = int(np.prod(row_shape))
+            fp_row_bytes += n_elem * itemsize
+            # int8: the payload plus one float32 scale per last-axis row
+            row_bytes += n_elem + 4 * int(np.prod(row_shape[:-1])) if self.int8 \
+                else n_elem * itemsize
         self.row_bytes = row_bytes
+        self.fp_row_bytes = fp_row_bytes
         self.tail_bytes = tail_bytes
         self.page_bytes = self.page * row_bytes if row_bytes else max(tail_bytes, 1)
         if n_pages is None:
@@ -228,6 +249,7 @@ class PagedKVStore:
         self.fused = bool(fused) and bool(self.paged)
         # written in place only, never rebound: captured steps point at them
         self.pools: dict[str, torch.Tensor] = {}
+        self.scale_pools: dict[str, torch.Tensor] = {}
         for name, (ax, row_shape, dt) in self.paged.items():
             if self.fused:
                 # the leaf's own layout, token axis split in place into
@@ -235,7 +257,12 @@ class PagedKVStore:
                 shape = row_shape[:ax] + (self.n_pages, self.page) + row_shape[ax:]
             else:
                 shape = (self.n_pages * self.page,) + row_shape
-            self.pools[name] = torch.zeros(shape, dtype=dt, device=self.device)
+            if self.int8:
+                self.pools[name] = torch.zeros(shape, dtype=torch.int8, device=self.device)
+                self.scale_pools[name] = torch.ones(shape[:-1] + (1,), dtype=torch.float32,
+                                                    device=self.device)
+            else:
+                self.pools[name] = torch.zeros(shape, dtype=dt, device=self.device)
         self.requests: dict[str, SlotPages] = {}
         self.tails: dict[str, dict | None] = {}
         self._tail_res: dict[str, list[int]] = {}
@@ -258,6 +285,16 @@ class PagedKVStore:
             self.scratch_page = self.allocator.alloc()
 
     # -- gather/scatter -------------------------------------------------------
+
+    def _all_pools(self):
+        """(key, pool, token axis) of every pool: the payloads, and with int8
+        their scale pools under ``{leaf}__scale`` (what spill, rehydrate and
+        copy-on-write move together, bit for bit)."""
+        for name, pool in self.pools.items():
+            ax = self.paged[name][0]
+            yield name, pool, ax
+            if self.int8:
+                yield f"{name}__scale", self.scale_pools[name], ax
 
     def _use_ops(self) -> bool:
         if self._ops_page is None:
@@ -315,9 +352,9 @@ class PagedKVStore:
         return len(self.requests)
 
     def contiguous_bytes_per_slot(self, max_len: int) -> int:
-        """What ONE contiguous slot reserves (rows x max_len + the tail),
-        for the resident-requests comparison at equal budget."""
-        return max_len * self.row_bytes + self.tail_bytes
+        """What ONE contiguous full-precision slot reserves (rows x max_len +
+        the tail), for the resident-requests comparison at equal budget."""
+        return max_len * self.fp_row_bytes + self.tail_bytes
 
     def _note_usage(self):
         self.pages_used_peak = max(self.pages_used_peak, self.allocator.used_pages)
@@ -450,8 +487,8 @@ class PagedKVStore:
         i = self._spill_candidates(rid)[-1]
         pid = sp.pages[i]
         self._spilled.setdefault(rid, {})[i] = {
-            name: self._pool_gather(pool, self.paged[name][0], [pid]).cpu()
-            for name, pool in self.pools.items()}
+            key: self._pool_gather(pool, ax, [pid]).cpu()
+            for key, pool, ax in self._all_pools()}
         sp.pages[i] = -1
         self.allocator.release(pid)
         self.spills += 1
@@ -470,9 +507,8 @@ class PagedKVStore:
             sp = self.requests[rid]
             for i in sorted(spilled):
                 fresh = self._alloc_page()
-                for name, pool in self.pools.items():
-                    self._pool_scatter(pool, self.paged[name][0],
-                                       spilled[i][name].to(self.device), [fresh])
+                for key, pool, ax in self._all_pools():
+                    self._pool_scatter(pool, ax, spilled[i][key].to(self.device), [fresh])
                 sp.pages[i] = fresh
                 self.rehydrates += 1
             del self._spilled[rid]
@@ -491,8 +527,7 @@ class PagedKVStore:
             if self.allocator.refcount(pid) <= 1:
                 continue
             fresh = self._alloc_page()
-            for name, pool in self.pools.items():
-                ax = self.paged[name][0]
+            for _, pool, ax in self._all_pools():
                 self._pool_scatter(pool, ax, self._pool_gather(pool, ax, [pid]), [fresh])
             self.allocator.release(pid)
             sp.pages[i] = fresh
@@ -517,11 +552,17 @@ class PagedKVStore:
         pids = sp.pages[p0:p1]
         need = (p1 - p0) * self.page
         for name, pool in self.pools.items():
+            ax = self.paged[name][0]
             rows = rows_by_leaf[name]
             if rows.shape[0] < need:
                 pad = rows.new_zeros((need - rows.shape[0],) + tuple(rows.shape[1:]))
                 rows = torch.cat([rows, pad])
-            self._pool_scatter(pool, self.paged[name][0], rows, pids)
+            if self.int8:
+                q, scale = quantize_absmax_int8(rows)
+                self._pool_scatter(pool, ax, q, pids)
+                self._pool_scatter(self.scale_pools[name], ax, scale, pids)
+            else:
+                self._pool_scatter(pool, ax, rows, pids)
 
     def snapshot_tail(self, donor: dict) -> dict:
         """Host copies of the tail leaves."""
@@ -550,9 +591,9 @@ class PagedKVStore:
     def load_donor(self, rid: str, donor: dict) -> dict:
         """Gather the request's pages (and tail snapshot) back into a donor
         of ``donor``'s shapes, rows past the fill zeroed — the lane fallback's
-        activation path. Pages round-trip bit-exactly. A template without
-        the paged leaves (the fused engine restoring tails only) skips the
-        gather."""
+        activation path. Full-precision pages round-trip bit-exactly; int8
+        pages dequantize to the leaf's dtype. A template without the paged
+        leaves (the fused engine restoring tails only) skips the gather."""
         self._rehydrate(rid)
         sp = self.requests[rid]
         out = dict(donor)
@@ -561,6 +602,10 @@ class PagedKVStore:
             for name in want:
                 ax, _, dt = self.paged[name]
                 rows = self._pool_gather(self.pools[name], ax, sp.pages)
+                if self.int8:
+                    rows = dequantize_absmax_int8(
+                        rows, self._pool_gather(self.scale_pools[name], ax, sp.pages),
+                        dtype=dt)
                 n_rows = out[name].shape[ax]
                 rows = rows[:min(sp.fill, n_rows)]
                 full = rows.new_zeros((n_rows,) + tuple(rows.shape[1:]))
@@ -573,6 +618,14 @@ class PagedKVStore:
         return out
 
     # -- fused-decode interface -----------------------------------------------
+
+    def device_pools(self) -> dict:
+        """The pools the fused steps read and write in place, keyed by leaf
+        name; int8 scale pools ride along as ``{leaf}__scale``. The tensors
+        are the store's own, for its whole life."""
+        out = dict(self.pools)
+        out.update({f"{n}__scale": t for n, t in self.scale_pools.items()})
+        return out
 
     def table_row(self, rid: str, width: int) -> np.ndarray:
         """``rid``'s block-table row, padded to ``width`` entries with the

@@ -302,7 +302,10 @@ class PagedAdmission(CostModelAdmission):
     ``budget.pages_free()`` — the free list, evictable prefix-store pages
     and host-spillable pages. ``budget`` is anything with
     ``pages_for_rows(rows)`` and ``pages_free()`` (the
-    :class:`repro_torch.serve.paging.PagedKVStore` interface).
+    :class:`repro_torch.serve.paging.PagedKVStore` interface). Pages are
+    priced in the store's own ``page_bytes`` (int8 pages: the payload plus
+    a float32 scale a row), so one byte budget admits as many pages as the
+    reference's.
 
     A page shortage is TRANSIENT, so it defers rather than refuses: the
     ``defer:`` reason makes ``Scheduler.next_admissible`` keep the request

@@ -194,8 +194,9 @@ def test_paged_attention_is_the_same_bit_for_bit_call_after_call(dev, dtype):
 def test_paged_attention_rejects_what_it_does_not_take(dev):
     q, k, v, tables, kv_len = _paged_operands(dev, torch.bfloat16, 2, 4, 4, 64, 16, 1,
                                               [5, 9], 2)
-    with pytest.raises(NotImplementedError, match="int8"):
-        pa.paged_attention(q, k, v, tables, kv_len, k_scale=k, v_scale=v)
+    scales = torch.ones(k.shape[:-1] + (1,), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="int8"):          # scales beside bf16 pools
+        pa.paged_attention(q, k, v, tables, kv_len, k_scale=scales, v_scale=scales)
     with pytest.raises(TypeError, match="dtype"):
         pa.paged_attention(q, k, v, tables.long(), kv_len)
     with pytest.raises(ValueError, match="dtype"):

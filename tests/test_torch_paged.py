@@ -211,9 +211,20 @@ def test_wrapper_takes_the_plain_version_on_cpu_and_refuses_int8():
     assert torch.equal(got, paged.paged_attention_ref(q, k, k, torch.from_numpy(tables),
                                                       kv_len))
     assert paged_ops.paged_attention.launches == before
-    with pytest.raises(NotImplementedError, match="int8"):
-        paged_ops.paged_attention(q, k, k, torch.from_numpy(tables), kv_len, k_scale=k,
-                                  v_scale=k)
+    # int8 pools take the plain version with their scales; int8 pools
+    # without both scales, or scales beside full-precision pools, are refused
+    k8 = torch.from_numpy(rng.integers(-127, 128, k.shape).astype(np.int8))
+    ks = torch.from_numpy(rng.uniform(0.005, 0.02, k.shape[:-1] + (1,)).astype(np.float32))
+    got = paged_ops.paged_attention(q, k8, k8, torch.from_numpy(tables), kv_len, k_scale=ks,
+                                    v_scale=ks)
+    assert torch.equal(got, paged.paged_attention_ref(q, k8, k8, torch.from_numpy(tables),
+                                                      kv_len, k_scale=ks, v_scale=ks))
+    assert paged_ops.paged_attention.launches == before
+    with pytest.raises(ValueError, match="int8"):
+        paged_ops.paged_attention(q, k8, k8, torch.from_numpy(tables), kv_len, k_scale=ks)
+    with pytest.raises(ValueError, match="int8"):
+        paged_ops.paged_attention(q, k, k, torch.from_numpy(tables), kv_len, k_scale=ks,
+                                  v_scale=ks)
 
 
 def test_lm_decode_step_paged_matches_reference():
