@@ -222,6 +222,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (|d ||g||| <= ||d g||). int8 moments diverge from the third step at this
    vocabulary, in the reference's arithmetic too, so two trajectories would
    compare the divergence, not the kernels.
+7. rwkv6-7b at full width (32 layers, d 4096, 64 WKV heads of 64, d_ff
+   14336, vocab 65536, bf16, layernorm; 7.53 B parameters), seeded weights
+   from the port's init on the card, after every earlier model is freed.
+   No hand-written kernel but rmsnorm (ln_x) lies on its path: its WKV
+   recurrence, token shift, silu and sigmoid are plain torch, as jnp in the
+   reference.
+7a. The h100 library's wkv6_scan (the chunked form, chunk 32) against the
+   torch_cpu library's time-step scan, float32, at RWKV_PREFILL x (64, 64)
+   with decays from layer 0's _decay: the largest difference relative to
+   max |y| and to max |s| within WKV_REL_TOL. Then a model on each library,
+   sharing the params: one prefill of RWKV_PREFILL tokens and DECODE_STEPS
+   greedy decode steps, every logits row under _require_logits.
+7b. Lane serve at phase 3's shapes (16 x (256 + 64), 8 slots, chunk 64),
+   7c paged (PagedConfig(), phase 3b's requests: nothing pages, so fused is
+   false, requests activate through lanes, the system prompt is shared as
+   the tail state at its 128-row boundary; tokens equal a lane-mode run's),
+   7d the n-gram drafter at depth SPEC_K on 8 of 3e(ii)'s prompts (verify steps
+   each followed by their commit, jit_cache "commit"; the share of requests
+   equal to a non-speculative serve's is information only). Each a
+   paired_serve (captured vs eager: equal outputs, counters, launches; 7b's
+   graphs side traced) under rwkv_launch_check: rmsnorm exactly n_layers a
+   decode step, a prefill chunk and twice a verify step (its commit), and
+   swiglu, flash and paged attention never. Phase 4's rwkv rows: the
+   decode step and the verify step with its commit at depth SPEC_K,
+   captured vs eager.
 
 A captured step adds to each counter, on every replay, the launches its
 capture recorded, so the counters read the same with graphs and without.
@@ -247,7 +272,9 @@ swiglu 2L per step), around each run of phase 5d (the same per step), and
 around each train CLI run of phase 6 (twice those per step: two
 microbatches). The training kernels' rows carry the three paths' counts
 (launches_phase5c; launches_phase5d: the compiled float32 run's 6 steps;
-launches_phase6: the 9 uninterrupted steps).
+launches_phase6: the 9 uninterrupted steps). They are set to 0 again just
+before each of phase 7b, 7c and 7d and read just after it (rmsnorm's row:
+launches_phase7b, launches_phase7c, launches_phase7d).
 Launches made to compare a kernel with its plain version, and those of
 phases 4 and 4b (measurements), are not counted.
 
@@ -258,6 +285,7 @@ Stdout ends with the card's name and power limit (nvidia-smi), one JSON line
 from __future__ import annotations
 
 import contextlib
+import gc
 import importlib
 import io
 import json
@@ -331,6 +359,18 @@ LONG_BATCH, LONG_CHUNK, LONG_MAX_LEN = 4, 256, 4160
 # the rest of the first STREAM_TOTAL at seeded Poisson times, STREAM_GAP_S
 # apart on average, once decoding is under way
 STREAM_FIRST, STREAM_TOTAL, STREAM_GAP_S = 4, 16, 0.01
+# phase 7: rwkv6-7b at full width. 7a holds the h100 library's wkv6_scan
+# (chunked, chunk 32) to the torch_cpu time-step scan at RWKV_PREFILL x
+# (64 heads, 64) in float32: their largest difference relative to max |y|
+# and to max |s| within WKV_REL_TOL (the two sum the same products in other
+# orders, through log-space decay products; a structural fault errs by
+# O(1)); its prefill is RWKV_PREFILL tokens. 7b serves phase 3's shapes
+RWKV_ARCH = "rwkv6-7b"
+RWKV_PREFILL = (4, 256)
+WKV_REL_TOL = 1e-3
+# 7a's float32 model, h100 vs torch_cpu library: phase 5b's float32 bound
+RWKV_F32_REL_L2 = 1e-4
+RWKV_SERVE_REQUESTS, RWKV_PROMPT, RWKV_GEN = 16, 256, 64
 # the report entries two serves of the same requests must share, graphs on
 # and off (counts, not times; report["paged"] and report["spec"] in full)
 SERVE_COUNTED = ("requests", "generated_tokens", "steps", "padded_slot_steps_steady",
@@ -1571,13 +1611,13 @@ def _logits_check(got, want, vocab: int) -> dict:
             "argmax": argmax_verdicts(got[:, :vocab], want[:, :vocab])}
 
 
-def _require_logits(name: str, r: dict) -> None:
-    """Raise unless ``r`` (_logits_check) is finite, within LOGITS_REL_L2 and
-    without a failed argmax verdict."""
+def _require_logits(name: str, r: dict, rel_l2: float = LOGITS_REL_L2) -> None:
+    """Raise unless ``r`` (_logits_check) is finite, within ``rel_l2``
+    (LOGITS_REL_L2, the bf16 bound) and without a failed argmax verdict."""
     if not r["finite"]:
         raise AssertionError(f"{name}: non-finite logits")
-    if r["logits_rel_l2"] > LOGITS_REL_L2:
-        raise AssertionError(f"{name}: rel L2 {r['logits_rel_l2']:.3g} > {LOGITS_REL_L2}")
+    if r["logits_rel_l2"] > rel_l2:
+        raise AssertionError(f"{name}: rel L2 {r['logits_rel_l2']:.3g} > {rel_l2}")
     require_argmax(f"{name} (rel L2 {r['logits_rel_l2']:.3g})", r["argmax"])
 
 
@@ -2389,7 +2429,7 @@ def profile_phase(dev, model, params, gpu: str) -> dict:
                                                          tables=tables)),
             "prefill_chunk": ({"chunk": PROFILE_CHUNK, "pos": start},
                               lambda: run_prefill_chunk(lane, model, params, donor, chunk,
-                                                        start)),
+                                                        start, PROFILE_CHUNK)),
             # the draft model's step of 3e(iii): a lane decode step and the
             # greedy tokens read back to the host
             "draft_decode_step": ({"batch": PROFILE_BATCH, "pos": PROFILE_FILL,
@@ -3231,6 +3271,359 @@ def train_cli_phase(dev, gpu: str) -> dict:
     return out
 
 
+def rwkv_launch_check(cfg, launched, report, *, verify_steps: int = 0) -> list:
+    """The problems of one rwkv serve's launch counts: rmsnorm (ln_x, once a
+    layer a step) exactly n_layers per decode step, per prefill chunk and,
+    with speculation, twice per verify step (the verify span and its
+    commit replay); swiglu, flash and paged attention never."""
+    chunks = sum(e["chunks"] for e in report["step_log"])
+    decode = sum(e["decoded"] > 0 for e in report["step_log"]) - verify_steps
+    want = cfg.n_layers * (decode + chunks + 2 * verify_steps)
+    problems = []
+    if launched["rmsnorm"] != want:
+        problems.append(f"rmsnorm launched {launched['rmsnorm']} times, want {want} "
+                        f"({cfg.n_layers} x ({decode} decode steps + {chunks} prefill "
+                        f"chunks + 2 x {verify_steps} verify steps))")
+    for name in ("swiglu", "flash_attention", "paged_attention"):
+        if launched[name]:
+            problems.append(f"{name} launched {launched[name]} times on rwkv")
+    return problems
+
+
+def rwkv_requests(vocab: int, request_cls) -> list:
+    """Phase 7b: phase 3's requests (the serve CLI's: RWKV_SERVE_REQUESTS of
+    RWKV_PROMPT seeded tokens, RWKV_GEN generated)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [request_cls(rid=f"req{i}", tokens=rng.integers(0, vocab, RWKV_PROMPT)
+                        .astype(np.int32), gen_len=RWKV_GEN)
+            for i in range(RWKV_SERVE_REQUESTS)]
+
+
+def rwkv_layers_phase(dev, model, params, gpu: str) -> dict:
+    """Phase 7a: the layers against their plain versions on the card.
+
+    The h100 library's wkv6_scan (the chunked form) against the torch_cpu
+    library's time-step scan, float32, at RWKV_PREFILL x (64, 64) with
+    decays from layer 0's _decay on seeded activations: the largest error
+    relative to max |y| and to max |s| must be within WKV_REL_TOL.
+
+    Then the model on the h100 library against the model on torch_cpu,
+    sharing the params. In float32 (a float32 copy of the params): one
+    prefill of RWKV_PREFILL tokens and DECODE_STEPS greedy decode steps
+    after it, each model on its own state (the h100 model's tokens fed to
+    both), every logits row under _require_logits at RWKV_F32_REL_L2. In
+    bf16 each decode step starts both models from the same state (the h100
+    model's, copied), every row under _require_logits at LOGITS_REL_L2. A
+    bf16 prefill of 256 tokens is not compared under a bound: the decay is
+    cast to bf16 before the scan, as in the reference, where
+    exp(-exp(-6)) lies between 0.99609 and 1.0, so a one-ulp difference
+    upstream can move a channel's decay by 0.4 % a token and the state
+    apart over 256 tokens. Its rel L2 is printed beside the same
+    difference between two plain prefills that group the rows otherwise
+    (row 0 of the batch of 4 against it alone: the GEMMs round
+    differently)."""
+    import torch
+
+    from repro_torch.nn.lm import unstack_layers
+    from repro_torch.nn.model import build_model
+    from repro_torch.nn.rwkv6 import _decay, dims
+    from repro_torch.train.optimizer import tree_map
+
+    cfg = model.cfg
+    plain = build_model(cfg, device=dev, target="torch_cpu")
+    b, t = RWKV_PREFILL
+    nh, hk = dims(cfg)
+    g = torch.Generator(device=dev).manual_seed(11)
+    r, k, v = (torch.randn((b, t, nh, hk), generator=g, device=dev) for _ in range(3))
+    xw = torch.randn((b, t, cfg.d_model), generator=g, device=dev).to(model.dtype)
+    p0 = unstack_layers(params["blocks"], cfg.n_layers)[0]["mix"]
+    w = _decay(model.tsl, p0, xw).reshape(b, t, nh, hk)
+    u = p0["u_bonus"].float()
+    out = {"shape": [b, t, nh, hk], "decay_range": [w.min().item(), w.max().item()]}
+    y, s = model.tsl.wkv6_scan(r, k, v, w, u)
+    y_ref, s_ref = plain.tsl.wkv6_scan(r, k, v, w, u)
+    out["wkv6_y_rel_err"] = ((y - y_ref).abs().max() / y_ref.abs().max()).item()
+    out["wkv6_s_rel_err"] = ((s - s_ref).abs().max() / s_ref.abs().max()).item()
+    print(f"[phase7a] wkv6_scan, h100 library (chunked, chunk 32) vs torch_cpu (time-step "
+          f"scan) on {gpu}, float32 {tuple(r.shape)}: decays in "
+          f"[{out['decay_range'][0]:.6f}, {out['decay_range'][1]:.6f}], max |dy| / max |y| "
+          f"{out['wkv6_y_rel_err']:.3g}, max |ds| / max |s| {out['wkv6_s_rel_err']:.3g} "
+          f"(tolerance {WKV_REL_TOL})", flush=True)
+    if max(out["wkv6_y_rel_err"], out["wkv6_s_rel_err"]) > WKV_REL_TOL:
+        raise AssertionError(f"phase 7a: wkv6_scan chunked vs scan {out['wkv6_y_rel_err']:.3g}"
+                             f" / {out['wkv6_s_rel_err']:.3g} > {WKV_REL_TOL}")
+    del r, k, v, w, y, s, y_ref, s_ref
+    tokens = torch.randint(0, cfg.vocab, RWKV_PREFILL, generator=g, device=dev)
+
+    # float32: prefill and decode steps, each model on its own state
+    cfg32 = cfg.replace(dtype="float32")
+    m32, p32 = build_model(cfg32, device=dev), build_model(cfg32, device=dev, target="torch_cpu")
+    params32 = tree_map(lambda x: x.float(), params)
+    checks = {}
+    got, st = m32.prefill(params32, {"tokens": tokens}, t + DECODE_STEPS)
+    want, pst = p32.prefill(params32, {"tokens": tokens}, t + DECODE_STEPS)
+    checks["f32_prefill"] = _logits_check(got, want, cfg.vocab)
+    toks = got[:, :cfg.vocab].argmax(-1)
+    for i in range(DECODE_STEPS):
+        got, st = m32.decode_step(params32, st, toks[:, None], t + i)
+        want, pst = p32.decode_step(params32, pst, toks[:, None], t + i)
+        checks[f"f32_decode_{i}"] = _logits_check(got, want, cfg.vocab)
+        toks = got[:, :cfg.vocab].argmax(-1)
+    del params32, st, pst
+    for name, c in checks.items():
+        _require_logits(f"phase 7a rwkv {name}, h100 vs torch_cpu library", c,
+                        rel_l2=RWKV_F32_REL_L2)
+
+    # bf16: each decode step from a shared state; the prefill as information
+    got, state = model.prefill(params, {"tokens": tokens}, t + DECODE_STEPS)
+    want, _ = plain.prefill(params, {"tokens": tokens}, t + DECODE_STEPS)
+    row0, _ = plain.prefill(params, {"tokens": tokens[:1]}, t)
+    out["bf16_prefill"] = _logits_check(got, want, cfg.vocab)
+    out["bf16_prefill_plain_floor"] = _logits_check(row0, want[:1], cfg.vocab)
+    toks = got[:, :cfg.vocab].argmax(-1)
+    for i in range(DECODE_STEPS):
+        shared = {n: x.clone() for n, x in state.items()}
+        got, state = model.decode_step(params, state, toks[:, None], t + i)
+        want, _ = plain.decode_step(params, shared, toks[:, None], t + i)
+        checks[f"bf16_decode_{i}"] = _logits_check(got, want, cfg.vocab)
+        _require_logits(f"phase 7a rwkv bf16 decode step {i} from a shared state, h100 vs "
+                        f"torch_cpu library", checks[f"bf16_decode_{i}"])
+        toks = got[:, :cfg.vocab].argmax(-1)
+    out["logits"] = checks
+
+    def worst(prefix):
+        return max(c["logits_rel_l2"] for n, c in checks.items() if n.startswith(prefix))
+
+    print(f"[phase7a] {RWKV_ARCH} prefill {RWKV_PREFILL} + {DECODE_STEPS} decode steps, h100 "
+          f"vs torch_cpu library on {gpu}: float32 worst rel L2 {worst('f32'):.3g} "
+          f"(bound {RWKV_F32_REL_L2}); bf16 decode steps from a shared state worst rel L2 "
+          f"{worst('bf16'):.3g} (bound {LOGITS_REL_L2}); bf16 prefill rel L2 "
+          f"{out['bf16_prefill']['logits_rel_l2']:.3g} (information; two plain prefills, "
+          f"row 0 of batch 4 vs batch 1: "
+          f"{out['bf16_prefill_plain_floor']['logits_rel_l2']:.3g}); "
+          f"bf16 prefill argmax {json.dumps(out['bf16_prefill']['argmax'])}; "
+          f"{json.dumps(checks)}", flush=True)
+    return out
+
+
+def rwkv_serve_phase(dev, params, gpu: str) -> dict:
+    """Phases 7b-7d: rwkv6-7b served at full width, each serve a paired_serve
+    (captured and eager: equal outputs, counters and launches) under
+    rwkv_launch_check, the counters set to 0 just before each pair and read
+    just after it.
+    7b lane mode, phase 3's shapes (graphs side traced).
+    7c paged mode (PagedConfig()) on phase 3b's requests: no leaf pages, so
+       fused is false, requests activate through lanes, and the shared
+       system prompt is shared as the tail state at its 128-row boundary;
+       tokens equal a lane-mode run's of the same requests.
+    7d the n-gram drafter at fixed depth SPEC_K on SPEC_DRAFT_REQUESTS of
+       phase 3e(ii)'s pattern prompts (one wave of the 8 slots), lane mode: verify steps run and each is followed by its
+       commit (jit_cache "commit"); the share of requests equal to a
+       non-speculative serve's is information only (the verify span runs
+       the chunked scan, decode the step form)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import PagedConfig, Request, ServeEngine, SpeculationConfig
+
+    cfg = get_config(RWKV_ARCH)
+    kw = dict(batch=PAGED_BATCH, max_len=RWKV_PROMPT + RWKV_GEN, device=dev, params=params,
+              prefill_chunk=PAGED_CHUNK)
+    out = {}
+
+    def lane_check(n_req, spec=False):
+        def check(report, launched):
+            problems = []
+            if report["target"] != "h100":
+                problems.append(f"served with target {report['target']!r}")
+            if report["requests"] != n_req or report["refused"]:
+                problems.append(f"{report['requests']} of {n_req} answered, refused "
+                                f"{report['refused']}")
+            short = {r: len(t) for r, t in report["outputs"].items() if len(t) != RWKV_GEN}
+            if short or len(report["outputs"]) != n_req:
+                problems.append(f"requests without {RWKV_GEN} tokens: {short}")
+            verify = report["spec"]["verify_steps"] if spec else 0
+            if spec and (not verify or "commit" not in report["jit_cache"]):
+                problems.append(f"verify steps {verify}, jit_cache {report['jit_cache']}")
+            if "paged" in report:
+                paged = report["paged"]
+                if paged["fused"] or paged["lane_activations"] <= 0 \
+                        or paged["prefix_hits"] <= 0:
+                    problems.append(f"paged: fused {paged['fused']}, lane activations "
+                                    f"{paged['lane_activations']}, prefix hits "
+                                    f"{paged['prefix_hits']}")
+            return problems + rwkv_launch_check(cfg, launched, report, verify_steps=verify)
+        return check
+
+    def serve(tag, name, run, check, graphs_first, trace=()):
+        for fn in counters().values():
+            fn.launches = 0
+        pair = paired_serve(tag, name, gpu, run, check, graphs_first, trace=trace)
+        pair["launches"] = read_counts()
+        return pair
+
+    t0 = time.perf_counter()
+    out["7b"] = serve("phase7b", f"lane serve {RWKV_ARCH}",
+                      lambda: ServeEngine(cfg, **kw).run(rwkv_requests(cfg.vocab, Request)),
+                      lane_check(RWKV_SERVE_REQUESTS), True, trace=("graphs",))
+    out["7b"]["seconds"] = time.perf_counter() - t0
+    lane_steps = out["7b"]["report"]["step_log"]
+    print(f"[phase7b] lane serve {RWKV_ARCH} on {gpu}: decode steps "
+          f"{sum(e['decoded'] > 0 for e in lane_steps)}, prefill chunks "
+          f"{sum(e['chunks'] for e in lane_steps)}, launches of the pair "
+          f"{out['7b']['launches']}; phase {out['7b']['seconds']:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    paged_kw = dict(kw, max_len=PAGED_MAX_LEN)
+    out["7c"] = serve("phase7c", f"paged serve {RWKV_ARCH} (lane fallback)",
+                      lambda: ServeEngine(cfg, paged=PagedConfig(), **paged_kw).run(
+                          paged_requests(cfg.vocab, Request)),
+                      lane_check(PAGED_REQUESTS), False)
+    paged_report = out["7c"]["report"]
+    contiguous = ServeEngine(cfg, **paged_kw).run(paged_requests(cfg.vocab, Request))
+    differ = sorted(r for r, toks in paged_report["outputs"].items()
+                    if toks != contiguous["outputs"][r])
+    if differ:
+        raise AssertionError(f"phase 7c: paged outputs differ from lane mode's for {differ}")
+    out["7c"]["seconds"] = time.perf_counter() - t0
+    print(f"[phase7c] paged serve {RWKV_ARCH} on {gpu}: outputs equal the contiguous run's "
+          f"for all {PAGED_REQUESTS} requests; paged {json.dumps(paged_report['paged'])}; "
+          f"launches of the pair {out['7c']['launches']}; phase "
+          f"{out['7c']['seconds']:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    spec_kw = dict(kw, max_len=SPEC_PROMPT + PAGED_GEN)
+    out["7d"] = serve("phase7d", f"speculative serve {RWKV_ARCH}, n-gram depth {SPEC_K}",
+                      lambda: ServeEngine(cfg, speculation=SpeculationConfig(fixed_k=SPEC_K),
+                                          **spec_kw).run(
+                          spec_requests(cfg.vocab, Request, SPEC_DRAFT_REQUESTS)),
+                      lane_check(SPEC_DRAFT_REQUESTS, spec=True), False)
+    spec_report = out["7d"]["report"]
+    if out["7d"]["graphs"]["jit_cache"]["commit"] <= 0:
+        raise AssertionError(f"phase 7d: the graphs run captured no commit step: "
+                             f"{out['7d']['graphs']['jit_cache']}")
+    plain = ServeEngine(cfg, **spec_kw).run(spec_requests(cfg.vocab, Request,
+                                                          SPEC_DRAFT_REQUESTS))
+    same = sum(spec_report["outputs"][r] == plain["outputs"][r] for r in plain["outputs"])
+    first_diff = sorted(next(i for i, (a, b) in enumerate(zip(toks, plain["outputs"][r]))
+                             if a != b)
+                        for r, toks in spec_report["outputs"].items()
+                        if toks != plain["outputs"][r])
+    spec = spec_report["spec"]
+    out["7d"].update(share_equal_to_plain=same / SPEC_DRAFT_REQUESTS,
+                     first_differing_token=first_diff,
+                     plain_decode_tokens_per_s=plain["decode_tokens_per_s"],
+                     seconds=time.perf_counter() - t0,
+                     spec={k: spec[k] for k in ("verify_steps", "decode_steps",
+                                                "drafted_tokens", "accepted_tokens",
+                                                "accepted_rate", "mean_accepted_span")})
+    print(f"[phase7d] speculative serve {RWKV_ARCH} on {gpu}: {json.dumps(out['7d']['spec'])}, "
+          f"jit_cache {spec_report['jit_cache']}; requests equal to the non-speculative "
+          f"serve {same}/{SPEC_DRAFT_REQUESTS} (information only), first differing token "
+          f"{first_diff}; non-speculative {plain['decode_tokens_per_s']:.1f} tokens/s; "
+          f"launches of the pair {out['7d']['launches']}; phase {out['7d']['seconds']:.1f} s",
+          flush=True)
+    for r in out.values():
+        r.pop("report")
+    return out
+
+
+def rwkv_profile_phase(dev, model, params, gpu: str) -> dict:
+    """Phase 4's step table for rwkv6-7b (run in phase 7, where its model
+    lives): the lane decode step at batch PROFILE_BATCH and the verify step
+    of a span SPEC_K + 1 followed by its commit (every slot committing the
+    whole span), each through the engine's step code (serve/graphs.py),
+    captured and eager, by _profile: host wall, device busy, kernels per
+    step. Not a main path: its launches are not counted."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import StepGraphs, disable_graphs
+    from repro_torch.serve.graphs import run_commit, run_model_step
+
+    cfg = model.cfg
+    rng = np.random.default_rng(12)
+    state = model.init_decode_state(PROFILE_BATCH, PROFILE_FILL + PROFILE_GEN)
+    tokens = rng.integers(0, cfg.vocab, (PROFILE_BATCH, 1))
+    span = rng.integers(0, cfg.vocab, (PROFILE_BATCH, SPEC_K + 1))
+    pos = np.full(PROFILE_BATCH, PROFILE_FILL, np.int64)
+    n_commit = np.full(PROFILE_BATCH, SPEC_K + 1, np.int64)
+    graphs = StepGraphs(dev)
+
+    def verify_commit():
+        logits = run_model_step(graphs, "verify", model, params, state, span, pos)
+        run_commit(graphs, model, params, state, span, n_commit)
+        return logits
+
+    steps = {"rwkv_decode_step": lambda: run_model_step(graphs, "decode", model, params,
+                                                        state, tokens, pos),
+             "rwkv_verify_commit": verify_commit}
+    out = {}
+    with torch.inference_mode():
+        for kind, fn in steps.items():
+            def eager(fn=fn):
+                with disable_graphs():
+                    return fn()
+            out[kind] = {"batch": PROFILE_BATCH, "span": 1 if "decode" in kind else SPEC_K + 1,
+                         "captured": _profile(fn), "eager": _profile(eager)}
+    out["jit_cache"] = graphs.sizes(("decode", "verify", "commit"))
+    for kind in steps:
+        c, e = out[kind]["captured"], out[kind]["eager"]
+        print(f"[phase4] {kind} ({RWKV_ARCH}) on {gpu}, captured vs eager: host wall "
+              f"{c['wall_ms']:.3f} vs {e['wall_ms']:.3f} ms, device busy "
+              f"{c['device_busy_ms']} vs {e['device_busy_ms']} ms, idle share "
+              f"{c.get('device_idle_share')} vs {e.get('device_idle_share')}, kernels per "
+              f"step {c['launches']} vs {e['launches']}; top kernels (captured) "
+              f"{json.dumps(c.get('top_kernels_ms'))}", flush=True)
+    return out
+
+
+def rwkv_phase(dev, gpu: str) -> dict:
+    """Phase 7: rwkv6-7b at full width (32 layers, d 4096, 64 WKV heads of
+    64, d_ff 14336, vocab 65536, bf16, layernorm), seeded weights from the
+    port's init on the card: 7a the layers, 7b-7d serving, and its rows of
+    phase 4's step table. Every earlier model is freed before it."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.nn.model import RwkvModel, build_model
+    from repro_torch.train.optimizer import tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = get_config(RWKV_ARCH)
+    model = build_model(cfg, device=dev)
+    assert isinstance(model, RwkvModel) and model.lib.TARGET_NAME == "h100"
+    params = model.init(0)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    state_slot = sum(t[:, :1].numel() * t.element_size()
+                     for t in model.init_decode_state(1, 1).values())
+    print(f"[phase7] {RWKV_ARCH} on {gpu}: {n_params / 1e9:.4f}B params "
+          f"({sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9:.3f} GB), "
+          f"w_base {params['blocks']['mix']['w_base'].dtype}, a decode-state slot "
+          f"{state_slot / 1e6:.2f} MB; init {time.perf_counter() - t_phase:.1f} s", flush=True)
+    out = {"params": n_params, "state_slot_bytes": state_slot}
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        saved = read_counts()
+        out["7a"] = rwkv_layers_phase(dev, model, params, gpu)
+        for name, fn in counters().items():      # kernel vs plain: not a main path
+            fn.launches = saved[name]
+    out["7a"]["seconds"] = time.perf_counter() - t0
+    out.update(rwkv_serve_phase(dev, params, gpu))
+    t0 = time.perf_counter()
+    saved = read_counts()
+    out["phase4"] = rwkv_profile_phase(dev, model, params, gpu)
+    for name, fn in counters().items():
+        fn.launches = saved[name]
+    out["phase4"]["seconds"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[phase7] {RWKV_ARCH} done on {gpu}: phase {out['seconds']:.1f} s (7a "
+          f"{out['7a']['seconds']:.1f}, 7b {out['7b']['seconds']:.1f}, 7c "
+          f"{out['7c']['seconds']:.1f}, 7d {out['7d']['seconds']:.1f}, phase 4's rows "
+          f"{out['phase4']['seconds']:.1f})", flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3331,6 +3724,17 @@ def main() -> int:
             row["launches_phase5d"] = compiled["cases"]["float32"]["captured"]["launches"][
                 row["name"]]
             row["launches_phase6"] = cli["launches"][row["name"]]
+    # phase 7 holds rwkv6-7b's 15 GB of weights: every earlier model goes first
+    del lm, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[phase7] before: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved", flush=True)
+    rwkv = rwkv_phase(dev, gpu)
+    for row in kernels:           # rmsnorm (ln_x) on each rwkv serving path
+        if row["name"] == "rmsnorm":
+            for part in ("7b", "7c", "7d"):
+                row[f"launches_phase{part}"] = rwkv[part]["launches"]["rmsnorm"]
     print(f"[done] main-path launches {counts}, paged path {paged['launches']}, app "
           f"{app['launches']}, generated suite {suite['launches']} "
           f"({suite['passed']}/{suite['tests']} passed); per prefill "
@@ -3349,7 +3753,9 @@ def main() -> int:
           f"{ {k: v['bit_equal'] for k, v in compiled['cases'].items()} } "
           f"({compiled['seconds']:.1f} s), train CLI launches (9 uninterrupted "
           f"steps) {cli['launches']}, restart max |loss diff| "
-          f"{cli['6a']['restart_max_abs_diff_logged']} on {gpu}; total "
+          f"{cli['6a']['restart_max_abs_diff_logged']}, {RWKV_ARCH} serving launches "
+          f"{ {p: rwkv[p]['launches'] for p in ('7b', '7c', '7d')} } "
+          f"({rwkv['seconds']:.1f} s) on {gpu}; total "
           f"{time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(gpu)

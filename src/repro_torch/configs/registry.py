@@ -6,12 +6,14 @@ import importlib
 
 from .arch import ArchConfig
 
-# the dense family only: the other families' configs come with their port
+# the dense family and rwkv (ssm); the other families' configs come with
+# their port
 _MODULES = {
     "yi-34b": "yi_34b",
     "mistral-large-123b": "mistral_large_123b",
     "qwen3-14b": "qwen3_14b",
     "qwen1.5-0.5b": "qwen15_05b",
+    "rwkv6-7b": "rwkv6_7b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -11,6 +11,9 @@ Each package mirrors the JAX package's split:
   the launch counter (``<wrapper>.launches``);
 * ``csrc/``     — the CUDA C++ sources, where the kernel is CUDA.
 
+``wkv6/`` is the exception: it holds the RWKV6 recurrence in plain torch
+and no kernel (the JAX package runs no Pallas kernel for it either).
+
 Neither Triton nor the CUDA toolkit is imported when a module is imported:
 the host that runs the tests has neither.
 """

@@ -1,8 +1,10 @@
-"""Model facade (mirrors ``repro/nn/model.py``) for the dense family.
+"""Model facade (mirrors ``repro/nn/model.py``) for the dense ``lm`` family
+and the rwkv (``ssm``) family.
 
-``build_model(cfg, device=...)`` returns a :class:`Model` bound to the
-generated library for its device (``h100`` kernels on the card,
-``torch_cpu`` plain versions on the host; ``target=`` overrides):
+``build_model(cfg, device=...)`` returns a :class:`Model` (dense) or a
+:class:`RwkvModel` bound to the generated library for its device (``h100``
+kernels on the card, ``torch_cpu`` plain versions on the host; ``target=``
+overrides), with one surface:
 
     init(seed) -> params                 (seeded torch.Generator on the device)
     forward_logits(params, batch) -> logits (B,S,V)
@@ -11,43 +13,53 @@ generated library for its device (``h100`` kernels on the card,
          aux 0 for the dense family; differentiable: a train step makes the
          params leaves that require grad, serving keeps inference mode)
     prefill(params, batch, max_len) -> (last_logits (B,V), state)
-    prefill_chunk(params, state, tokens, pos) -> (logits (B,C,V), state)
+    prefill_chunk(params, state, tokens, pos, n_real=None)
+        -> (logits (B,C,V), state)
         (continuation prefill of one chunk at cache fill ``pos``, an int or
-         a (B,) device tensor; trailing
-         padding rows need no masking in the dense family — see
-         nn/attention.py — so the reference's ``kv_len``/``n_real``/``embeds``
-         arguments have no counterpart here)
+         a (B,) device tensor; ``n_real`` (int or device tensor) counts the
+         chunk's real rows, the rest trailing padding. The dense family
+         ignores it: its padding rows need no masking (nn/attention.py).
+         rwkv skips their recurrent updates exactly and ignores ``pos``.
+         The reference's ``kv_len`` and ``embeds`` have no counterpart)
     decode_step(params, state, tokens_t, pos) -> (logits (B,V), state)
         (pos: int, or a (B,) tensor of per-slot positions)
     verify_step(params, state, tokens, pos) -> (logits (B,SV,V), state)
         (speculative decoding: score a span of SV = k+1 tokens per slot — the
          pending token and k drafts — in one ragged batched step at the (B,)
          per-slot base rows ``pos``; logits row j validates draft j+1 and is
-         independent of rows > j. The span's cache rows are written in place;
-         rollback is free, the accepted fill stops short of rejected rows)
+         independent of rows > j. Dense: the span's cache rows are written
+         in place, and rollback is free, the accepted fill stops short of
+         rejected rows; rwkv: nothing is written, see verify_commit)
     init_decode_state(batch, max_len) -> zeroed state dict
     state_batch_axes(state) -> {leaf: slot axis}
     state_page_axes(state) -> {leaf: token axis | None}  (paged serving)
     decode_step_paged(params, state, pools, tables, tokens_t, pos)
         -> (logits (B,V), state, pools)
         (fused paged decode straight off the block-table page pools; ``state``
-         is the tail-only dict, empty for this family)
+         is the tail-only dict, empty for the dense family)
     verify_step_paged(params, state, pools, tables, tokens, pos)
         -> (logits (B,SV,V), state, pools)
         (the verify span straight off the pools, through
          ``attention_verify_paged``)
-    verify_commit / verify_commit_paged: None, as for the reference's KV
-        families (the verify step already committed the span's rows; only
-        its recurrent families replay the accepted prefix)
+    verify_commit(params, state, tokens, pos, n_commit) -> state | None
+        (None for the dense family, whose verify step already committed the
+         span's rows; rwkv's verify step writes nothing, and the commit
+         replays the accepted prefix of the span through prefill_chunk with
+         the (B,) per-slot ``n_commit`` real rows: 0 leaves a slot exactly
+         as it was)
+    verify_commit_paged: None for both (rwkv has no paged leaf; its
+        ``decode_step_paged`` / ``verify_step_paged`` are None too, and the
+        engine serves it from lanes in paged mode)
     insert_slot(state, donor, slot) / reset_slot(state, slot)
 
 Unlike the reference, state is updated IN PLACE by prefill_chunk,
-decode_step, verify_step, insert_slot and reset_slot (each still returns
-it), and the page pools by decode_step_paged and verify_step_paged.
+decode_step, the dense verify_step, rwkv's verify_commit, insert_slot and
+reset_slot (each still returns it), and the page pools by decode_step_paged
+and verify_step_paged. rwkv is served, not trained: its ``loss`` raises.
 
 ``load_jax_params(np_tree, cfg, device)`` turns the reference's params
 (``build_model(cfg).init(PRNGKey(s))``, ``np.asarray`` per leaf) into this
-model's params, 1:1 with no transposes.
+model's params, 1:1 with no transposes, each leaf in its own dtype.
 """
 
 from __future__ import annotations
@@ -62,13 +74,24 @@ from repro_torch import tsl_api
 from repro_torch.configs.arch import ArchConfig
 from repro_torch.device import resolve_device
 
-from . import lm
+from . import lm, rwkv_lm
 from .common import init_leaf
+
+# where the families that are not ported yet, and rwkv's training, stand
+FAMILIES_TODO = "ROADMAP.md, queue 1, item 6"
+RWKV_TRAIN_TODO = "training the ssm (rwkv) family is not ported yet " \
+                  "(ROADMAP.md, queue 1, item 11)"
 
 
 def torch_dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16,
             "float16": torch.float16}[name]
+
+
+def _init_make(model: "Model", seed: int):
+    g = torch.Generator(device=model.device).manual_seed(seed)
+    return lambda kind, shape, **kw: init_leaf(kind, shape, dtype=model.dtype,
+                                               device=model.device, generator=g, **kw)
 
 
 @dataclass
@@ -86,9 +109,7 @@ class Model:
         return torch_dtype(self.cfg.dtype)
 
     def init(self, seed: int = 0) -> dict:
-        g = torch.Generator(device=self.device).manual_seed(seed)
-        return lm.lm_params(self.cfg, lambda kind, shape: init_leaf(
-            kind, shape, dtype=self.dtype, device=self.device, generator=g))
+        return lm.lm_params(self.cfg, _init_make(self, seed))
 
     def forward_logits(self, params, batch):
         logits, _ = lm.lm_forward(self.tsl, params, batch["tokens"], self.cfg)
@@ -105,7 +126,7 @@ class Model:
         return lm.lm_prefill(self.tsl, params, batch["tokens"], self.cfg,
                              max_len=max_len)
 
-    def prefill_chunk(self, params, state, tokens, pos):
+    def prefill_chunk(self, params, state, tokens, pos, n_real=None):
         return lm.lm_prefill_chunk(self.tsl, params, state, tokens, pos, self.cfg)
 
     def decode_step(self, params, state, tokens_t, pos):
@@ -152,24 +173,83 @@ class Model:
         return state
 
 
-def build_model(cfg: ArchConfig, *, device: torch.device | str = "cuda",
-                target: str | None = None) -> Model:
-    if (cfg.family, cfg.act, cfg.norm) != ("dense", "swiglu", "rmsnorm"):
+class RwkvModel(Model):
+    """The rwkv (``ssm``) family: RWKV6 blocks over a fixed-size recurrent
+    state (``nn/rwkv_lm.py``). Served in lane mode (paged mode falls back to
+    lanes: nothing pages), with speculation through a verify step that
+    writes nothing and a commit that replays the accepted prefix."""
+
+    def init(self, seed: int = 0) -> dict:
+        return rwkv_lm.rwkv_params(self.cfg, _init_make(self, seed))
+
+    def forward_logits(self, params, batch):
+        return rwkv_lm.rwkv_forward(self.tsl, params, batch["tokens"], self.cfg)
+
+    def loss(self, params, batch, *, remat: bool = True):
+        raise NotImplementedError(RWKV_TRAIN_TODO)
+
+    def prefill(self, params, batch, max_len: int):
+        return rwkv_lm.rwkv_prefill(self.tsl, params, batch["tokens"], self.cfg)
+
+    def prefill_chunk(self, params, state, tokens, pos, n_real=None):
+        return rwkv_lm.rwkv_prefill_chunk(self.tsl, params, state, tokens, self.cfg,
+                                          n_real=n_real)
+
+    def decode_step(self, params, state, tokens_t, pos):
+        return rwkv_lm.rwkv_decode_step(self.tsl, params, state, tokens_t, self.cfg)
+
+    def init_decode_state(self, batch: int, max_len: int):
+        return rwkv_lm.init_rwkv_state(self.cfg, batch, self.dtype, self.device)
+
+    def state_batch_axes(self, state):
+        return rwkv_lm.state_batch_axes(state)
+
+    def state_page_axes(self, state):
+        return rwkv_lm.state_page_axes(state)
+
+    def verify_step(self, params, state, tokens, pos):
+        return rwkv_lm.rwkv_verify_step(self.tsl, params, state, tokens, self.cfg)
+
+    def verify_commit(self, params, state, tokens, pos, n_commit):
+        """Replay the accepted prefix of the span: ``n_commit`` (B,) real rows
+        per slot, in place (0: the slot is left exactly as it was)."""
+        return rwkv_lm.rwkv_prefill_chunk(self.tsl, params, state, tokens, self.cfg,
+                                          n_real=n_commit)[1]
+
+    # no paged leaf: no fused paged contract
+    decode_step_paged = None
+    verify_step_paged = None
+    verify_commit_paged = None
+
+
+_FAMILIES = {"dense": (Model, lm.lm_params), "ssm": (RwkvModel, rwkv_lm.rwkv_params)}
+
+
+def _family(cfg: ArchConfig):
+    if cfg.family not in _FAMILIES or (
+            cfg.family == "dense" and (cfg.act, cfg.norm) != ("swiglu", "rmsnorm")):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} ({cfg.act}, {cfg.norm}) is not "
-            f"ported yet (this port has the dense swiglu/rmsnorm lm family only)")
+            f"ported yet (this port has the dense swiglu/rmsnorm lm family and "
+            f"rwkv; {FAMILIES_TODO})")
+    return _FAMILIES[cfg.family]
+
+
+def build_model(cfg: ArchConfig, *, device: torch.device | str = "cuda",
+                target: str | None = None) -> Model:
+    cls, _ = _family(cfg)
     dev = resolve_device(device)
-    return Model(cfg=cfg, device=dev, lib=tsl_api.lib(dev, target=target))
+    return cls(cfg=cfg, device=dev, lib=tsl_api.lib(dev, target=target))
 
 
 def load_jax_params(np_tree: dict, cfg: ArchConfig,
                     device: torch.device | str = "cuda") -> dict:
     """The reference's params as this port's params: the same nested dict
-    and the same stacked (L, ...) leaves, copied 1:1 (no transposes) and
-    cast to ``cfg.dtype``. Raises on a missing, extra or misshaped leaf."""
+    and the same stacked (L, ...) leaves, copied 1:1 (no transposes), each
+    in its own dtype (rwkv's ``w_base`` is float32 in a bf16 model). Raises
+    on a missing, extra or misshaped leaf."""
     dev = resolve_device(device)
-    dtype = torch_dtype(cfg.dtype)
-    want = lm.lm_params(cfg, lambda kind, shape: tuple(shape))
+    want = _family(cfg)[1](cfg, lambda kind, shape, **kw: tuple(shape))
 
     def convert(node, spec, path):
         if isinstance(spec, dict):
@@ -181,6 +261,7 @@ def load_jax_params(np_tree: dict, cfg: ArchConfig,
         if tuple(arr.shape) != spec:
             raise ValueError(f"params{path}: shape {arr.shape} != {spec}")
         # bf16 arrives as an ml_dtypes array, which torch cannot wrap: go via f32
-        return torch.from_numpy(np.array(arr, np.float32)).to(device=dev, dtype=dtype)
+        return torch.from_numpy(np.array(arr, np.float32)).to(
+            device=dev, dtype=torch_dtype(arr.dtype.name))
 
     return convert(np_tree, want, "")

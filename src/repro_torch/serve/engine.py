@@ -75,7 +75,18 @@ per emitted token, split by bucket). Only target-emitted tokens count as
 output: rejected drafts never do. ``report["jit_cache"]`` counts the compiled
 entries per step kind with the reference's keys: ``prefill_chunk``,
 ``decode`` (the lane or the fused paged step) and, with speculation on,
-``verify`` (one per span width); the dense family has no ``commit``.
+``verify`` (one per span width) and, for a family with a commit (rwkv),
+``commit`` (one per span width).
+
+Recurrent families (rwkv): every prefill chunk carries its count of real
+rows (``n_real``, a staged device tensor), and padding rows leave the state
+exactly as it was. Their verify step writes nothing; after acceptance the
+commit step replays each slot's accepted prefix into the slot table
+(``Model.verify_commit``, ``n_commit`` = accepted drafts + 1 for an active
+slot, 0 for an idle one). Nothing of their state pages, so paged mode
+serves them from lanes: prefills park and activate through the store's
+tail snapshots, prefixes are shared as the tail at the boundary, and
+``report["paged"]["fused"]`` is false.
 """
 
 from __future__ import annotations
@@ -88,7 +99,7 @@ import torch
 
 from repro_torch.nn.model import build_model
 
-from .graphs import StepGraphs, run_model_step, run_prefill_chunk
+from .graphs import StepGraphs, run_commit, run_model_step, run_prefill_chunk
 from .paging import PagedConfig, PagedKVStore, prefix_key, selected_page_size
 from .scheduler import (BucketPolicy, CostModelAdmission, PagedAdmission, Refusal,
                         Request, Scheduler)
@@ -204,11 +215,13 @@ class ServeEngine:
                                      ops=self.model.tsl, n_pages=1, int8=paged.int8,
                                      device="meta")
                 n_pages = 2 * batch * max(probe.pages_for_rows(max_len), 1)
+            # a family without the fused paged contract (rwkv: nothing
+            # pages) gets a flat store and activates into lanes
             self._store = PagedKVStore(
                 shapes, self._page_axes, page_size=psize,
                 hbm_budget_bytes=paged.hbm_budget_bytes, n_pages=n_pages,
-                int8=paged.int8, fused=paged.fused, device=self.device,
-                ops=self.model.tsl)
+                int8=paged.int8, fused=paged.fused and self.model.decode_step_paged is not None,
+                device=self.device, ops=self.model.tsl)
             self._max_inflight = paged.max_inflight_prefills or 2 * batch
         # FUSED paged decode: slots decode straight off the block-table pools
         self._fused = self._store is not None and self._store.fused
@@ -282,8 +295,15 @@ class ServeEngine:
         copy of the logits row at the chunk's last REAL token, (1, V) (the
         step's logits are overwritten by the next step)."""
         logits = run_prefill_chunk(self._graphs, self.model, self.params, task.donor, seg,
-                                   task.fill)
+                                   task.fill, n_real)
         return logits[:, max(n_real, 1) - 1].clone()
+
+    def _step_kinds(self) -> tuple:
+        """The compiled step kinds this engine reports (``jit_cache``)."""
+        if self.spec is None:
+            return ("prefill_chunk", "decode")
+        commit = ("commit",) if self.model.verify_commit is not None else ()
+        return ("prefill_chunk", "decode", "verify") + commit
 
     def _new_donor(self) -> dict:
         return self.model.init_decode_state(1, self._state_len)
@@ -745,6 +765,14 @@ class ServeEngine:
                     # corrected token of a slot accepting m drafts
                     tgt = self._sample(logits, temps_host)
                     m_vec = accept_span(drafts, tgt, k_vec)
+                    if self.model.verify_commit is not None:
+                        # recurrent families: replay each active slot's
+                        # pending token and its m accepted drafts (n_commit
+                        # m + 1; 0 leaves idle slots exactly as they were)
+                        n_commit = np.zeros(self.batch, np.int64)
+                        n_commit[active] = m_vec[active] + 1
+                        run_commit(self._graphs, self.model, self.params, state, span,
+                                   n_commit)
                     verify_steps += 1
                     emits = {}
                     for slot in active:
@@ -876,8 +904,7 @@ class ServeEngine:
             "slot_reuse": sched.slot_reuse(),
             "admission_log": sched.admission_log,
             "step_log": step_log,
-            "jit_cache": self._graphs.sizes(
-                ("prefill_chunk", "decode") + (("verify",) if self.spec is not None else ())),
+            "jit_cache": self._graphs.sizes(self._step_kinds()),
             "per_request": [asdict(m) for m in finished],
             "refused": [{"rid": r.rid, "reason": r.reason}
                         for r in sched.refused],

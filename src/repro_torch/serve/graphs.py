@@ -4,8 +4,8 @@ and of its ``jit_cache`` report (``jit_cache_sizes``), on the shared
 machinery of ``repro_torch/graphs.py`` (:class:`Step`, the runner, the
 staging and :func:`disable_graphs`).
 
-Each decode, verify and prefill-chunk step is one :class:`Step`, keyed by
-its width. Donation becomes buffers updated in place: the slot table, the
+Each decode, verify, commit and prefill-chunk step is one :class:`Step`,
+keyed by its width. Donation becomes buffers updated in place: the slot table, the
 page pools (int8 pools' scale pools too) and a drafter's state stay where
 the graph captured them, and a
 batch-1 prefill donor is staged through the step's own donor (``inout``:
@@ -91,17 +91,35 @@ def run_model_step(graphs: StepGraphs, kind: str, model, params, state: dict,
 
 
 def run_prefill_chunk(graphs: StepGraphs, model, params, donor: dict,
-                      tokens: np.ndarray, fill: int) -> torch.Tensor:
-    """One prefill chunk of ``model``: tokens (1, C) into the batch-1
-    ``donor`` at cache fill ``fill``, the donor updated in place (staged
-    through the step's own donor). Returns the static (1, C, V) logits."""
-    args = {"tokens": tokens, "fill": np.asarray([fill], np.int64), **donor}
+                      tokens: np.ndarray, fill: int, n_real: int) -> torch.Tensor:
+    """One prefill chunk of ``model``: tokens (1, C), the first ``n_real``
+    real and the rest padding, into the batch-1 ``donor`` at cache fill
+    ``fill``, the donor updated in place (staged through the step's own
+    donor). ``fill`` and ``n_real`` are staged (1,) device tensors, so one
+    captured chunk serves every fill and padding amount. Returns the static
+    (1, C, V) logits."""
+    args = {"tokens": tokens, "fill": np.asarray([fill], np.int64),
+            "n_real": np.asarray([n_real], np.int64), **donor}
 
-    def body(tokens, fill, **leaves):
-        return model.prefill_chunk(params, leaves, tokens, fill)[0]
+    def body(tokens, fill, n_real, **leaves):
+        return model.prefill_chunk(params, leaves, tokens, fill, n_real=n_real)[0]
     return graphs.step("prefill_chunk", tokens.shape[1], body, args,
                        inout=tuple(donor))(**args)
 
 
+def run_commit(graphs: StepGraphs, model, params, state: dict, tokens: np.ndarray,
+               n_commit: np.ndarray) -> None:
+    """The commit of a verify round (``model.verify_commit``, recurrent
+    families): the span tokens (B, SV) replayed into the slot table
+    ``state`` in place, ``n_commit`` (B,) real rows per slot (0: the slot is
+    left as it was), keyed by the span width."""
+    args = {"tokens": tokens, "n_commit": np.asarray(n_commit, np.int64)}
+
+    def body(tokens, n_commit):
+        model.verify_commit(params, state, tokens, None, n_commit)
+        return n_commit         # the commit's result is the state, written in place
+    graphs.step("commit", tokens.shape[1], body, args)(**args)
+
+
 __all__ = ["CudaGraphRunner", "Step", "StepGraphs", "disable_graphs", "paged_workspace_sizes",
-           "run_model_step", "run_prefill_chunk"]
+           "run_commit", "run_model_step", "run_prefill_chunk"]

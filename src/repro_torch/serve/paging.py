@@ -614,7 +614,9 @@ class PagedKVStore:
         tail = self.tails.get(rid)
         if tail:
             for name, arr in tail.items():
-                out[name] = arr.to(self.device, self.tail_leaves[name][1])
+                # a copy: the engine updates donors in place, and the snapshot
+                # (a prefix entry's, shared by every hit) must not follow it
+                out[name] = arr.to(self.device, self.tail_leaves[name][1], copy=True)
         return out
 
     # -- fused-decode interface -----------------------------------------------

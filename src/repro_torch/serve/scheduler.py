@@ -169,21 +169,32 @@ class Refusal:
     reason: str
 
 
+# attention layers a decode step reads a cache in, per family priced
+_ATTN_LAYERS = {"dense": lambda cfg: cfg.n_layers, "ssm": lambda cfg: 0}
+
+
 class CostModelAdmission:
     """Roofline admission driven by the generated library's cost channel.
 
     A decode step over the full slot table is modeled as memory-bound:
       bytes/step = param bytes (weights stream once per token)
-                 + n_layers x lib.cost("attention_decode", "bytes", ...)
+                 + n_attn_layers x lib.cost("attention_decode", "bytes", ...)
       step_s     = bytes / TARGET.hbm_bw
-    Prefill is modeled as compute-bound and priced at the request's BUCKET:
-    parameter flops plus the ``attention_prefill_chunk`` cost term summed
-    over the chunk schedule, over TARGET.peak_flops_bf16.
+    with n_attn_layers n_layers for the dense family and 0 for rwkv (ssm),
+    whose step is its param bytes alone. Prefill is modeled as
+    compute-bound and priced at the request's BUCKET: parameter flops plus
+    the ``attention_prefill_chunk`` cost term summed over the chunk
+    schedule, over TARGET.peak_flops_bf16.
 
     A verify step at draft depth k is priced like a decode step with the
-    ``attention_verify`` bytes term at span k+1 (``verify_seconds``); with
+    ``attention_verify`` bytes term at span k+1 (``verify_seconds``); rwkv
+    pays twice that for the commit replay of the accepted prefix. With
     ``spec_k`` set, admission charges the cheaper of a decode step and a
     fully accepted span per emitted token.
+
+    ``param_bytes`` is the reference's ``cfg.param_count()``, which for
+    rwkv omits a few leaves of the real tree (7.00 B against 7.53 B for
+    rwkv6-7b): admission prices as the reference does.
 
     All are deliberately idealized (roofline = best case), so a request
     whose deadline fails even the best case is hopeless and refusing it is
@@ -193,15 +204,16 @@ class CostModelAdmission:
 
     def __init__(self, cfg, batch: int, max_len: int, *, lib,
                  policy: BucketPolicy | None = None):
-        if cfg.family != "dense":
-            raise NotImplementedError(f"admission prices the dense family only, "
-                                      f"not {cfg.family!r}")
+        if cfg.family not in _ATTN_LAYERS:
+            raise NotImplementedError(f"admission prices the dense and ssm families "
+                                      f"only, not {cfg.family!r}")
         self.cfg = cfg
         self.batch = batch
         self.max_len = max_len
         self.lib = lib
         self.policy = policy            # None -> exact-length admission
         self.param_bytes = cfg.param_count() * self._dtype_bytes()
+        self._attn_layers = _ATTN_LAYERS[cfg.family](cfg)
         self.hbm_bw = float(lib.TARGET.hbm_bw)
         self.peak_flops = float(lib.TARGET.peak_flops_bf16)
         self._step_s = None             # computed lazily, cached (pure shapes)
@@ -223,7 +235,7 @@ class CostModelAdmission:
                             S=self.max_len if s is None else s, D=cfg.hd)
         # UPD bytes formulas follow the bf16 convention (2 B/elem): rescale
         # to the serving dtype so both terms use the same element size
-        return self.param_bytes + cfg.n_layers * raw * (self._dtype_bytes() / 2.0)
+        return self.param_bytes + self._attn_layers * raw * (self._dtype_bytes() / 2.0)
 
     def step_seconds(self, s: int | None = None) -> float:
         if s is not None:
@@ -237,14 +249,16 @@ class CostModelAdmission:
         draft depth k (span SV = k+1): memory-bound like decode — the params
         stream once whatever the span — plus n_layers x the
         ``attention_verify`` bytes term at cache fill ``s`` (default
-        max_len). The price the speculation policy weighs against expected
-        accepted tokens."""
+        max_len). rwkv pays the commit replay of the accepted prefix through
+        the chunked-prefill path, modeled as a factor of 2. The price the
+        speculation policy weighs against expected accepted tokens."""
         cfg = self.cfg
         raw = self.lib.cost("attention_verify", "bytes", B=self.batch, H=cfg.n_heads,
                             KH=cfg.n_kv_heads, SV=int(k) + 1,
                             S=self.max_len if s is None else s, D=cfg.hd)
-        attn = cfg.n_layers * raw * (self._dtype_bytes() / 2.0)
-        return (self.param_bytes + attn) / self.hbm_bw
+        attn = self._attn_layers * raw * (self._dtype_bytes() / 2.0)
+        commit_factor = 2.0 if cfg.family == "ssm" else 1.0
+        return (self.param_bytes + attn) / self.hbm_bw * commit_factor
 
     def emit_seconds_per_token(self, s: int | None = None) -> float:
         """Best-case seconds per EMITTED token: a plain decode step or, with
@@ -262,8 +276,9 @@ class CostModelAdmission:
         cfg = self.cfg
         flops = 2.0 * cfg.param_count() * padded_len
         chunk = self.policy.chunk if self.policy else padded_len
-        for fill in range(chunk, padded_len + 1, chunk):
-            flops += cfg.n_layers * self.lib.cost(
+        fills = range(chunk, padded_len + 1, chunk) if self._attn_layers else ()
+        for fill in fills:
+            flops += self._attn_layers * self.lib.cost(
                 "attention_prefill_chunk", "flops", B=1, H=cfg.n_heads,
                 KH=cfg.n_kv_heads, C=chunk, S=fill, D=cfg.hd)
         return flops / self.peak_flops

@@ -15,7 +15,9 @@ The engine's speculative round is draft -> verify -> accept -> commit:
   greedy, the emitted stream equals plain decode's token for token; sampled,
   acceptance is exact match against the sampled target token;
 * **commit**: the dense family already wrote the span's cache rows in the
-  verify step, and rollback is kv_len truncation (free).
+  verify step, and rollback is kv_len truncation (free); rwkv's verify step
+  writes nothing, and the commit replays each slot's accepted prefix
+  (``Model.verify_commit``, per-slot real rows; 0 leaves a slot as it was).
 
 Depth k is a per-slot, per-step decision priced by the UPD cost channel
 (:class:`SpeculationPolicy`): expected emitted tokens from a per-slot
@@ -264,7 +266,7 @@ class DraftModelDrafter:
             self._donors[rid] = (self.model.init_decode_state(1, self.state_len), 0)
         donor, fill = self._donors[rid]
         run_prefill_chunk(self.graphs, self.model, self.params, donor,
-                          np.asarray(seg, np.int64), fill)
+                          np.asarray(seg, np.int64), fill, int(n_real))
         self._donors[rid] = (donor, fill + int(n_real))
 
     def on_graft(self, rid, slot, history) -> None:

@@ -33,7 +33,9 @@ SLICE_PRIMITIVES = ("load", "set1", "embed_lookup", "cache_update", "matmul", "r
                     # training: the loss and the attention backward
                     "cross_entropy", "flash_attention_bwd",
                     # speculative decoding: the verify span, lane and paged
-                    "attention_verify", "attention_verify_paged")
+                    "attention_verify", "attention_verify_paged",
+                    # the rwkv family
+                    "token_shift", "wkv6_scan", "wkv6_decode", "silu", "sigmoid")
 KERNEL_MODULES = {"rmsnorm": "repro_torch.kernels.rmsnorm.ops",
                   "swiglu": "repro_torch.kernels.swiglu.ops",
                   "flash_attention": "repro_torch.kernels.flash_attention.ops",
@@ -214,6 +216,16 @@ def _args(prim, rng):
     if prim == "flash_attention_bwd":
         return (_rand(rng, 1, 4, 9, 8), _rand(rng, 1, 2, 9, 8), _rand(rng, 1, 2, 9, 8),
                 _rand(rng, 1, 4, 9, 8)), {"causal": True}
+    if prim == "token_shift":
+        return (_rand(rng, 2, 5, 6), _rand(rng, 6, lo=0, hi=1)), {}
+    if prim in ("silu", "sigmoid"):
+        return (_rand(rng, 6, 19, lo=-4, hi=4),), {}
+    if prim in ("wkv6_scan", "wkv6_decode"):
+        lead = (2, 9) if prim == "wkv6_scan" else (2,)
+        r, k, v = (_rand(rng, *lead, 3, 8, lo=-1, hi=1) for _ in range(3))
+        w = rng.uniform(0.7, 0.999, (*lead, 3, 8)).astype(np.float32)
+        extra = (_rand(rng, 2, 3, 8, 8),) if prim == "wkv6_decode" else ()
+        return (r, k, v, w, _rand(rng, 3, 8, lo=-1, hi=1), *extra), {}
     raise KeyError(prim)
 
 
@@ -225,7 +237,7 @@ def test_torch_cpu_library_matches_cpu_xla(prim, libs):
                                 for a in args], **kwargs)
     got = getattr(port, prim)(*[torch.from_numpy(a.copy()) if isinstance(a, np.ndarray)
                                 else a for a in args], **kwargs)
-    if isinstance(want, tuple):                 # flash_attention_bwd: (dq, dk, dv)
+    if isinstance(want, tuple):                 # flash_attention_bwd, wkv6_*: tuples
         assert isinstance(got, tuple) and len(got) == len(want)
     else:
         got, want = (got,), (want,)

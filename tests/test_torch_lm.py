@@ -167,7 +167,8 @@ def test_every_registered_arch_matches_the_reference(arch):
     _close(got, want)
 
 
-@pytest.mark.parametrize("change", [{"family": "moe"}, {"family": "ssm"},
+@pytest.mark.parametrize("change", [{"family": "moe"},
+                                    {"family": "moe", "n_experts": 4, "experts_per_token": 2},
                                     {"family": "hybrid"}, {"family": "vlm"},
                                     {"family": "audio", "act": "gelu",
                                      "norm": "layernorm"}])
