@@ -24,11 +24,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    per instantiation of the flash forward and backward and the paged
    libraries, ptxas's registers and spills and the tensor-core (HMMA /
    HGMMA) instructions in its SASS (cuobjdump -sass), and fails if a bf16
-   one (forward, dq, dk/dv, paged at D 64 and 128) spills or has none, or a
-   float32 one has any; per softmax instantiation its registers, shared
+   one (forward, dq, dk/dv, paged at D 64 and 128; forward and paged at D
+   112 too) spills or has none, or a float32 one has any; per softmax instantiation its registers, shared
    memory and spills (any spill fails). The paged cases (serving, the
    serving verify span of SPEC_K + 1 rows, edges, GQA span, a long context,
-   batch-1 GQA, float32) print their split plan, the softmax cases theirs
+   batch-1 GQA, float32, and zamba2-7b's decode and verify shapes at D 112
+   in both dtypes) print their split plan, the softmax cases theirs
    (kernel.plan: regime, cluster size, chunk, load), and the main paged,
    serving verify, hadd, to_integral and softmax cases their kernels per
    call (torch.profiler; more than one fails). Each softmax case that runs a
@@ -246,7 +247,44 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    decode step, a prefill chunk and twice a verify step (its commit), and
    swiglu, flash and paged attention never. Phase 4's rwkv rows: the
    decode step and the verify step with its commit at depth SPEC_K,
-   captured vs eager.
+   captured vs eager. 7b-7d and phase 4's rwkv rows run RWKV_SERVE_LAYERS
+   (4) of its 32 layers, its widths kept (the first layers of 7a's
+   weights), for phase 8's room in the script's time.
+8. zamba2-7b at full width (81 layers: 13 groups of 6 Mamba2 layers, each
+   followed by the one shared attention block, then 3; d 3584, 32 attention
+   heads of 112, d_inner 7168 in 112 SSD heads of 64, N 64, conv 4, vocab
+   32000, bf16; 6.60 B parameters), seeded weights from the port's init on
+   the card, after rwkv6-7b's are freed. Its path runs three kernels: rmsnorm
+   (every block norm, the gated norm at width 7168), the flash forward at D
+   112 (Model.prefill) and the paged kernel at D 112 (fused paged decode,
+   verify and commit); the SSD, conv, silu and discretization are plain
+   torch, as jnp in the reference.
+8a. The main path, counted: Model.prefill of ZAMBA_PREFILL tokens (the flash
+   kernel ZAMBA_SHARED = 13 times) and DECODE_STEPS bf16 decode steps. Not
+   counted: the flash kernel against its plain version at each of the 13
+   applications of a bf16 prefill, and the paged kernel at each of a bf16
+   fused paged decode step's and verify span's (batch 8 over 256 rows), on
+   the activations the model gives them (TOLERANCE); ssd_scan chunked (h100,
+   chunk 64) against the time-step scan (torch_cpu), float32, within
+   SSD_REL_TOL; at ZAMBA_F32_LAYERS (7) of its layers, widths kept, the
+   float32 model's prefill and decode steps on each library, and its fused
+   paged decode and verify steps kernel vs plain, within ZAMBA_F32_REL_L2.
+   The full-depth model against the plain library's is printed, not gated:
+   the seeded layers amplify a difference layer after layer (a float32
+   prefill apart by 9.5e-3 at 81 layers, 1.1e-4 at 13, from the SSD's
+   summation order and the kernels' roundings), and in bf16 one ulp moves a head's bf16-rounded decay (a decode
+   step from a shared state apart by rel L2 0.42, parting at layer 4).
+8b. The serve CLI (--arch zamba2-7b) at phase 3's shapes, lane mode; 8c
+   fused paged mode on phase 3b's requests (one prefix miss, 31 hits plus
+   one a preemption, the tails in the slot table, the KV in the pools; the
+   share of the first wave's tokens equal to a lane-mode run's printed); 8d
+   the n-gram drafter at depth SPEC_K on 8 of 3e(ii)'s prompts,
+   fused paged (the graphs run must capture the paged commit). Each a
+   paired_serve under zamba_launch_check: rmsnorm 176 a pass (a decode step
+   or chunk; two a verify step, its commit replaying the span), the paged
+   kernel 13 a fused decode, verify or commit step, flash and swiglu never.
+   Phase 4's zamba rows: the lane and the fused paged decode step, and the
+   fused paged verify step with its commit on the pools, captured vs eager.
 
 A captured step adds to each counter, on every replay, the launches its
 capture recorded, so the counters read the same with graphs and without.
@@ -274,7 +312,10 @@ microbatches). The training kernels' rows carry the three paths' counts
 (launches_phase5c; launches_phase5d: the compiled float32 run's 6 steps;
 launches_phase6: the 9 uninterrupted steps). They are set to 0 again just
 before each of phase 7b, 7c and 7d and read just after it (rmsnorm's row:
-launches_phase7b, launches_phase7c, launches_phase7d).
+launches_phase7b, launches_phase7c, launches_phase7d). They are set to 0
+just before phase 8a's main path and read just after it (rows 1 and 3:
+launches_phase8a), and just before each of 8b, 8c and 8d and read just
+after it (row 1: launches_phase8b-8d; row 7: launches_phase8c, 8d).
 Launches made to compare a kernel with its plain version, and those of
 phases 4 and 4b (measurements), are not counted.
 
@@ -371,6 +412,31 @@ WKV_REL_TOL = 1e-3
 # 7a's float32 model, h100 vs torch_cpu library: phase 5b's float32 bound
 RWKV_F32_REL_L2 = 1e-4
 RWKV_SERVE_REQUESTS, RWKV_PROMPT, RWKV_GEN = 16, 256, 64
+# 7b-7d serve rwkv6-7b at RWKV_SERVE_LAYERS of its 32 layers, its widths kept
+# (the first RWKV_SERVE_LAYERS layers of the seeded weights): room in the
+# script's time for phase 8; 7a and phase 4's rwkv rows keep all 32
+RWKV_SERVE_LAYERS = 4
+# phase 8: zamba2-7b at full width. 8a holds the h100 library's ssd_scan
+# (chunked, chunk 64) to the torch_cpu time-step scan at ZAMBA_PREFILL x
+# (112 heads, P 64, N 64) in float32: their largest difference relative to
+# max |y| and to max |h| within SSD_REL_TOL (the two sum the same products in
+# other orders, through log-space decay products; a structural fault errs by
+# O(1)); its prefill is ZAMBA_PREFILL tokens. The serves take phase 7's
+# shapes, at full depth
+ZAMBA_ARCH = "zamba2-7b"
+ZAMBA_PREFILL = (2, 512)
+SSD_REL_TOL = 1e-5
+ZAMBA_F32_REL_L2 = 1e-4         # 8a's float32 model, h100 vs torch_cpu: phase 5b's bound
+ZAMBA_SHARED = 13               # applications of zamba2-7b's shared attention block
+ZAMBA_GATED_WIDTH = 7168        # zamba2-7b's d_inner, the gated rmsnorm's row (phase 1)
+ZAMBA_SERVE_ARGS = ["--arch", ZAMBA_ARCH] + SERVE_ARGS[2:]
+ZAMBA_SPEC_GEN = 32             # 8d's tokens a request (the script's time)
+# 8a's float32 gates run zamba2-7b at ZAMBA_F32_LAYERS of its 81 layers,
+# widths kept (one group of 6, the shared block, 1 remainder layer): its
+# seeded layers amplify a difference layer after layer (phase 8a's
+# chunked-vs-scan SSD, 8e-7 in a layer, reaches 9.5e-3 of the float32
+# prefill's logits at 81 layers and 1.1e-4 at 13)
+ZAMBA_F32_LAYERS = 7
 # the report entries two serves of the same requests must share, graphs on
 # and off (counts, not times; report["paged"] and report["spec"] in full)
 SERVE_COUNTED = ("requests", "generated_tokens", "steps", "padded_slot_steps_steady",
@@ -561,18 +627,25 @@ MMA_KERNELS = {"flash": ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
                "paged": ("paged_mma_kernel",)}
 
 
+# the serving kernels built at D 112 too (zamba2-7b's shared attention)
+MMA_KERNELS_D112 = {"flash_fwd_mma_kernel", "paged_mma_kernel"}
+
+
 def tensor_core_gate(counts: dict, family: str = "flash") -> None:
     """Raise unless every bf16 kernel of ``family`` (MMA_KERNELS) has an
-    instantiation at D 64 and at D 128 and each has tensor-core
+    instantiation at D 64 and at D 128 (the serving forward and the paged
+    kernel at D 112 too, MMA_KERNELS_D112) and each has tensor-core
     instructions, and no float32 instantiation has any (``counts``: HMMA /
     HGMMA per kernel_label, all libraries of the family)."""
     bf16 = {k: n for k, n in counts.items() if "_mma_" in k}
     f32 = {k: n for k, n in counts.items() if "_mma_" not in k}
     have = {(k.split("<")[0], k.split("<")[1].split(",")[0].rstrip(">")) for k in bf16}
     want = {(name, d) for name in MMA_KERNELS[family] for d in ("64", "128")}
+    want |= {(name, "112") for name in MMA_KERNELS[family] if name in MMA_KERNELS_D112}
     if not want <= have or not all(bf16.values()) or not f32 or any(f32.values()):
         raise AssertionError(f"{family} instantiations: want HMMA in every bf16 one "
-                             f"({', '.join(MMA_KERNELS[family])} at D 64 and 128) and none "
+                             f"({', '.join(MMA_KERNELS[family])} at D 64 and 128, "
+                             f"{', '.join(sorted(MMA_KERNELS_D112))} at D 112 too) and none "
                              f"in the float32 ones; got {counts}")
 
 
@@ -804,16 +877,17 @@ def kernel_phase(dev) -> list[dict]:
     results = []
 
     cases = []
-    for rows in rows_list:
-        x, w = rnd(rows, 1024), rnd(1024)
+    # (rows, width): qwen1.5's norms, and zamba2-7b's gated norm (d_inner 7168)
+    for rows, width in [(r, 1024) for r in rows_list] + [(1024, ZAMBA_GATED_WIDTH)]:
+        x, w = rnd(rows, width), rnd(width)
         got = rn.rmsnorm(x, w)
         want = rn.ref.rmsnorm(x, w)
-        c = {"shape": [rows, 1024], "dtype": "bfloat16",
-             **check_case("rmsnorm", (rows, 1024), got, want, x.dtype)}
+        c = {"shape": [rows, width], "dtype": "bfloat16",
+             **check_case("rmsnorm", (rows, width), got, want, x.dtype)}
         _timed_device(c, lambda: rn.rmsnorm(x, w), lambda: rn.ref.rmsnorm(x, w),
-                      lambda: F.rms_norm(x, (1024,), w, 1e-6), 100)
-        c["bound_ms"], c["bound_by"] = bound((2 * rows * 1024 + 1024) * 2,
-                                             4 * rows * 1024, x.dtype)
+                      lambda: F.rms_norm(x, (width,), w, 1e-6), 100)
+        c["bound_ms"], c["bound_by"] = bound((2 * rows * width + width) * 2,
+                                             4 * rows * width, x.dtype)
         cases.append(c)
     results.append(("rmsnorm", "triton", "src/repro_torch/kernels/rmsnorm/kernel.py",
                     "src/repro/kernels/rmsnorm/kernel.py:31", [1024, 1024], cases))
@@ -840,6 +914,9 @@ def kernel_phase(dev) -> list[dict]:
         (1, 8, 2, 256, 256, 128, torch.bfloat16, True, None),    # GQA, D=128
         (2, 16, 16, 64, 320, 64, torch.bfloat16, True, 300),     # continuation
         (2, 16, 16, 512, 512, 64, torch.float32, True, None),
+        # zamba2-7b's shared attention block in Model.prefill, D 112
+        (2, 32, 32, 512, 512, 112, torch.bfloat16, True, None),
+        (2, 32, 32, 512, 512, 112, torch.float32, True, None),
     ]
     cases = []
     for b, h, kh, sq, sk, d, dt, causal, kv_len in fa_cases:
@@ -969,6 +1046,14 @@ def paged_cases(dev, pa) -> list[dict]:
         (8, 16, 16, 64, PAGE, 1, long, 64, torch.bfloat16, False),
         (1, 40, 8, 128, PAGE, 1, [4096], 64, torch.bfloat16, False),
         (8, 16, 16, 64, PAGE, 1, edges, 5, torch.float32, False),
+        # zamba2-7b's shared attention block (32 heads of 112): the fused
+        # decode step and the verify span of phase 8, both dtypes
+        (8, 32, 32, 112, PAGE, 1, steady, 5, torch.bfloat16, False),
+        (8, 32, 32, 112, PAGE, SPEC_K + 1, [n + SPEC_K + 1 for n in steady], verify_width,
+         torch.bfloat16, False),
+        (8, 32, 32, 112, PAGE, 1, steady, 5, torch.float32, False),
+        (8, 32, 32, 112, PAGE, SPEC_K + 1, [n + SPEC_K + 1 for n in steady], verify_width,
+         torch.float32, False),
     ]
     cases = []
     for b, h, kh, d, page, sq, kv_lens, width, dt, main in specs:
@@ -1534,31 +1619,44 @@ def model_phase(dev, gpu: str) -> tuple[dict, object, dict]:
     return out, model, params
 
 
-def paged_pools(dev, model, params, batch: int, fill: int, seed: int,
+def paged_state(dev, model, params, batch: int, fill: int, seed: int,
                 max_len: int = PAGED_MAX_LEN):
-    """Fused pools (L, 1, KH, n_pages, PAGE, hd) holding ``batch`` prefilled
-    prompts of ``fill`` tokens behind permuted page tables (page 0 is the
-    scratch page), room for ``max_len`` rows (default the serve phase's);
-    and the (B, P) tables on the device."""
+    """(tails, pools, tables): ``batch`` prefilled prompts of ``fill``
+    tokens, each leaf that pages (``model.state_page_axes``: (stack, B, KH,
+    S, hd), token axis 3) moved into fused pools (stack, 1, KH, n_pages,
+    PAGE, hd) behind permuted page tables (page 0 is the scratch page that
+    pads every table row past its coverage), room for ``max_len`` rows
+    (default the serve phase's); the other leaves, a family's tails (none
+    for the dense family), as a tails-only slot table; the (B, P) tables on
+    the device."""
     import torch
 
     cfg = model.cfg
     g = torch.Generator(device=dev).manual_seed(seed)
     tokens = torch.randint(0, cfg.vocab, (batch, fill), generator=g, device=dev)
     _, state = model.prefill(params, {"tokens": tokens}, fill)
+    axes = model.state_page_axes(state)
     width = -(-max_len // PAGE)
     n_pages = 1 + batch * width
     perm = (torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(seed))
             + 1).view(batch, width)
-    pools = {n: torch.zeros((cfg.n_layers, 1, cfg.n_kv_heads, n_pages, PAGE, cfg.hd),
-                            dtype=model.dtype, device=dev) for n in ("k", "v")}
+    pools = {n: torch.zeros((x.shape[0], 1, x.shape[2], n_pages, PAGE, x.shape[4]),
+                            dtype=model.dtype, device=dev)
+             for n, x in state.items() if axes[n] is not None}
     for b in range(batch):
         for p in range(-(-fill // PAGE)):
             rows = slice(p * PAGE, min((p + 1) * PAGE, fill))
             n_rows = rows.stop - rows.start
-            for n in ("k", "v"):
+            for n in pools:
                 pools[n][:, 0, :, int(perm[b, p]), :n_rows] = state[n][:, b, :, rows]
-    return pools, perm.to(device=dev, dtype=torch.int32)
+    tails = {n: x for n, x in state.items() if axes[n] is None}
+    return tails, pools, perm.to(device=dev, dtype=torch.int32)
+
+
+def paged_pools(dev, model, params, batch: int, fill: int, seed: int,
+                max_len: int = PAGED_MAX_LEN):
+    """paged_state's (pools, tables), for a family whose every leaf pages."""
+    return paged_state(dev, model, params, batch, fill, seed, max_len)[1:]
 
 
 class _PlainPaged:
@@ -1811,13 +1909,13 @@ def paged_serve_phase(dev, params, gpu: str) -> dict:
     return out
 
 
-def spec_requests(vocab: int, request_cls, n: int) -> list:
+def spec_requests(vocab: int, request_cls, n: int, gen: int = PAGED_GEN) -> list:
     """Phase 3e(ii)/(iii): ``n`` requests whose SPEC_PROMPT-token prompts
-    repeat a seeded SPEC_PATTERN-token pattern, PAGED_GEN generated."""
+    repeat a seeded SPEC_PATTERN-token pattern, ``gen`` generated."""
     import numpy as np
 
     rng = np.random.default_rng(9)
-    return [request_cls(rid=f"s{i}", gen_len=PAGED_GEN,
+    return [request_cls(rid=f"s{i}", gen_len=gen,
                         tokens=np.tile(rng.integers(0, vocab, SPEC_PATTERN),
                                        SPEC_PROMPT // SPEC_PATTERN).astype(np.int32))
             for i in range(n)]
@@ -2333,11 +2431,11 @@ def _host_top_functions(fn, n: int = 10, calls: int = PROFILE_STEPS) -> dict:
     return {"self": top(2), "cumulative": top(3)}
 
 
-def _profile(fn) -> dict:
-    """Host wall per call (synchronised), host time by Python function and,
-    from one window of PROFILE_STEPS calls under device tracing (CUDA
-    activity only, read from the raw records), device busy time, kernels
-    per call and top kernels."""
+def _profile(fn, host_top: bool = True) -> dict:
+    """Host wall per call (synchronised), host time by Python function
+    (``host_top``) and, from one window of PROFILE_STEPS calls under device
+    tracing (CUDA activity only, read from the raw records), device busy
+    time, kernels per call and top kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2362,8 +2460,9 @@ def _profile(fn) -> dict:
         name = e.name()[:80]
         by_name[name] = by_name.get(name, 0.0) + e.duration_ns() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    out = {"wall_ms": wall_ms, "launches": len(kernels) / PROFILE_STEPS,
-           "host_top_functions_ms": _host_top_functions(fn)}
+    out = {"wall_ms": wall_ms, "launches": len(kernels) / PROFILE_STEPS}
+    if host_top:
+        out["host_top_functions_ms"] = _host_top_functions(fn)
     if busy_us > 0:
         out["device_busy_ms"] = busy_us / 1e3 / PROFILE_STEPS
         out["device_idle_share"] = 1.0 - out["device_busy_ms"] / wall_ms
@@ -3409,10 +3508,11 @@ def rwkv_layers_phase(dev, model, params, gpu: str) -> dict:
 
 
 def rwkv_serve_phase(dev, params, gpu: str) -> dict:
-    """Phases 7b-7d: rwkv6-7b served at full width, each serve a paired_serve
-    (captured and eager: equal outputs, counters and launches) under
-    rwkv_launch_check, the counters set to 0 just before each pair and read
-    just after it.
+    """Phases 7b-7d: rwkv6-7b served at its full widths and RWKV_SERVE_LAYERS
+    of its 32 layers (the first layers of the seeded weights), each serve a
+    paired_serve (captured and eager: equal outputs, counters and launches)
+    under rwkv_launch_check, the counters set to 0 just before each pair and
+    read just after it.
     7b lane mode, phase 3's shapes (graphs side traced).
     7c paged mode (PagedConfig()) on phase 3b's requests: no leaf pages, so
        fused is false, requests activate through lanes, and the shared
@@ -3426,7 +3526,7 @@ def rwkv_serve_phase(dev, params, gpu: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.serve import PagedConfig, Request, ServeEngine, SpeculationConfig
 
-    cfg = get_config(RWKV_ARCH)
+    cfg = get_config(RWKV_ARCH).replace(n_layers=RWKV_SERVE_LAYERS)
     kw = dict(batch=PAGED_BATCH, max_len=RWKV_PROMPT + RWKV_GEN, device=dev, params=params,
               prefill_chunk=PAGED_CHUNK)
     out = {}
@@ -3552,7 +3652,7 @@ def rwkv_profile_phase(dev, model, params, gpu: str) -> dict:
 
     def verify_commit():
         logits = run_model_step(graphs, "verify", model, params, state, span, pos)
-        run_commit(graphs, model, params, state, span, n_commit)
+        run_commit(graphs, model, params, state, span, pos, n_commit)
         return logits
 
     steps = {"rwkv_decode_step": lambda: run_model_step(graphs, "decode", model, params,
@@ -3565,7 +3665,8 @@ def rwkv_profile_phase(dev, model, params, gpu: str) -> dict:
                 with disable_graphs():
                     return fn()
             out[kind] = {"batch": PROFILE_BATCH, "span": 1 if "decode" in kind else SPEC_K + 1,
-                         "captured": _profile(fn), "eager": _profile(eager)}
+                         "layers": cfg.n_layers, "captured": _profile(fn, host_top=False),
+                         "eager": _profile(eager, host_top=False)}
     out["jit_cache"] = graphs.sizes(("decode", "verify", "commit"))
     for kind in steps:
         c, e = out[kind]["captured"], out[kind]["eager"]
@@ -3587,7 +3688,7 @@ def rwkv_phase(dev, gpu: str) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.nn.model import RwkvModel, build_model
-    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.optimizer import tree_leaves, tree_map
 
     t_phase = time.perf_counter()
     cfg = get_config(RWKV_ARCH)
@@ -3609,10 +3710,13 @@ def rwkv_phase(dev, gpu: str) -> dict:
         for name, fn in counters().items():      # kernel vs plain: not a main path
             fn.launches = saved[name]
     out["7a"]["seconds"] = time.perf_counter() - t0
-    out.update(rwkv_serve_phase(dev, params, gpu))
+    # 7b-7d and phase 4's rows at RWKV_SERVE_LAYERS of the depth, widths kept
+    cut = {**params, "blocks": tree_map(lambda x: x[:RWKV_SERVE_LAYERS], params["blocks"])}
+    out.update(rwkv_serve_phase(dev, cut, gpu))
     t0 = time.perf_counter()
     saved = read_counts()
-    out["phase4"] = rwkv_profile_phase(dev, model, params, gpu)
+    out["phase4"] = rwkv_profile_phase(
+        dev, build_model(cfg.replace(n_layers=RWKV_SERVE_LAYERS), device=dev), cut, gpu)
     for name, fn in counters().items():
         fn.launches = saved[name]
     out["phase4"]["seconds"] = time.perf_counter() - t0
@@ -3620,6 +3724,565 @@ def rwkv_phase(dev, gpu: str) -> dict:
     print(f"[phase7] {RWKV_ARCH} done on {gpu}: phase {out['seconds']:.1f} s (7a "
           f"{out['7a']['seconds']:.1f}, 7b {out['7b']['seconds']:.1f}, 7c "
           f"{out['7c']['seconds']:.1f}, 7d {out['7d']['seconds']:.1f}, phase 4's rows "
+          f"{out['phase4']['seconds']:.1f})", flush=True)
+    return out
+
+
+def zamba_launch_check(cfg, launched, report, *, fused: bool) -> list:
+    """The problems of one zamba serve's launch counts. rmsnorm launches
+    2 n_layers + n_shared + 1 times a pass (each Mamba2 layer's block norm
+    and its gated norm at d_inner, the shared block's norm, the final norm):
+    once per decode step and prefill chunk, twice per verify step (the span
+    and its commit replay). The paged kernel launches n_shared times per
+    decode step, verify step and paged commit fused, never in lanes; swiglu
+    and flash attention never (the engine's chunks attend by the plain
+    chunk attention)."""
+    from repro_torch.nn.zamba import layout
+
+    g, _, _ = layout(cfg)
+    chunks = sum(e["chunks"] for e in report["step_log"])
+    spec = report.get("spec") or {}
+    verify = spec.get("verify_steps", 0)
+    decode = sum(e["decoded"] > 0 for e in report["step_log"]) - verify
+    per_pass = 2 * cfg.n_layers + g + 1
+    want = {"rmsnorm": per_pass * (decode + chunks + 2 * verify),
+            "paged_attention": g * (decode + 2 * verify) if fused else 0,
+            "swiglu": 0, "flash_attention": 0}
+    return [f"{name} launched {launched[name]} times, want {n} ({decode} decode steps, "
+            f"{chunks} prefill chunks, {verify} verify steps + commits; {per_pass} norms "
+            f"and {g} shared attention applications a pass)"
+            for name, n in want.items() if launched[name] != n]
+
+
+class _Compared:
+    """A library's ops whose kernel wrappers named in ``plain`` also run
+    their plain version on the same operands right after the kernel (the
+    operands are not written by either), each pair held to TOLERANCE by
+    check_case and recorded in ``results``; the kernel's output is
+    returned. Holds a kernel against its plain version inside the model, on
+    the activations the model gives it, call by call."""
+
+    def __init__(self, ops, plain: dict, label: str):
+        self._ops, self._plain, self._label, self.results = ops, plain, label, []
+
+    def __getattr__(self, name):
+        if name not in self._plain:
+            return getattr(self._ops, name)
+        kernel, ref = getattr(self._ops, name), self._plain[name]
+
+        def both(*args, **kw):
+            got = kernel(*args, **kw)
+            shape = tuple(got.shape)
+            self.results.append(check_case(f"{self._label} {name} call {len(self.results)}",
+                                           shape, got, ref(*args, **kw), got.dtype))
+            return got
+        return both
+
+
+def _worst(results: list) -> dict:
+    return {"calls": len(results),
+            "max_abs_err": max(r["max_abs_err"] for r in results),
+            "tolerance_used": max(r["tolerance_used"] for r in results)}
+
+
+def zamba_cut(cfg, params, n_layers: int):
+    """(cfg, params) of zamba at ``n_layers`` of its depth, its widths kept:
+    the first n_layers // attn_every groups and the first layers of the
+    remainder stack (views of ``params``)."""
+    from repro_torch.train.optimizer import tree_map
+
+    k = cfg.attn_every
+    g, rem = n_layers // k, n_layers % k
+    cut = {**params, "groups": tree_map(lambda x: x[:g], params["groups"])}
+    if rem:
+        cut["rest"] = tree_map(lambda x: x[:rem], params["rest"])
+    else:
+        cut.pop("rest", None)
+    return cfg.replace(n_layers=n_layers), cut
+
+
+def zamba_paged_check(dev, runs) -> dict:
+    """8a, paged: one fused paged decode step and one verify span of
+    SPEC_K + 1 at batch 8 over 256 prefilled rows, per (label, model,
+    params, rel_l2) of ``runs``. The paged kernel against its plain version
+    at each shared-attention application of both steps, on the activations
+    and pools the step gives it (_Compared, TOLERANCE); the whole step's
+    logits against the step through the plain version on copies of the same
+    tails and pools, under _require_logits at ``rel_l2`` (None: printed
+    only: at 81 layers one ulp of difference grows to a few 1e-2 in bf16 and
+    1e-2 in float32, see zamba_layers_phase). Row 0 of the span against the
+    decode step is printed (the span's Mamba2 layers run the chunked form,
+    the step the decode form)."""
+    import torch
+
+    from repro_torch.kernels.paged.ref import paged_attention_ref
+    from repro_torch.nn import zamba
+
+    batch, fill = PROFILE_BATCH, PROFILE_FILL
+    out = {"batch": batch, "kv_len": fill + 1, "span": SPEC_K + 1}
+    for label, m, p, rel_l2 in runs:
+        cfg, vocab = m.cfg, m.cfg.padded_vocab
+        g = torch.Generator(device=dev).manual_seed(14)
+        span = torch.randint(0, cfg.vocab, (batch, SPEC_K + 1), generator=g, device=dev)
+        pos = torch.full((batch,), fill, dtype=torch.int64, device=dev)
+        steps = (("decode", zamba.zamba_decode_step_paged, span[:, :1]),
+                 ("verify", zamba.zamba_verify_step_paged, span))
+        tails, pools, tables = paged_state(dev, m, p, batch, fill, seed=13)
+        compared = _Compared(m.tsl, {"attention_decode_paged": paged_attention_ref,
+                                     "attention_verify_paged": paged_attention_ref},
+                             f"phase 8a {label} fused paged step")
+        logits = {}
+        for name, tsl in (("kernel", compared), ("plain", _PlainPaged(m.tsl))):
+            for kind, fn, toks in steps:
+                st = {n: t.clone() for n, t in tails.items()}
+                pl = {n: t.clone() for n, t in pools.items()}
+                logits[name, kind] = fn(tsl, p, st, pl, tables, toks, pos, cfg)[0].reshape(
+                    -1, vocab)
+        r = {kind: _logits_check(logits["kernel", kind], logits["plain", kind], cfg.vocab)
+             for kind, _, _ in steps}
+        r["kernel_calls_vs_plain"] = _worst(compared.results)
+        r["verify_row0_vs_decode"] = _logits_check(
+            logits["kernel", "verify"].reshape(batch, -1, vocab)[:, 0],
+            logits["kernel", "decode"], cfg.vocab)
+        r["layers"] = cfg.n_layers
+        out[label] = r
+        del tails, pools
+        if rel_l2 is not None:
+            for kind, _, _ in steps:
+                _require_logits(f"phase 8a {label} fused paged {kind} step, kernel vs plain",
+                                r[kind], rel_l2=rel_l2)
+    return out
+
+
+def zamba_layers_phase(dev, model, params, params32, gpu: str) -> dict:
+    """Phase 8a: zamba2-7b's main path and its layers against the plain
+    versions on the card.
+
+    The main path, counted (the counters set to 0 just before it and read
+    just after): Model.prefill of ZAMBA_PREFILL tokens through the h100
+    library (the flash kernel ZAMBA_SHARED times, at D 112), then
+    DECODE_STEPS greedy bf16 decode steps: finite logits of the right shape.
+
+    Then, not counted:
+    * the flash kernel against its plain version at each of the 13
+      applications of a full-width bf16 prefill, on the activations the
+      prefill gives it (_Compared, TOLERANCE);
+    * the h100 library's ssd_scan (the chunked form) against the torch_cpu
+      library's time-step scan, float32, at ZAMBA_PREFILL x (112, 64, N 64)
+      with decays from layer 0's discretization on seeded activations,
+      within SSD_REL_TOL of max |y| and of max |h|;
+    * the model in float32 (``params32``) at ZAMBA_F32_LAYERS of its depth,
+      widths kept (one group, the shared block, a remainder layer), on
+      each library: one prefill and DECODE_STEPS decode steps each on its
+      own state, every row within ZAMBA_F32_REL_L2;
+    * zamba_paged_check: the paged kernel call by call at full depth in
+      bf16 and float32, and the whole fused steps in float32 at
+      ZAMBA_F32_LAYERS.
+    The full-depth model against the plain library's is printed, not gated:
+    zamba2-7b's seeded layers amplify a difference layer after layer (the
+    SSD's summation order, chunked against the scan, 8e-7 in a layer,
+    reaches 9.5e-3 of the float32 prefill's logits at 81 layers, 1.1e-4 at
+    13), and
+    in bf16 one ulp also moves a head's bf16-rounded decay (a decode step
+    from a shared state apart by rel L2 0.42, parting at layer 4)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.nn import zamba
+    from repro_torch.nn.lm import unstack_layers
+    from repro_torch.nn.mamba2 import _discretize, _split_proj, dims
+    from repro_torch.nn.model import build_model
+    from repro_torch.nn.zamba import layout
+
+    cfg = model.cfg
+    plain = build_model(cfg, device=dev, target="torch_cpu")
+    b, t = ZAMBA_PREFILL
+    max_len = t + DECODE_STEPS
+    g = torch.Generator(device=dev).manual_seed(21)
+    tokens = torch.randint(0, cfg.vocab, ZAMBA_PREFILL, generator=g, device=dev)
+    out, checks = {}, {}
+
+    # the main path: prefill + decode steps through the kernels, counted
+    for fn in counters().values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, state = model.prefill(params, {"tokens": tokens}, max_len)
+    torch.cuda.synchronize()
+    out["prefill_s"] = time.perf_counter() - t0
+    out["prefill_launches"] = read_counts()
+    if out["prefill_launches"]["flash_attention"] != ZAMBA_SHARED:
+        raise AssertionError(f"phase 8a: the flash kernel launched "
+                             f"{out['prefill_launches']['flash_attention']} times in a prefill, "
+                             f"want {ZAMBA_SHARED}")
+    first = got
+    toks = got[:, :cfg.vocab].argmax(-1)
+    generated = []
+    for i in range(DECODE_STEPS):
+        shared = {n: x.clone() for n, x in state.items()}
+        got, state = model.decode_step(params, state, toks[:, None], t + i)
+        want, _ = plain.decode_step(params, shared, toks[:, None], t + i)
+        checks[f"bf16_decode_{i}"] = _logits_check(got, want, cfg.vocab)
+        toks = got[:, :cfg.vocab].argmax(-1)
+        generated.append(toks.tolist())
+    for logits in (first, got):
+        if tuple(logits.shape) != (b, cfg.padded_vocab) \
+                or not torch.isfinite(logits.float()).all():
+            raise AssertionError(f"phase 8a: logits {tuple(logits.shape)} not finite/shaped")
+    if not all(c["finite"] for c in checks.values()):
+        raise AssertionError("phase 8a: a bf16 decode step's logits are not finite")
+    out["launches"] = read_counts()
+    out["greedy_tokens"] = generated
+    del state, shared
+    saved = read_counts()
+
+    # the flash kernel in context: each of the 13 applications vs plain
+    compared = _Compared(model.tsl, {"flash_attention": flash_ref.attention},
+                         "phase 8a bf16 prefill")
+    zamba.zamba_prefill(compared, params, tokens, cfg, max_len=max_len)
+    out["flash_calls_vs_plain"] = _worst(compared.results)
+    if out["flash_calls_vs_plain"]["calls"] != ZAMBA_SHARED:
+        raise AssertionError(f"phase 8a: {out['flash_calls_vs_plain']['calls']} flash calls "
+                             f"compared, want {ZAMBA_SHARED}")
+
+    # the SSD: chunked (h100) against the time-step scan (torch_cpu), float32
+    n_groups, k, _ = layout(cfg)
+    p0 = unstack_layers(unstack_layers(params["groups"], n_groups)[0], k)[0]["mamba"]
+    d_in, _, n, _ = dims(cfg)
+    xn = torch.randn((b, t, cfg.d_model), generator=g, device=dev).to(model.dtype)
+    _, _, bb, cc, dt_raw = _split_proj(model.tsl.matmul(xn, p0["in_proj"]), cfg)
+    xs = torch.randn((b, t, d_in), generator=g, device=dev)
+    a, x_scaled, _ = _discretize(p0, dt_raw, xs, cfg)
+    y, h = model.tsl.ssd_scan(x_scaled, a, bb.float(), cc.float())
+    y_ref, h_ref = plain.tsl.ssd_scan(x_scaled, a, bb.float(), cc.float())
+    out["ssd"] = {"shape": list(x_scaled.shape) + [n],
+                  "decay_range": [a.min().item(), a.max().item()],
+                  "y_rel_err": ((y - y_ref).abs().max() / y_ref.abs().max()).item(),
+                  "h_rel_err": ((h - h_ref).abs().max() / h_ref.abs().max()).item()}
+    print(f"[phase8a] ssd_scan, h100 library (chunked, chunk 64) vs torch_cpu (time-step "
+          f"scan) on {gpu}, float32 {tuple(x_scaled.shape)} N {n}: decays in "
+          f"[{out['ssd']['decay_range'][0]:.6f}, {out['ssd']['decay_range'][1]:.6f}], "
+          f"max |dy| / max |y| {out['ssd']['y_rel_err']:.3g}, max |dh| / max |h| "
+          f"{out['ssd']['h_rel_err']:.3g} (tolerance {SSD_REL_TOL})", flush=True)
+    if max(out["ssd"]["y_rel_err"], out["ssd"]["h_rel_err"]) > SSD_REL_TOL:
+        raise AssertionError(f"phase 8a: ssd_scan chunked vs scan {out['ssd']['y_rel_err']:.3g}"
+                             f" / {out['ssd']['h_rel_err']:.3g} > {SSD_REL_TOL}")
+    del y, h, y_ref, h_ref, x_scaled, a, xs, xn
+
+    # the bf16 prefill against the plain library's (information)
+    want, _ = plain.prefill(params, {"tokens": tokens}, max_len)
+    row0, _ = plain.prefill(params, {"tokens": tokens[:1]}, t)
+    out["bf16_prefill"] = _logits_check(first, want, cfg.vocab)
+    out["bf16_prefill_plain_floor"] = _logits_check(row0, want[:1], cfg.vocab)
+
+    # float32 at ZAMBA_F32_LAYERS of the depth, widths kept: prefill and
+    # decode steps, each library on its own state; at full depth the
+    # prefill is printed only (one ulp grows through 81 layers)
+    cfg32 = cfg.replace(dtype="float32")
+    m32 = build_model(cfg32, device=dev)
+    got, _ = m32.prefill(params32, {"tokens": tokens}, max_len)
+    want, _ = build_model(cfg32, device=dev, target="torch_cpu").prefill(
+        params32, {"tokens": tokens}, max_len)
+    out["f32_prefill_full_depth"] = _logits_check(got, want, cfg.vocab)
+    cut_cfg, cut_params = zamba_cut(cfg32, params32, ZAMBA_F32_LAYERS)
+    mc, pc = build_model(cut_cfg, device=dev), build_model(cut_cfg, device=dev,
+                                                           target="torch_cpu")
+    got, st = mc.prefill(cut_params, {"tokens": tokens}, max_len)
+    want, pst = pc.prefill(cut_params, {"tokens": tokens}, max_len)
+    checks["f32_prefill"] = _logits_check(got, want, cfg.vocab)
+    toks = got[:, :cfg.vocab].argmax(-1)
+    for i in range(DECODE_STEPS):
+        got, st = mc.decode_step(cut_params, st, toks[:, None], t + i)
+        want, pst = pc.decode_step(cut_params, pst, toks[:, None], t + i)
+        checks[f"f32_decode_{i}"] = _logits_check(got, want, cfg.vocab)
+        toks = got[:, :cfg.vocab].argmax(-1)
+    del st, pst
+    for name, c in checks.items():
+        if name.startswith("f32"):
+            _require_logits(f"phase 8a zamba {name} at {ZAMBA_F32_LAYERS} layers, h100 vs "
+                            f"torch_cpu library", c, rel_l2=ZAMBA_F32_REL_L2)
+    out["logits"] = checks
+    out["paged"] = zamba_paged_check(dev, [("bf16", model, params, None),
+                                           ("f32", m32, params32, None),
+                                           (f"f32 at {ZAMBA_F32_LAYERS} layers", mc, cut_params,
+                                            ZAMBA_F32_REL_L2)])
+    torch.cuda.empty_cache()
+    for name, fn in counters().items():      # kernel vs plain: not a main path
+        fn.launches = saved[name]
+
+    def worst(prefix):
+        return max(c["logits_rel_l2"] for n, c in checks.items() if n.startswith(prefix))
+
+    pg = out["paged"]
+    cut = pg[f"f32 at {ZAMBA_F32_LAYERS} layers"]
+    print(f"[phase8a] {ZAMBA_ARCH} prefill {ZAMBA_PREFILL} ({out['prefill_s']:.3f} s, first "
+          f"call) + {DECODE_STEPS} decode steps on {gpu}: launches per prefill "
+          f"{out['prefill_launches']}, main path {out['launches']}; flash kernel vs plain at "
+          f"each shared-attention application of a bf16 prefill "
+          f"{json.dumps(out['flash_calls_vs_plain'])}; paged kernel vs plain at each "
+          f"application of a fused decode and verify step, bf16 "
+          f"{json.dumps(pg['bf16']['kernel_calls_vs_plain'])}, float32 "
+          f"{json.dumps(pg['f32']['kernel_calls_vs_plain'])}; at {ZAMBA_F32_LAYERS} layers in "
+          f"float32: h100 vs torch_cpu worst rel L2 {worst('f32'):.3g}, fused paged step "
+          f"kernel vs plain rel L2 decode {cut['decode']['logits_rel_l2']:.3g}, verify "
+          f"{cut['verify']['logits_rel_l2']:.3g} (bound {ZAMBA_F32_REL_L2}); information, at "
+          f"full depth: float32 prefill rel L2 "
+          f"{out['f32_prefill_full_depth']['logits_rel_l2']:.3g}, float32 fused paged step "
+          f"kernel vs plain decode {pg['f32']['decode']['logits_rel_l2']:.3g}, verify "
+          f"{pg['f32']['verify']['logits_rel_l2']:.3g}; bf16 decode steps from a shared state "
+          f"rel L2 "
+          f"{[round(checks[f'bf16_decode_{i}']['logits_rel_l2'], 4) for i in range(DECODE_STEPS)]}"
+          f", bf16 prefill rel L2 {out['bf16_prefill']['logits_rel_l2']:.3g} (two plain "
+          f"prefills, row 0 of batch 2 vs batch 1: "
+          f"{out['bf16_prefill_plain_floor']['logits_rel_l2']:.3g}), bf16 fused paged step "
+          f"kernel vs plain rel L2 decode {pg['bf16']['decode']['logits_rel_l2']:.3g}, verify "
+          f"{pg['bf16']['verify']['logits_rel_l2']:.3g}; {json.dumps(checks)}; paged "
+          f"{json.dumps(pg)}", flush=True)
+    return out
+
+
+def zamba_serve_phase(dev, params, gpu: str) -> dict:
+    """Phases 8b-8d: zamba2-7b served at full width, each serve a
+    paired_serve (captured and eager: equal outputs, counters and launches)
+    under zamba_launch_check, the counters set to 0 just before each pair
+    and read just after it.
+    8b the serve CLI (repro_torch.launch.serve --arch zamba2-7b) at phase 3's
+       shapes, lane mode (its own seeded weights; untraced: reading its ~1.1
+       million device records took longer than the serve; phase 4's rows
+       give a captured step's idle share).
+    8c fused paged mode (PagedConfig(page_size=PAGE)) on phase 3b's
+       requests: the tails in the slot table, the shared block's KV in the
+       pools through the paged kernel (ZAMBA_SHARED launches a decode step),
+       the system prompt shared at its 128-row boundary (31 prefix hits, the
+       tail restored by copy, and each preemption's continuation hitting it
+       again). The share of the first wave's requests whose tokens equal a
+       lane-mode run's is printed (information: lane mode attends by the
+       plain version, and a difference grows through zamba's 81 layers, see
+       zamba_layers_phase).
+    8d the n-gram drafter at fixed depth SPEC_K on SPEC_DRAFT_REQUESTS of
+       phase 3e(ii)'s pattern prompts, ZAMBA_SPEC_GEN tokens each (the
+       script's time), fused paged: verify steps run and
+       each is followed by its commit on the pools (jit_cache
+       "commit_paged" in the graphs run; ZAMBA_SHARED paged launches a
+       decode, verify or commit step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serve import PagedConfig, Request, ServeEngine, SpeculationConfig
+
+    cfg = get_config(ZAMBA_ARCH)
+    kw = dict(batch=PAGED_BATCH, max_len=PAGED_MAX_LEN, device=dev, params=params,
+              prefill_chunk=PAGED_CHUNK)
+    out = {}
+
+    def check(n_req, fused, spec=False, gen=PAGED_GEN):
+        def run_check(report, launched):
+            problems = []
+            if report["target"] != "h100":
+                problems.append(f"served with target {report['target']!r}")
+            if report["requests"] != n_req or report["refused"]:
+                problems.append(f"{report['requests']} of {n_req} answered, refused "
+                                f"{report['refused']}")
+            short = {r: len(t) for r, t in report["outputs"].items() if len(t) != gen}
+            if short or len(report["outputs"]) != n_req:
+                problems.append(f"requests without {gen} tokens: {short}")
+            if spec and not report["spec"]["verify_steps"]:
+                problems.append("no verify step ran")
+            if fused:
+                # more requests than slots park, and activate by a tail restore
+                paged = report["paged"]
+                parked = n_req > PAGED_BATCH
+                if not paged["fused"] or paged["lane_activations"] or \
+                        parked != (paged["tail_restores"] > 0):
+                    problems.append(f"paged: fused {paged['fused']}, lane activations "
+                                    f"{paged['lane_activations']}, tail restores "
+                                    f"{paged['tail_restores']}")
+            return problems + zamba_launch_check(cfg, launched, report, fused=fused)
+        return run_check
+
+    def serve(tag, name, run, run_check, graphs_first, trace=()):
+        for fn in counters().values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        pair = paired_serve(tag, name, gpu, run, run_check, graphs_first, trace=trace)
+        pair["launches"] = read_counts()
+        pair["seconds"] = time.perf_counter() - t0
+        return pair
+
+    out["8b"] = serve("phase8b", f"serve CLI --arch {ZAMBA_ARCH}",
+                      lambda: serve_cli.main(ZAMBA_SERVE_ARGS)["report"],
+                      check(RWKV_SERVE_REQUESTS, fused=False), True)
+    steps = out["8b"]["report"]["step_log"]
+    print(f"[phase8b] lane serve {ZAMBA_ARCH} on {gpu}: decode steps "
+          f"{sum(e['decoded'] > 0 for e in steps)}, prefill chunks "
+          f"{sum(e['chunks'] for e in steps)}, launches of the pair {out['8b']['launches']}; "
+          f"phase {out['8b']['seconds']:.1f} s", flush=True)
+
+    out["8c"] = serve("phase8c", f"fused paged serve {ZAMBA_ARCH}",
+                      lambda: ServeEngine(cfg, paged=PagedConfig(page_size=PAGE), **kw).run(
+                          paged_requests(cfg.vocab, Request)),
+                      check(PAGED_REQUESTS, fused=True), False)
+    t0 = time.perf_counter()
+    paged_report = out["8c"]["report"]
+    # one miss publishes the system prompt; every other request hits it, and
+    # so does each continuation of a preemption (its prompt starts with it)
+    pg = paged_report["paged"]
+    if pg["prefix_misses"] != 1 or \
+            pg["prefix_hits"] != PAGED_REQUESTS - 1 + pg["preemptions"]:
+        raise AssertionError(f"phase 8c: {pg['prefix_hits']} prefix hits and "
+                             f"{pg['prefix_misses']} misses with {pg['preemptions']} "
+                             f"preemptions, want {PAGED_REQUESTS - 1} + preemptions and 1")
+    # information: the first wave's requests in lane mode
+    lane = ServeEngine(cfg, **kw).run(paged_requests(cfg.vocab, Request)[:PAGED_BATCH])
+
+    differ = {r: next(i for i, (x, y) in enumerate(zip(lane["outputs"][r], toks)) if x != y)
+              for r, toks in paged_report["outputs"].items()
+              if r in lane["outputs"] and toks != lane["outputs"][r]}
+    out["8c"].update(lane_decode_tokens_per_s=lane["decode_tokens_per_s"],
+                     share_equal_to_lane=1 - len(differ) / PAGED_BATCH,
+                     first_differing_token=differ)
+    out["8c"]["seconds"] += time.perf_counter() - t0
+    print(f"[phase8c] fused paged serve {ZAMBA_ARCH} on {gpu}: tokens of "
+          f"{PAGED_BATCH - len(differ)}/{PAGED_BATCH} first-wave requests equal a lane-mode run's "
+          f"(information; first differing token of the others {differ}); lane "
+          f"{lane['decode_tokens_per_s']:.1f} tokens/s; paged "
+          f"{json.dumps(paged_report['paged'])}; launches of the pair "
+          f"{out['8c']['launches']}; phase {out['8c']['seconds']:.1f} s", flush=True)
+
+    spec_kw = dict(kw, max_len=SPEC_PROMPT + PAGED_GEN)
+    out["8d"] = serve("phase8d", f"speculative fused paged serve {ZAMBA_ARCH}, n-gram depth "
+                      f"{SPEC_K}",
+                      lambda: ServeEngine(cfg, paged=PagedConfig(page_size=PAGE),
+                                          speculation=SpeculationConfig(fixed_k=SPEC_K),
+                                          **spec_kw).run(
+                          spec_requests(cfg.vocab, Request, SPEC_DRAFT_REQUESTS, ZAMBA_SPEC_GEN)),
+                      check(SPEC_DRAFT_REQUESTS, fused=True, spec=True, gen=ZAMBA_SPEC_GEN),
+                      True)
+    jit = out["8d"]["graphs"]["jit_cache"]
+    if jit.get("commit_paged", 0) <= 0:
+        raise AssertionError(f"phase 8d: the graphs run captured no paged commit: {jit}")
+    spec = out["8d"]["report"]["spec"]
+    out["8d"]["spec"] = {k: spec[k] for k in ("verify_steps", "decode_steps", "drafted_tokens",
+                                              "accepted_tokens", "accepted_rate",
+                                              "mean_accepted_span")}
+    print(f"[phase8d] speculative fused paged serve {ZAMBA_ARCH} on {gpu}: "
+          f"{json.dumps(out['8d']['spec'])}, jit_cache {jit}; launches of the pair "
+          f"{out['8d']['launches']}; phase {out['8d']['seconds']:.1f} s", flush=True)
+    for r in out.values():
+        r.pop("report")
+    return out
+
+
+def zamba_profile_phase(dev, model, params, gpu: str) -> dict:
+    """Phase 4's step table for zamba2-7b (run in phase 8, where its model
+    lives), through the engine's step code (serve/graphs.py) at batch
+    PROFILE_BATCH and position PROFILE_FILL, captured and eager, by
+    _profile: the lane decode step, the fused paged decode step, and the
+    fused paged verify step of a span SPEC_K + 1 followed by its commit on
+    the pools (every slot committing the whole span). Not a main path: its
+    launches are not counted."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import StepGraphs, disable_graphs
+    from repro_torch.serve.graphs import run_commit, run_model_step
+
+    cfg = model.cfg
+    rng = np.random.default_rng(22)
+    state = model.init_decode_state(PROFILE_BATCH, PROFILE_FILL + PROFILE_GEN)
+    tokens = rng.integers(0, cfg.vocab, (PROFILE_BATCH, 1))
+    span = rng.integers(0, cfg.vocab, (PROFILE_BATCH, SPEC_K + 1))
+    pos = np.full(PROFILE_BATCH, PROFILE_FILL, np.int64)
+    n_commit = np.full(PROFILE_BATCH, SPEC_K + 1, np.int64)
+    lane, fused = StepGraphs(dev), StepGraphs(dev)
+    out = {}
+    with torch.inference_mode():
+        tails, pools, tables = paged_state(dev, model, params, PROFILE_BATCH,
+                                                 PROFILE_FILL, seed=23)
+        tables = tables.cpu().numpy()
+        paged = {"pools": pools, "tables": tables}
+
+        def verify_commit():
+            logits = run_model_step(fused, "verify", model, params, tails, span, pos, **paged)
+            run_commit(fused, model, params, tails, span, pos, n_commit, **paged)
+            return logits
+
+        steps = {"zamba_decode_step": lambda: run_model_step(lane, "decode", model, params,
+                                                             state, tokens, pos),
+                 "zamba_decode_step_paged": lambda: run_model_step(
+                     fused, "decode", model, params, tails, tokens, pos, **paged),
+                 "zamba_verify_commit_paged": verify_commit}
+        for kind, fn in steps.items():
+            def eager(fn=fn):
+                with disable_graphs():
+                    return fn()
+            out[kind] = {"batch": PROFILE_BATCH, "pos": PROFILE_FILL,
+                         "span": SPEC_K + 1 if "verify" in kind else 1,
+                         "captured": _profile(fn, host_top=False),
+                         "eager": _profile(eager, host_top=False)}
+    out["jit_cache"] = {"lane": lane.sizes(("decode",)),
+                        "fused": fused.sizes(("decode", "verify", "commit_paged"))}
+    for kind in steps:
+        c, e = out[kind]["captured"], out[kind]["eager"]
+        print(f"[phase4] {kind} ({ZAMBA_ARCH}) on {gpu}, captured vs eager: host wall "
+              f"{c['wall_ms']:.3f} vs {e['wall_ms']:.3f} ms, device busy "
+              f"{c['device_busy_ms']} vs {e['device_busy_ms']} ms, idle share "
+              f"{c.get('device_idle_share')} vs {e.get('device_idle_share')}, kernels per "
+              f"step {c['launches']} vs {e['launches']}; top kernels (captured) "
+              f"{json.dumps(c.get('top_kernels_ms'))}", flush=True)
+    return out
+
+
+def zamba_phase(dev, gpu: str) -> dict:
+    """Phase 8: zamba2-7b at full width (81 layers: 13 groups of 6 Mamba2
+    layers, each followed by the one shared attention block, then 3; d 3584,
+    32 attention heads of 112, d_inner 7168 in 112 SSD heads of 64, N 64,
+    conv 4, vocab 32000, bf16), seeded weights from the port's init on the
+    card: 8a the main path and the layers, 8b-8d serving, and its rows of
+    phase 4's step table. Every earlier model is freed before it."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.nn.model import ZambaModel, build_model
+    from repro_torch.nn.zamba import layout
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    cfg = get_config(ZAMBA_ARCH)
+    model = build_model(cfg, device=dev)
+    assert isinstance(model, ZambaModel) and model.lib.TARGET_NAME == "h100"
+    params = model.init(0)
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    one = model.init_decode_state(1, 1)
+    tail_slot = sum(t.numel() * t.element_size() for n, t in one.items()
+                    if not n.startswith("attn"))
+    kv_token = sum(t.numel() * t.element_size() for n, t in one.items() if n.startswith("attn"))
+    f32_leaves = sorted({n for n in ("A_log", "dt_bias", "D_skip")
+                         if params["groups"]["mamba"][n].dtype == torch.float32})
+    print(f"[phase8] {ZAMBA_ARCH} on {gpu}: {n_params / 1e9:.4f}B params "
+          f"({sum(t.numel() * t.element_size() for t in leaves) / 1e9:.3f} GB), layout "
+          f"{layout(cfg)}, float32 leaves {f32_leaves}, a decode-state slot "
+          f"{tail_slot / 1e6:.2f} MB of tails + {kv_token / 1e3:.1f} KB of KV a token; init "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    out = {"params": n_params, "tail_slot_bytes": tail_slot, "kv_token_bytes": kv_token}
+    t0 = time.perf_counter()
+    params32 = tree_map(lambda x: x.float(), params)     # 26.4 GB, 8a's alone
+    with torch.inference_mode():
+        out["8a"] = zamba_layers_phase(dev, model, params, params32, gpu)
+    del params32
+    torch.cuda.empty_cache()
+    out["8a"]["seconds"] = time.perf_counter() - t0
+    out.update(zamba_serve_phase(dev, params, gpu))
+    t0 = time.perf_counter()
+    saved = read_counts()
+    out["phase4"] = zamba_profile_phase(dev, model, params, gpu)
+    for name, fn in counters().items():
+        fn.launches = saved[name]
+    out["phase4"]["seconds"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[phase8] {ZAMBA_ARCH} done on {gpu}: phase {out['seconds']:.1f} s (8a "
+          f"{out['8a']['seconds']:.1f}, 8b {out['8b']['seconds']:.1f}, 8c "
+          f"{out['8c']['seconds']:.1f}, 8d {out['8d']['seconds']:.1f}, phase 4's rows "
           f"{out['phase4']['seconds']:.1f})", flush=True)
     return out
 
@@ -3735,6 +4398,24 @@ def main() -> int:
         if row["name"] == "rmsnorm":
             for part in ("7b", "7c", "7d"):
                 row[f"launches_phase{part}"] = rwkv[part]["launches"]["rmsnorm"]
+    # phase 8 holds zamba2-7b's 13.2 GB of weights (and 8a a float32 copy):
+    # rwkv6-7b's go first
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[phase8] before: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved", flush=True)
+    zamba = zamba_phase(dev, gpu)
+    # each phase-8 path's launches: 8a the main path (prefill + decode
+    # steps), 8b-8d each serve's pair
+    paths = {"8a": zamba["8a"]["launches"],
+             **{part: zamba[part]["launches"] for part in ("8b", "8c", "8d")}}
+    want = {"rmsnorm": ("8a", "8b", "8c", "8d"), "flash_attention": ("8a",),
+            "paged_attention": ("8c", "8d")}
+    for row in kernels:
+        for part in want.get(row["name"], ()):
+            row[f"launches_phase{part}"] = paths[part][row["name"]]
+            if row[f"launches_phase{part}"] <= 0:
+                raise AssertionError(f"{row['name']} never launched on phase {part}'s path")
     print(f"[done] main-path launches {counts}, paged path {paged['launches']}, app "
           f"{app['launches']}, generated suite {suite['launches']} "
           f"({suite['passed']}/{suite['tests']} passed); per prefill "
@@ -3755,7 +4436,9 @@ def main() -> int:
           f"steps) {cli['launches']}, restart max |loss diff| "
           f"{cli['6a']['restart_max_abs_diff_logged']}, {RWKV_ARCH} serving launches "
           f"{ {p: rwkv[p]['launches'] for p in ('7b', '7c', '7d')} } "
-          f"({rwkv['seconds']:.1f} s) on {gpu}; total "
+          f"({rwkv['seconds']:.1f} s), {ZAMBA_ARCH} launches "
+          f"{ {p: zamba[p]['launches'] for p in ('8a', '8b', '8c', '8d')} } "
+          f"({zamba['seconds']:.1f} s) on {gpu}; total "
           f"{time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(gpu)

@@ -6,14 +6,15 @@ import importlib
 
 from .arch import ArchConfig
 
-# the dense family and rwkv (ssm); the other families' configs come with
-# their port
+# the dense family, rwkv (ssm) and zamba (hybrid); the other families'
+# configs come with their port
 _MODULES = {
     "yi-34b": "yi_34b",
     "mistral-large-123b": "mistral_large_123b",
     "qwen3-14b": "qwen3_14b",
     "qwen1.5-0.5b": "qwen15_05b",
     "rwkv6-7b": "rwkv6_7b",
+    "zamba2-7b": "zamba2_7b",
 }
 
 ARCH_IDS = tuple(_MODULES)

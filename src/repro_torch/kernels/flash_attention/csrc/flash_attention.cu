@@ -57,8 +57,18 @@
 //     not on every launch.
 // The building blocks (swizzled tiles, cp.async, ldmatrix, mma.sync, the
 // split of P) are in flash_mma.cuh, shared with the backward.
-// Shared memory: (1 + 2 + 2) * 64 * D * 2 bytes = 40 KB at D 64, 80 KB at
-// D 128.
+// Shared memory: (1 + 2 + 2) tiles of 64 rows, each row D * 2 bytes padded
+// to a whole number of 128-byte swizzle groups (flash_mma.cuh's row_chunks):
+// 40 KB at D 64, 80 KB at D 112 and D 128.
+//
+// Head dims: 64, 128 and 112 (zamba2's shared attention block, 32 heads of
+// 112). At D 112 a row holds 14 chunks of 16 bytes; the swizzle XORs a chunk
+// with the row's low 3 bits, so a row takes 16 chunks in shared memory (the
+// last 2 idle) and the XOR never leaves it. Its loops divide evenly: 7
+// k-steps of 16, 14 column tiles of 8, 7 pairs of ldmatrix.trans, 7 copies a
+// thread per tile, 56 accumulator elements a thread on the float32 path.
+// D 112 is built for the serving forward only: its lse instantiation and the
+// backward (flash_attention_bwd.cu, D 64 and 128) wait for hybrid training.
 //
 // float32 is the exact oracle path, not the main path: the card_f32 gates
 // (rel 1e-5) cannot be met through TF32 or bf16 tensor cores, so the
@@ -95,7 +105,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   constexpr int KS = D / 16;                   // k-steps of S = Q K^T
   constexpr int NS = TILE / 8;                 // 8-key column tiles of S
   constexpr int ND = D / 8;                    // 8-wide column tiles of O
-  constexpr uint32_t TILE_BYTES = TILE * D * 2;
+  constexpr uint32_t TILE_BYTES = tile_bytes<D>();   // rows padded to row_chunks<D>
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sQ = smem_addr(smem);         // [TILE][D], later O's staging
   const uint32_t sK = sQ + TILE_BYTES;         // 2 stages
@@ -279,7 +289,7 @@ template <int D, bool LSE>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
                        int B, int H, int KH, int Sq, int Sk, int kv_len, int q_offset,
                        int causal, float scale, cudaStream_t stream) {
-  constexpr int smem = 5 * TILE * D * 2;   // Q + 2 K stages + 2 V stages
+  constexpr int smem = 5 * tile_bytes<D>();   // Q + 2 K stages + 2 V stages
   static std::atomic<uint32_t> done{0};
   cudaError_t err = allow_smem(flash_fwd_mma_kernel<D, LSE>, smem, done);
   if (err != cudaSuccess) return err;
@@ -454,6 +464,14 @@ Launch pick(int dtype, bool with_lse) {
   return with_lse ? launch_mma<D, true> : launch_mma<D, false>;
 }
 
+// the serving forward alone (no lse): D 112's instantiations, whose lse and
+// backward wait for hybrid training
+template <int D>
+Launch pick_serving(int dtype, bool with_lse) {
+  if (with_lse) return nullptr;
+  return dtype == 0 ? launch_f32<D, false> : launch_mma<D, false>;
+}
+
 }  // namespace
 
 // C interface, loaded with ctypes. dtype: 0 = float32 (scalar path), 1 =
@@ -469,8 +487,10 @@ extern "C" int tsl_flash_attention_fwd(const void* q, const void* k, const void*
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1 && !(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o)))
     return static_cast<int>(cudaErrorInvalidValue);
-  Launch fn = D == 64 ? pick<64>(dtype, lse != nullptr)
-              : D == 128 ? pick<128>(dtype, lse != nullptr) : nullptr;
+  Launch fn = D == 64    ? pick<64>(dtype, lse != nullptr)
+              : D == 112 ? pick_serving<112>(dtype, lse != nullptr)
+              : D == 128 ? pick<128>(dtype, lse != nullptr)
+                         : nullptr;
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(fn(q, k, v, o, lse, B, H, KH, Sq, Sk, kv_len, q_offset, causal,
                              scale, static_cast<cudaStream_t>(stream)));

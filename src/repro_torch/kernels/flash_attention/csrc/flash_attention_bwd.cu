@@ -64,9 +64,10 @@
 //   * masking (causal diagonal, kv_len and Sq edges) only on the tiles that
 //     cross it; masked entries weigh exactly 0, never NaN, so a row that sees
 //     no key gets dq exactly 0.
-// Shared memory: 6 * 64 * D * 2 bytes (dq: Q, dO, 2 K and 2 V stages; dk/dv:
-// K, V, 2 Q and 2 dO stages, plus 1 KB of lse and delta) = 48 KB at D 64,
-// 96 KB at D 128.
+// Shared memory: 6 bf16 tiles of 64 rows (flash_mma.cuh's tile_bytes; dq: Q,
+// dO, 2 K and 2 V stages; dk/dv: K, V, 2 Q and 2 dO stages, plus 1 KB of lse
+// and delta) = 48 KB at D 64, 96 KB at D 128. Built at D 64 and 128; the
+// D-112 instantiations the forward has wait for hybrid training.
 //
 // float32 is the exact oracle path, not the main path: the card_f32 gates
 // (rel 1e-5) cannot be met through TF32 or bf16 tensor cores, so the float32
@@ -400,7 +401,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int NS = TILE / 8;                 // 8-key column tiles of S and dP
   constexpr int ND = D / 8;                    // 8-wide column tiles of dQ
   constexpr bool HOLD = D <= 64;               // Q and dO fragments kept in registers
-  constexpr uint32_t TILE_BYTES = TILE * D * 2;
+  constexpr uint32_t TILE_BYTES = tile_bytes<D>();
   extern __shared__ __align__(128) unsigned char smem_b[];   // (the f32 kernels' is smem)
   const uint32_t sQ = smem_addr(smem_b);       // [TILE][D], later dq's staging
   const uint32_t sdO = sQ + TILE_BYTES;        // [TILE][D]
@@ -573,7 +574,7 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int NS = QW / 8;                   // 8-row column tiles of S^T per sub-tile
   constexpr int ND = D / 8;                    // 8-wide column tiles of dK and dV
   constexpr bool HOLD = D <= 64;               // K and V fragments kept in registers
-  constexpr uint32_t TILE_BYTES = TILE * D * 2;
+  constexpr uint32_t TILE_BYTES = tile_bytes<D>();
   static_assert(TILE % QW == 0 && QW % 16 == 0, "q sub-tiles of whole k-steps");
   extern __shared__ __align__(128) unsigned char smem_b[];   // (the f32 kernels' is smem)
   const uint32_t sK = smem_addr(smem_b);       // [TILE][D]
@@ -754,7 +755,7 @@ cudaError_t launch_dq_mma(const void* q, const void* k, const void* v, const voi
                           const float* lse, const float* delta, void* dq, int B, int H,
                           int KH, int Sq, int Sk, int kv_len, int q_offset, int causal,
                           float scale, cudaStream_t stream) {
-  constexpr int smem = 6 * TILE * D * 2;   // Q + dO + 2 K stages + 2 V stages
+  constexpr int smem = 6 * tile_bytes<D>();   // Q + dO + 2 K stages + 2 V stages
   static std::atomic<uint32_t> done{0};
   cudaError_t err = allow_smem(flash_bwd_dq_mma_kernel<D>, smem, done);
   if (err != cudaSuccess) return err;
@@ -774,7 +775,7 @@ cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v, const vo
                            int causal, float scale, cudaStream_t stream) {
   constexpr int QW = D <= 64 ? 64 : 32;
   // K + V + 2 Q stages + 2 dO stages + 2 stages of lse and delta
-  constexpr int smem = 6 * TILE * D * 2 + 4 * TILE * 4;
+  constexpr int smem = 6 * tile_bytes<D>() + 4 * TILE * 4;
   static std::atomic<uint32_t> done{0};
   cudaError_t err = allow_smem(flash_bwd_dkv_mma_kernel<D, QW>, smem, done);
   if (err != cudaSuccess) return err;

@@ -1,7 +1,8 @@
 // Building blocks of the bf16 flash-attention kernels for Hopper (sm_90a),
-// shared by the forward (flash_attention.cu) and the backward
-// (flash_attention_bwd.cu): 64-row bf16 tiles in shared memory whose 16-byte
-// chunks are XOR-swizzled by row, filled by cp.async, read by ldmatrix into
+// shared by the forward (flash_attention.cu), the backward
+// (flash_attention_bwd.cu) and the paged kernel: 64-row bf16 tiles in shared
+// memory whose 16-byte chunks are XOR-swizzled by row (rows padded to a whole
+// number of 8-chunk groups, row_chunks), filled by cp.async, read by ldmatrix into
 // the fragments of mma.sync m16n8k16 (bf16 in, f32 accumulate).
 //
 // Fragment layouts (g = lane / 4, t = lane % 4): an A operand (16x16, row)
@@ -44,12 +45,32 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// 16-byte chunks one row of a [rows][D] bf16 tile takes: D / 8 rounded up
+// to a multiple of 8. swz XORs a chunk index with the row's low 3 bits, which
+// keeps it inside its row only if the row has a whole number of 8-chunk
+// groups: at D 112 (14 chunks) chunks 8-13 would XOR into 8-15 and land in
+// the next row. So a D-112 row takes 16 chunks, the last 2 never read or
+// written, and its tile takes D 128's shared memory. The other choice, a
+// swizzle that stays inside 14 chunks, would cost every row's address an XOR
+// against a non-power-of-two group; 2 idle chunks a row cost nothing but
+// shared memory, which the kernels have to spare (80 KB of the 227 KB).
+template <int D>
+__host__ __device__ constexpr int row_chunks() {
+  return (D / 8 + 7) / 8 * 8;
+}
+
+// bytes of one ROWS-row swizzled bf16 tile
+template <int D, int ROWS = 64>
+__host__ __device__ constexpr uint32_t tile_bytes() {
+  return static_cast<uint32_t>(ROWS * row_chunks<D>() * 16);
+}
+
 // byte offset of 16-byte chunk c of row r in a [rows][D] bf16 tile; the
 // chunk index is XOR-ed with the row's low 3 bits, so the 8 rows an
 // ldmatrix phase reads land on 8 different groups of 4 banks
 template <int D>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
-  return static_cast<uint32_t>((r * (D / 8) + (c ^ (r & 7))) * 16);
+  return static_cast<uint32_t>((r * row_chunks<D>() + (c ^ (r & 7))) * 16);
 }
 
 // 16 bytes global -> shared, asynchronously; zero-fills when !valid (src

@@ -58,6 +58,14 @@
 //     cdiv(kv_len, page) is read.
 // The building blocks (swizzled tiles, cp.async, ldmatrix, mma.sync) come
 // from flash_attention/csrc/flash_mma.cuh.
+//
+// Head dims: 64, 128 and 112 (zamba2's shared attention block). At D 112 a
+// bf16 tile row takes 16 chunks of 16 bytes for its 14 (flash_mma.cuh's
+// row_chunks: the swizzle's XOR stays inside the row), so a tile takes D
+// 128's 16 KB; the warps' float states after the key loop ([NW][16][D] over
+// the Q tile and K stages, [R][D] over the V stages) fit as at D 128. The
+// float32 path takes 32-key tiles (tile_rows), and its score loop walks
+// every column (D / 32 is not whole at 112).
 
 #include <cassert>
 #include <cuda_bf16.h>
@@ -280,8 +288,10 @@ __device__ __forceinline__ void load_kv(uint32_t dK, uint32_t dV,
 
 // Shared memory of the bf16 kernel: Q, 2 K stages, 2 V stages, the block's
 // m and l per row, the split's page ids.
-__host__ __device__ constexpr int mma_smem_fixed(int D) {
-  return 5 * KEY_TILE * D * 2 + 2 * MAX_ROWS * static_cast<int>(sizeof(float));
+template <int D>
+__host__ __device__ constexpr int mma_smem_fixed() {
+  return 5 * static_cast<int>(tile_bytes<D, KEY_TILE>()) +
+         2 * MAX_ROWS * static_cast<int>(sizeof(float));
 }
 
 // KW: warps that share one 16-row m-tile (4 / m-tiles), each taking 64 / KW
@@ -300,7 +310,7 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   constexpr int NK = KEY_TILE / KW;            // keys of a tile one warp takes
   constexpr int NS = NK / 8;                   // its 8-key column tiles of S
   constexpr int ND = D / 8;                    // 8-wide column tiles of O
-  constexpr uint32_t TB = KEY_TILE * D * 2;    // bytes of one bf16 tile
+  constexpr uint32_t TB = tile_bytes<D, KEY_TILE>();   // one bf16 tile, rows padded
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sQ = smem_addr(smem);         // [64][D], rows >= R zero
   const uint32_t sK = sQ + TB;                 // 2 stages
@@ -493,11 +503,15 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 // float32: the exact scalar path
 // ---------------------------------------------------------------------------
 
-// Key rows per tile: 64, or fewer where a 64-row tile of K would pass
-// TILE_BYTES (D = 128 -> 32), so the register staging stays small.
+// Key rows per tile: 64, or the largest power of two whose tile of K stays
+// within TILE_BYTES (D 128 -> 32, D 112 -> 32 where 36 rows would fit), so
+// the register staging stays small and the tile divides every power-of-two
+// page (the host takes gcd(block, tile_rows), kernel.py's tile_rows).
 template <int D>
 __host__ __device__ constexpr int tile_rows() {
-  return TILE_BYTES / (D * 4) < 64 ? TILE_BYTES / (D * 4) : 64;
+  int rows = 64;
+  while (rows * D * 4 > TILE_BYTES) rows /= 2;
+  return rows;
 }
 
 // 16-byte vectors of one K (or V) tile each thread loads.
@@ -609,7 +623,10 @@ paged_f32_kernel(const float* __restrict__ q, const float* __restrict__ k_pool,
       const float* kc = Ks + c * D;
       float dot = 0.f;
 #pragma unroll
-      for (int j = 0; j < D / 32; ++j) dot = fmaf(qr[lane + 32 * j], kc[lane + 32 * j], dot);
+      for (int j = 0; j < (D + 31) / 32; ++j) {   // every column, also where 32 does not divide D
+        const int d = lane + 32 * j;
+        if (d < D) dot = fmaf(qr[d], kc[d], dot);
+      }
       dot = warp_sum(dot);
       if (lane == 0) S[r * TKT + c] = key0 + c <= q_pos0 + r % SQ ? dot * scale : NEG;
     }
@@ -660,7 +677,7 @@ cudaError_t launch_mma(const void* q, const void* k_pool, const void* v_pool, co
                        const int* kv_len, void* out, float* ws, int* counters, int B, int H,
                        int KH, int SQ, int n_pages, int page, int P, int splits, int pps,
                        float scale, cudaStream_t stream) {
-  const size_t smem = mma_smem_fixed(D) + sizeof(int) * static_cast<size_t>(pps);
+  const size_t smem = mma_smem_fixed<D>() + sizeof(int) * static_cast<size_t>(pps);
   if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
   static std::atomic<uint32_t> done{0};
   auto kern = paged_mma_kernel<D, KW>;
@@ -739,6 +756,9 @@ extern "C" int tsl_paged_attention(const void* q, const void* k_pool, const void
   if (dtype == 0 && D == 64)
     return launch_f32<64>(q, k_pool, v_pool, tab, kvl, out, w, ct, B, H, KH, SQ, n_pages, page,
                           P, tk, splits, pps, scale, st);
+  if (dtype == 0 && D == 112)
+    return launch_f32<112>(q, k_pool, v_pool, tab, kvl, out, w, ct, B, H, KH, SQ, n_pages,
+                           page, P, tk, splits, pps, scale, st);
   if (dtype == 0 && D == 128)
     return launch_f32<128>(q, k_pool, v_pool, tab, kvl, out, w, ct, B, H, KH, SQ, n_pages,
                            page, P, tk, splits, pps, scale, st);
@@ -747,6 +767,9 @@ extern "C" int tsl_paged_attention(const void* q, const void* k_pool, const void
   if (D == 64)
     return launch_mma_rows<64>(q, k_pool, v_pool, tab, kvl, out, w, ct, B, H, KH, SQ, n_pages,
                                page, P, splits, pps, scale, st);
+  if (D == 112)
+    return launch_mma_rows<112>(q, k_pool, v_pool, tab, kvl, out, w, ct, B, H, KH, SQ, n_pages,
+                                page, P, splits, pps, scale, st);
   if (D == 128)
     return launch_mma_rows<128>(q, k_pool, v_pool, tab, kvl, out, w, ct, B, H, KH, SQ, n_pages,
                                 page, P, splits, pps, scale, st);

@@ -30,7 +30,7 @@ from ..common import cdiv, load_shared_library, workspace
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"]
 HEADERS = [Path(__file__).resolve().parents[1] / "flash_attention" / "csrc" / "flash_mma.cuh"]
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 112, 128)
 MAX_ROWS = 64               # group * SQ query rows one block holds
 MAX_SPLITS = 64             # splits per (sequence, KV head)
 KEY_TILE = 64               # keys per tile of the bf16 path
@@ -41,9 +41,13 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def tile_rows(dtype: torch.dtype, head_dim: int) -> int:
-    """Most key rows one tile of the float32 path holds (its ``tile_rows<D>``);
-    the bf16 path takes 64-key tiles."""
-    return min(64, _TILE_BYTES // (head_dim * dtype.itemsize))
+    """Most key rows one tile of the float32 path holds (its ``tile_rows<D>``):
+    64, or the largest power of two whose tile stays within _TILE_BYTES (32 at
+    D 112 and 128); the bf16 path takes 64-key tiles."""
+    rows = 64
+    while rows * head_dim * dtype.itemsize > _TILE_BYTES:
+        rows //= 2
+    return rows
 
 
 def plan(b: int, kh: int, table_width: int, page: int, sms: int) -> tuple[int, int]:

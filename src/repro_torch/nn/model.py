@@ -1,8 +1,9 @@
-"""Model facade (mirrors ``repro/nn/model.py``) for the dense ``lm`` family
-and the rwkv (``ssm``) family.
+"""Model facade (mirrors ``repro/nn/model.py``) for the dense ``lm`` family,
+the rwkv (``ssm``) family and the zamba (``hybrid``) family.
 
-``build_model(cfg, device=...)`` returns a :class:`Model` (dense) or a
-:class:`RwkvModel` bound to the generated library for its device (``h100``
+``build_model(cfg, device=...)`` returns a :class:`Model` (dense), a
+:class:`RwkvModel` or a :class:`ZambaModel` bound to the generated library
+for its device (``h100``
 kernels on the card, ``torch_cpu`` plain versions on the host; ``target=``
 overrides), with one surface:
 
@@ -19,7 +20,8 @@ overrides), with one surface:
          a (B,) device tensor; ``n_real`` (int or device tensor) counts the
          chunk's real rows, the rest trailing padding. The dense family
          ignores it: its padding rows need no masking (nn/attention.py).
-         rwkv skips their recurrent updates exactly and ignores ``pos``.
+         rwkv and zamba skip their recurrent updates exactly; rwkv ignores
+         ``pos``.
          The reference's ``kv_len`` and ``embeds`` have no counterpart)
     decode_step(params, state, tokens_t, pos) -> (logits (B,V), state)
         (pos: int, or a (B,) tensor of per-slot positions)
@@ -29,7 +31,8 @@ overrides), with one surface:
          per-slot base rows ``pos``; logits row j validates draft j+1 and is
          independent of rows > j. Dense: the span's cache rows are written
          in place, and rollback is free, the accepted fill stops short of
-         rejected rows; rwkv: nothing is written, see verify_commit)
+         rejected rows; rwkv: nothing is written; zamba: the tails are not
+         written, the shared block's span rows are; see verify_commit)
     init_decode_state(batch, max_len) -> zeroed state dict
     state_batch_axes(state) -> {leaf: slot axis}
     state_page_axes(state) -> {leaf: token axis | None}  (paged serving)
@@ -43,19 +46,23 @@ overrides), with one surface:
          ``attention_verify_paged``)
     verify_commit(params, state, tokens, pos, n_commit) -> state | None
         (None for the dense family, whose verify step already committed the
-         span's rows; rwkv's verify step writes nothing, and the commit
-         replays the accepted prefix of the span through prefill_chunk with
-         the (B,) per-slot ``n_commit`` real rows: 0 leaves a slot exactly
-         as it was)
-    verify_commit_paged: None for both (rwkv has no paged leaf; its
-        ``decode_step_paged`` / ``verify_step_paged`` are None too, and the
-        engine serves it from lanes in paged mode)
+         span's rows; rwkv's and zamba's commit replays the accepted prefix
+         of the span through prefill_chunk at the (B,) base rows ``pos``
+         with the (B,) per-slot ``n_commit`` real rows: 0 leaves a slot's
+         recurrent state exactly as it was)
+    verify_commit_paged(params, state, pools, tables, tokens, pos, n_commit)
+        -> (state, pools) | None
+        (zamba's commit on the pools, the first family that has one; None
+         for the dense family and rwkv, which has no paged leaf: its
+         ``decode_step_paged`` / ``verify_step_paged`` are None too, and the
+         engine serves it from lanes in paged mode)
     insert_slot(state, donor, slot) / reset_slot(state, slot)
 
 Unlike the reference, state is updated IN PLACE by prefill_chunk,
-decode_step, the dense verify_step, rwkv's verify_commit, insert_slot and
-reset_slot (each still returns it), and the page pools by decode_step_paged
-and verify_step_paged. rwkv is served, not trained: its ``loss`` raises.
+decode_step, the dense verify_step, the recurrent families' verify_commit,
+insert_slot and reset_slot (each still returns it), and the page pools by
+decode_step_paged, verify_step_paged and zamba's verify_commit_paged. rwkv
+and zamba are served, not trained: their ``loss`` raises.
 
 ``load_jax_params(np_tree, cfg, device)`` turns the reference's params
 (``build_model(cfg).init(PRNGKey(s))``, ``np.asarray`` per leaf) into this
@@ -74,13 +81,17 @@ from repro_torch import tsl_api
 from repro_torch.configs.arch import ArchConfig
 from repro_torch.device import resolve_device
 
-from . import lm, rwkv_lm
+from . import lm, rwkv_lm, zamba
 from .common import init_leaf
 
-# where the families that are not ported yet, and rwkv's training, stand
+# where the families that are not ported yet, and rwkv's and zamba's
+# training, stand
 FAMILIES_TODO = "ROADMAP.md, queue 1, item 6"
 RWKV_TRAIN_TODO = "training the ssm (rwkv) family is not ported yet " \
                   "(ROADMAP.md, queue 1, item 11)"
+HYBRID_TRAIN_TODO = "training the hybrid (zamba) family is not ported yet " \
+                    "(ROADMAP.md, queue 1, item 12)"
+TRAIN_TODO = {"ssm": RWKV_TRAIN_TODO, "hybrid": HYBRID_TRAIN_TODO}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -222,7 +233,70 @@ class RwkvModel(Model):
     verify_commit_paged = None
 
 
-_FAMILIES = {"dense": (Model, lm.lm_params), "ssm": (RwkvModel, rwkv_lm.rwkv_params)}
+class ZambaModel(Model):
+    """The zamba (``hybrid``) family: Mamba2 blocks with one shared
+    attention block after every ``attn_every`` of them (``nn/zamba.py``).
+    Its state has both kinds: the Mamba2 tails (fixed size per request) and
+    the shared block's KV caches, which page. Served in lane mode and fused
+    paged mode (the KV caches in the pools, the tails in the slot table),
+    with speculation through a verify step that leaves the tails as they
+    were and a commit that replays the accepted prefix, in lanes or on the
+    pools."""
+
+    def init(self, seed: int = 0) -> dict:
+        return zamba.zamba_params(self.cfg, _init_make(self, seed))
+
+    def forward_logits(self, params, batch):
+        return zamba.zamba_forward(self.tsl, params, batch["tokens"], self.cfg)
+
+    def loss(self, params, batch, *, remat: bool = True):
+        raise NotImplementedError(HYBRID_TRAIN_TODO)
+
+    def prefill(self, params, batch, max_len: int):
+        return zamba.zamba_prefill(self.tsl, params, batch["tokens"], self.cfg,
+                                   max_len=max_len)
+
+    def prefill_chunk(self, params, state, tokens, pos, n_real=None):
+        return zamba.zamba_prefill_chunk(self.tsl, params, state, tokens, pos, self.cfg,
+                                         n_real=n_real)
+
+    def decode_step(self, params, state, tokens_t, pos):
+        return zamba.zamba_decode_step(self.tsl, params, state, tokens_t, pos, self.cfg)
+
+    def init_decode_state(self, batch: int, max_len: int):
+        return zamba.init_zamba_state(self.cfg, batch, max_len, self.dtype, self.device)
+
+    def state_batch_axes(self, state):
+        return zamba.state_batch_axes(state)
+
+    def state_page_axes(self, state):
+        return zamba.state_page_axes(state)
+
+    def verify_step(self, params, state, tokens, pos):
+        return zamba.zamba_verify_step(self.tsl, params, state, tokens, pos, self.cfg)
+
+    def verify_commit(self, params, state, tokens, pos, n_commit):
+        """Replay the accepted prefix of the span at the (B,) base rows
+        ``pos``: ``n_commit`` (B,) real rows per slot, in place (0: the
+        slot's tails are left exactly as they were)."""
+        return zamba.zamba_prefill_chunk(self.tsl, params, state, tokens, pos, self.cfg,
+                                         n_real=n_commit)[1]
+
+    def decode_step_paged(self, params, state, pools, tables, tokens_t, pos):
+        return zamba.zamba_decode_step_paged(self.tsl, params, state, pools, tables,
+                                             tokens_t, pos, self.cfg)
+
+    def verify_step_paged(self, params, state, pools, tables, tokens, pos):
+        return zamba.zamba_verify_step_paged(self.tsl, params, state, pools, tables, tokens,
+                                             pos, self.cfg)
+
+    def verify_commit_paged(self, params, state, pools, tables, tokens, pos, n_commit):
+        return zamba.zamba_verify_commit_paged(self.tsl, params, state, pools, tables,
+                                               tokens, pos, self.cfg, n_commit)
+
+
+_FAMILIES = {"dense": (Model, lm.lm_params), "ssm": (RwkvModel, rwkv_lm.rwkv_params),
+             "hybrid": (ZambaModel, zamba.zamba_params)}
 
 
 def _family(cfg: ArchConfig):
@@ -230,8 +304,16 @@ def _family(cfg: ArchConfig):
             cfg.family == "dense" and (cfg.act, cfg.norm) != ("swiglu", "rmsnorm")):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} ({cfg.act}, {cfg.norm}) is not "
-            f"ported yet (this port has the dense swiglu/rmsnorm lm family and "
-            f"rwkv; {FAMILIES_TODO})")
+            f"ported yet (this port has the dense swiglu/rmsnorm lm family, rwkv "
+            f"and zamba; {FAMILIES_TODO})")
+    if cfg.family == "hybrid" and (cfg.attn_every <= 0 or cfg.ssm_state <= 0):
+        # zamba's layout divides the layers by attn_every, and its SSD has
+        # ssm_state channels: a config without either is no zamba
+        raise NotImplementedError(
+            f"{cfg.name}: a hybrid config with attn_every={cfg.attn_every} and "
+            f"ssm_state={cfg.ssm_state} is not ported: the hybrid family is zamba2's "
+            f"layout, a shared attention block after every attn_every > 0 Mamba2 "
+            f"layers of ssm_state > 0 channels")
     return _FAMILIES[cfg.family]
 
 
@@ -245,9 +327,11 @@ def build_model(cfg: ArchConfig, *, device: torch.device | str = "cuda",
 def load_jax_params(np_tree: dict, cfg: ArchConfig,
                     device: torch.device | str = "cuda") -> dict:
     """The reference's params as this port's params: the same nested dict
-    and the same stacked (L, ...) leaves, copied 1:1 (no transposes), each
-    in its own dtype (rwkv's ``w_base`` is float32 in a bf16 model). Raises
-    on a missing, extra or misshaped leaf."""
+    and the same stacked (L, ...) leaves (zamba's grouped (G, k, ...) and
+    remainder (rem, ...) ones), copied 1:1 (no transposes), each in its own
+    dtype (rwkv's ``w_base``, zamba's ``A_log``, ``dt_bias`` and ``D_skip``
+    are float32 in a bf16 model). Raises on a missing, extra or misshaped
+    leaf."""
     dev = resolve_device(device)
     want = _family(cfg)[1](cfg, lambda kind, shape, **kw: tuple(shape))
 

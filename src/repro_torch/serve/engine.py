@@ -75,18 +75,25 @@ per emitted token, split by bucket). Only target-emitted tokens count as
 output: rejected drafts never do. ``report["jit_cache"]`` counts the compiled
 entries per step kind with the reference's keys: ``prefill_chunk``,
 ``decode`` (the lane or the fused paged step) and, with speculation on,
-``verify`` (one per span width) and, for a family with a commit (rwkv),
-``commit`` (one per span width).
+``verify`` (one per span width) and, for a family with a commit (rwkv,
+zamba), ``commit`` (one per span width) and, fused paged for a family with
+a paged commit (zamba), ``commit_paged`` (one per span width).
 
-Recurrent families (rwkv): every prefill chunk carries its count of real
-rows (``n_real``, a staged device tensor), and padding rows leave the state
-exactly as it was. Their verify step writes nothing; after acceptance the
-commit step replays each slot's accepted prefix into the slot table
-(``Model.verify_commit``, ``n_commit`` = accepted drafts + 1 for an active
-slot, 0 for an idle one). Nothing of their state pages, so paged mode
-serves them from lanes: prefills park and activate through the store's
-tail snapshots, prefixes are shared as the tail at the boundary, and
-``report["paged"]["fused"]`` is false.
+Recurrent families (rwkv, zamba): every prefill chunk carries its count of
+real rows (``n_real``, a staged device tensor), and padding rows leave the
+recurrent state exactly as it was. Their verify step leaves that state as
+it was; after acceptance the commit step replays each slot's accepted
+prefix into the slot table (``Model.verify_commit``, ``n_commit`` =
+accepted drafts + 1 for an active slot, 0 for an idle one). Nothing of
+rwkv's state pages, so paged mode serves it from lanes: prefills park and
+activate through the store's tail snapshots, prefixes are shared as the
+tail at the boundary, and ``report["paged"]["fused"]`` is false. zamba's
+state has both kinds (the shared attention's KV caches page, the Mamba2
+tails do not): fused paged mode keeps the tails in the slot table and the
+KV in the pools, a prefill completes into pages plus a tail snapshot, a
+prefix entry holds the shared pages and the tail at its boundary (restored
+by copy), and the commit replays on the pools
+(``Model.verify_commit_paged``), as the reference does.
 """
 
 from __future__ import annotations
@@ -303,6 +310,8 @@ class ServeEngine:
         if self.spec is None:
             return ("prefill_chunk", "decode")
         commit = ("commit",) if self.model.verify_commit is not None else ()
+        if self._fused and self.model.verify_commit_paged is not None:
+            commit += ("commit_paged",)
         return ("prefill_chunk", "decode", "verify") + commit
 
     def _new_donor(self) -> dict:
@@ -765,14 +774,17 @@ class ServeEngine:
                     # corrected token of a slot accepting m drafts
                     tgt = self._sample(logits, temps_host)
                     m_vec = accept_span(drafts, tgt, k_vec)
-                    if self.model.verify_commit is not None:
+                    commit = self.model.verify_commit_paged if self._fused \
+                        else self.model.verify_commit
+                    if commit is not None:
                         # recurrent families: replay each active slot's
                         # pending token and its m accepted drafts (n_commit
-                        # m + 1; 0 leaves idle slots exactly as they were)
+                        # m + 1; 0 leaves idle slots exactly as they were),
+                        # fused paged on the pools through the same tables
                         n_commit = np.zeros(self.batch, np.int64)
                         n_commit[active] = m_vec[active] + 1
                         run_commit(self._graphs, self.model, self.params, state, span,
-                                   n_commit)
+                                   pos_step, n_commit, **paged_kw)
                     verify_steps += 1
                     emits = {}
                     for slot in active:

@@ -4,11 +4,11 @@ and of its ``jit_cache`` report (``jit_cache_sizes``), on the shared
 machinery of ``repro_torch/graphs.py`` (:class:`Step`, the runner, the
 staging and :func:`disable_graphs`).
 
-Each decode, verify, commit and prefill-chunk step is one :class:`Step`,
-keyed by its width. Donation becomes buffers updated in place: the slot table, the
-page pools (int8 pools' scale pools too) and a drafter's state stay where
-the graph captured them, and a
-batch-1 prefill donor is staged through the step's own donor (``inout``:
+Each decode, verify, commit (lane or fused paged) and prefill-chunk step is
+one :class:`Step`, keyed by its width. Donation becomes buffers updated in
+place: the slot table, the page pools (int8 pools' scale pools too) and a
+drafter's state stay where the graph captured them, and a batch-1 prefill
+donor is staged through the step's own donor (``inout``:
 copied in before the replay and out after it), so one chunk graph serves
 every in-flight prefill. Every entry of one engine or drafter shares one
 graph memory pool, so a step's static logits are overwritten by the next
@@ -108,17 +108,32 @@ def run_prefill_chunk(graphs: StepGraphs, model, params, donor: dict,
 
 
 def run_commit(graphs: StepGraphs, model, params, state: dict, tokens: np.ndarray,
-               n_commit: np.ndarray) -> None:
-    """The commit of a verify round (``model.verify_commit``, recurrent
-    families): the span tokens (B, SV) replayed into the slot table
-    ``state`` in place, ``n_commit`` (B,) real rows per slot (0: the slot is
-    left as it was), keyed by the span width."""
-    args = {"tokens": tokens, "n_commit": np.asarray(n_commit, np.int64)}
+               pos: np.ndarray, n_commit: np.ndarray, *, pools: dict | None = None,
+               tables: np.ndarray | None = None) -> None:
+    """The commit of a verify round (recurrent families): the span tokens
+    (B, SV) at the (B,) base rows ``pos`` replayed in place, ``n_commit``
+    (B,) real rows per slot (0: the slot's recurrent state is left as it
+    was), keyed by the span width. In lane mode (kind "commit",
+    ``model.verify_commit``) into the slot table ``state``; fused paged
+    (``pools`` and the (B, P) ``tables`` given: kind "commit_paged",
+    ``model.verify_commit_paged``) into the tails of ``state`` and the page
+    pools, the shared attention's span rows written through the tables."""
+    args = {"tokens": tokens, "pos": np.asarray(pos, np.int64),
+            "n_commit": np.asarray(n_commit, np.int64)}
+    kind, sizes = "commit", None
+    if pools is None:
+        def body(tokens, pos, n_commit):
+            model.verify_commit(params, state, tokens, pos, n_commit)
+            return n_commit     # the commit's result is the state, written in place
+    else:
+        kind = "commit_paged"
+        args["tables"] = tables
+        sizes = paged_workspace_sizes(model.cfg, tokens.shape[0], tokens.shape[1])
 
-    def body(tokens, n_commit):
-        model.verify_commit(params, state, tokens, None, n_commit)
-        return n_commit         # the commit's result is the state, written in place
-    graphs.step("commit", tokens.shape[1], body, args)(**args)
+        def body(tokens, pos, n_commit, tables):
+            model.verify_commit_paged(params, state, pools, tables, tokens, pos, n_commit)
+            return n_commit     # tails and pools, written in place
+    graphs.step(kind, tokens.shape[1], body, args, workspace_sizes=sizes)(**args)
 
 
 __all__ = ["CudaGraphRunner", "Step", "StepGraphs", "disable_graphs", "paged_workspace_sizes",

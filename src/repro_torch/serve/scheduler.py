@@ -169,8 +169,12 @@ class Refusal:
     reason: str
 
 
-# attention layers a decode step reads a cache in, per family priced
-_ATTN_LAYERS = {"dense": lambda cfg: cfg.n_layers, "ssm": lambda cfg: 0}
+# attention layers a decode step reads a cache in, per family priced: zamba
+# applies its one shared block after every attn_every Mamba2 layers
+_ATTN_LAYERS = {"dense": lambda cfg: cfg.n_layers, "ssm": lambda cfg: 0,
+                "hybrid": lambda cfg: cfg.n_layers // max(cfg.attn_every, 1)}
+# families whose speculative commit replays the accepted prefix
+_REPLAY_COMMIT = ("ssm", "hybrid")
 
 
 class CostModelAdmission:
@@ -180,17 +184,22 @@ class CostModelAdmission:
       bytes/step = param bytes (weights stream once per token)
                  + n_attn_layers x lib.cost("attention_decode", "bytes", ...)
       step_s     = bytes / TARGET.hbm_bw
-    with n_attn_layers n_layers for the dense family and 0 for rwkv (ssm),
-    whose step is its param bytes alone. Prefill is modeled as
+    with n_attn_layers n_layers for the dense family, 0 for rwkv (ssm),
+    whose step is its param bytes alone, and n_layers // attn_every for
+    zamba (hybrid: 13 shared-block applications for zamba2-7b). The
+    reference adds each family's recurrent-state term (``ssd_scan`` /
+    ``wkv6_scan``) only to the collective bytes of a tensor-parallel mesh
+    (``comms_bytes_per_step``), which vanish at one shard, so neither
+    appears here. Prefill is modeled as
     compute-bound and priced at the request's BUCKET: parameter flops plus
     the ``attention_prefill_chunk`` cost term summed over the chunk
     schedule, over TARGET.peak_flops_bf16.
 
     A verify step at draft depth k is priced like a decode step with the
     ``attention_verify`` bytes term at span k+1 (``verify_seconds``); rwkv
-    pays twice that for the commit replay of the accepted prefix. With
-    ``spec_k`` set, admission charges the cheaper of a decode step and a
-    fully accepted span per emitted token.
+    and zamba pay twice that for the commit replay of the accepted prefix.
+    With ``spec_k`` set, admission charges the cheaper of a decode step and
+    a fully accepted span per emitted token.
 
     ``param_bytes`` is the reference's ``cfg.param_count()``, which for
     rwkv omits a few leaves of the real tree (7.00 B against 7.53 B for
@@ -205,8 +214,8 @@ class CostModelAdmission:
     def __init__(self, cfg, batch: int, max_len: int, *, lib,
                  policy: BucketPolicy | None = None):
         if cfg.family not in _ATTN_LAYERS:
-            raise NotImplementedError(f"admission prices the dense and ssm families "
-                                      f"only, not {cfg.family!r}")
+            raise NotImplementedError(f"admission prices the dense, ssm and hybrid "
+                                      f"families only, not {cfg.family!r}")
         self.cfg = cfg
         self.batch = batch
         self.max_len = max_len
@@ -247,17 +256,18 @@ class CostModelAdmission:
     def verify_seconds(self, k: int, s: int | None = None) -> float:
         """Best-case time of one verify step over the full slot table at
         draft depth k (span SV = k+1): memory-bound like decode — the params
-        stream once whatever the span — plus n_layers x the
+        stream once whatever the span — plus n_attn_layers x the
         ``attention_verify`` bytes term at cache fill ``s`` (default
-        max_len). rwkv pays the commit replay of the accepted prefix through
-        the chunked-prefill path, modeled as a factor of 2. The price the
-        speculation policy weighs against expected accepted tokens."""
+        max_len). rwkv and zamba pay the commit replay of the accepted
+        prefix through the chunked-prefill path, modeled as a factor of 2.
+        The price the speculation policy weighs against expected accepted
+        tokens."""
         cfg = self.cfg
         raw = self.lib.cost("attention_verify", "bytes", B=self.batch, H=cfg.n_heads,
                             KH=cfg.n_kv_heads, SV=int(k) + 1,
                             S=self.max_len if s is None else s, D=cfg.hd)
         attn = self._attn_layers * raw * (self._dtype_bytes() / 2.0)
-        commit_factor = 2.0 if cfg.family == "ssm" else 1.0
+        commit_factor = 2.0 if cfg.family in _REPLAY_COMMIT else 1.0
         return (self.param_bytes + attn) / self.hbm_bw * commit_factor
 
     def emit_seconds_per_token(self, s: int | None = None) -> float:

@@ -45,9 +45,9 @@ def make_train_step(model, opt_cfg: OptConfig, *, microbatches: int = 1,
     if microbatches < 1:
         raise ValueError(f"microbatches={microbatches}: want >= 1")
     if model.cfg.family != "dense":
-        from repro_torch.nn.model import RWKV_TRAIN_TODO    # nn imports train
+        from repro_torch.nn.model import TRAIN_TODO    # nn imports train
 
-        raise NotImplementedError(f"{model.cfg.name}: {RWKV_TRAIN_TODO}")
+        raise NotImplementedError(f"{model.cfg.name}: {TRAIN_TODO[model.cfg.family]}")
     if mesh is not None:
         raise NotImplementedError("mesh: sharded training is not ported yet "
                                   "(ROADMAP.md, queue 1, item 9: sharded engine)")

@@ -93,7 +93,7 @@ def test_generator_cli_corpus_and_cross_generation(tmp_path, capsys):
     proc = _run("repro_torch.core", "corpus")
     assert proc.returncode == 0, proc.stderr[-2000:]
     info = json.loads(proc.stdout)
-    assert info["targets"] == ["h100", "torch_cpu"] and info["primitives"] == 32
+    assert info["targets"] == ["h100", "torch_cpu"] and info["primitives"] == 36
     build = str(tmp_path / "b")
     assert cli.main(["generate", "--targets", "h100", "--build-root", build]) == 0
     out = capsys.readouterr().out

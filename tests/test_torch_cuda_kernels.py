@@ -92,6 +92,11 @@ def test_swiglu_kernel(dev, shape, dtype):
     (2, 16, 16, 64, 320, 64, True, 300),          # continuation, kv_len < Sk
     (1, 4, 2, 80, 80, 64, True, 30),              # Sq > kv_len: masked rows -> 0
     (3, 4, 4, 1, 77, 128, True, 50),              # Sq = 1
+    # D 112 (zamba2's shared attention block): its prefill shape, a
+    # continuation and a partial tile without causality
+    (2, 32, 32, 512, 512, 112, True, None),
+    (2, 4, 4, 64, 200, 112, True, 180),
+    (1, 4, 2, 100, 77, 112, False, None),
 ])
 def test_flash_attention_kernel(dev, b, h, kh, sq, sk, d, causal, kv_len, dtype):
     rand = _draws(dev, dtype)
@@ -159,6 +164,12 @@ PAGED_CASES = [
     (4, 16, 16, 64, 64, 1, [0, 5, 700, 4096], 64, 64),
     (2, 40, 8, 128, 64, 4, [2, 3000], 64, 64),
     (1, 48, 4, 64, 64, 4, [1000], 64, 64),
+    # D 112 (zamba2's shared attention block): the fused decode and verify
+    # steps (32 heads, batch 8, page 64), edge lengths, and split tables
+    (8, 32, 32, 112, 64, 1, [260, 268, 276, 284, 292, 300, 308, 316], 5, 64),
+    (8, 32, 32, 112, 64, 5, [265, 273, 281, 289, 297, 305, 313, 321], 6, 64),
+    (8, 32, 32, 112, 64, 1, [0, 1, 100, 320, 257, 64, 63, 200], 5, 64),
+    (4, 32, 32, 112, 64, 1, [0, 5, 700, 4096], 64, 64),
 ]
 
 
@@ -189,6 +200,21 @@ def test_paged_attention_is_the_same_bit_for_bit_call_after_call(dev, dtype):
         for _ in range(3):
             assert torch.equal(pa.paged_attention(q, k, v, tables, kv_len, block_k=block_k),
                                first)
+
+
+def test_flash_attention_d112_is_the_serving_forward_only(dev):
+    """D 112 is built for the serving forward; its lse forward and backward
+    wait for hybrid training and are refused by name, not launched."""
+    rand = _draws(dev, torch.bfloat16)
+    q = rand(1, 2, 64, 112)
+    before = fa.flash_attention.launches
+    fa.flash_attention(q, q, q)
+    assert fa.flash_attention.launches == before + 1
+    with pytest.raises(ValueError, match="head dim 112"):
+        fa.flash_attention_fwd_lse(q, q, q)
+    lse = torch.zeros(q.shape[:3], dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="head dim 112"):
+        fa.flash_attention_bwd_dq(q, q, q, q, lse, lse)
 
 
 def test_paged_attention_rejects_what_it_does_not_take(dev):

@@ -35,7 +35,9 @@ SLICE_PRIMITIVES = ("load", "set1", "embed_lookup", "cache_update", "matmul", "r
                     # speculative decoding: the verify span, lane and paged
                     "attention_verify", "attention_verify_paged",
                     # the rwkv family
-                    "token_shift", "wkv6_scan", "wkv6_decode", "silu", "sigmoid")
+                    "token_shift", "wkv6_scan", "wkv6_decode", "silu", "sigmoid",
+                    # the zamba family
+                    "causal_conv1d", "ssd_scan", "ssd_chunked", "ssd_decode")
 KERNEL_MODULES = {"rmsnorm": "repro_torch.kernels.rmsnorm.ops",
                   "swiglu": "repro_torch.kernels.swiglu.ops",
                   "flash_attention": "repro_torch.kernels.flash_attention.ops",
@@ -226,6 +228,16 @@ def _args(prim, rng):
         w = rng.uniform(0.7, 0.999, (*lead, 3, 8)).astype(np.float32)
         extra = (_rand(rng, 2, 3, 8, 8),) if prim == "wkv6_decode" else ()
         return (r, k, v, w, _rand(rng, 3, 8, lo=-1, hi=1), *extra), {}
+    if prim == "causal_conv1d":
+        return (_rand(rng, 2, 9, 6), _rand(rng, 4, 6, lo=-1, hi=1)), {}
+    if prim in ("ssd_scan", "ssd_chunked", "ssd_decode"):
+        lead = (2,) if prim == "ssd_decode" else (2, 9)
+        x = _rand(rng, *lead, 3, 4, lo=-1, hi=1)
+        a = rng.uniform(0.8, 0.999, (*lead, 3)).astype(np.float32)
+        b, c = (_rand(rng, *lead, 5, lo=-1, hi=1) for _ in range(2))
+        if prim == "ssd_decode":
+            return (x, a, b, c, _rand(rng, 2, 3, 4, 5)), {}
+        return (x, a, b, c), ({"chunk": 4} if prim == "ssd_chunked" else {})
     raise KeyError(prim)
 
 
@@ -237,7 +249,7 @@ def test_torch_cpu_library_matches_cpu_xla(prim, libs):
                                 for a in args], **kwargs)
     got = getattr(port, prim)(*[torch.from_numpy(a.copy()) if isinstance(a, np.ndarray)
                                 else a for a in args], **kwargs)
-    if isinstance(want, tuple):                 # flash_attention_bwd, wkv6_*: tuples
+    if isinstance(want, tuple):                 # flash_attention_bwd, wkv6_*, ssd_*: tuples
         assert isinstance(got, tuple) and len(got) == len(want)
     else:
         got, want = (got,), (want,)

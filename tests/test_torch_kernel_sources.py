@@ -114,16 +114,17 @@ def test_chip_smoke_reads_static_shared_memory():
 
 
 def _paged_counts():
-    counts = {f"paged_f32_kernel<{d}>": 0 for d in (64, 128)}
-    counts |= {f"paged_mma_kernel<{d}, {kw}>": 24 for d in (64, 128) for kw in (1, 2, 4)}
+    counts = {f"paged_f32_kernel<{d}>": 0 for d in (64, 112, 128)}
+    counts |= {f"paged_mma_kernel<{d}, {kw}>": 24 for d in (64, 112, 128) for kw in (1, 2, 4)}
     return counts
 
 
 @pytest.mark.parametrize("edit", ["none", "bf16 without HMMA", "float32 with HMMA",
-                                  "no bf16 at D 128"])
+                                  "no bf16 at D 128", "no bf16 at D 112",
+                                  "bf16 at D 112 without HMMA"])
 def test_chip_smoke_tensor_core_gate_for_the_paged_kernel(edit):
     """Phase 1's gate on the paged library: every bf16 instantiation on the
-    tensor cores, D 64 and 128 present, no float32 one with HMMA."""
+    tensor cores, D 64, 112 and 128 present, no float32 one with HMMA."""
     counts = _paged_counts()
     if edit == "bf16 without HMMA":
         counts["paged_mma_kernel<64, 2>"] = 0
@@ -131,6 +132,10 @@ def test_chip_smoke_tensor_core_gate_for_the_paged_kernel(edit):
         counts["paged_f32_kernel<128>"] = 8
     elif edit == "no bf16 at D 128":
         counts = {k: n for k, n in counts.items() if not k.startswith("paged_mma_kernel<128")}
+    elif edit == "no bf16 at D 112":
+        counts = {k: n for k, n in counts.items() if not k.startswith("paged_mma_kernel<112")}
+    elif edit == "bf16 at D 112 without HMMA":
+        counts["paged_mma_kernel<112, 4>"] = 0
     gate = _chip_smoke().tensor_core_gate
     if edit == "none":
         gate(counts, "paged")
@@ -185,11 +190,14 @@ def _full_counts():
                    f"flash_bwd_dkv_mma_kernel<{d}, {64 if d == 64 else 32}>": 192,
                    f"flash_fwd_f32_kernel<{d}, true>": 0, f"flash_bwd_dq_kernel<float, {d}>": 0,
                    f"flash_bwd_dkv_kernel<float, {d}>": 0}
+    # D 112: the serving forward alone (its lse and backward wait for training)
+    counts |= {"flash_fwd_mma_kernel<112, false>": 84, "flash_fwd_f32_kernel<112, false>": 0}
     return counts
 
 
 @pytest.mark.parametrize("edit", ["none", "bf16 dq without HMMA", "float32 dk/dv with HMMA",
-                                  "no bf16 dk/dv at D 128", "no float32 instantiation"])
+                                  "no bf16 dk/dv at D 128", "no float32 instantiation",
+                                  "no bf16 forward at D 112"])
 def test_chip_smoke_tensor_core_gate(edit):
     """Phase 1's gate passes the expected instantiations and fails each way
     a bf16 backward kernel could leave the tensor cores unseen."""
@@ -202,6 +210,8 @@ def test_chip_smoke_tensor_core_gate(edit):
         del counts["flash_bwd_dkv_mma_kernel<128, 32>"]
     elif edit == "no float32 instantiation":
         counts = {k: n for k, n in counts.items() if "_mma_" in k}
+    elif edit == "no bf16 forward at D 112":
+        del counts["flash_fwd_mma_kernel<112, false>"]
     gate = _chip_smoke().tensor_core_gate
     if edit == "none":
         gate(counts)

@@ -363,7 +363,7 @@ def _port_cfg(jcfg) -> ArchConfig:
     return ArchConfig(**dataclasses.asdict(jcfg))
 
 
-@pytest.mark.parametrize("arch", ["zamba2-7b", "whisper-tiny", "arctic-480b", "grok-1-314b",
+@pytest.mark.parametrize("arch", ["whisper-tiny", "arctic-480b", "grok-1-314b",
                                   "internvl2-2b"])
 def test_other_families_still_raise(arch):
     cfg = _port_cfg(jax_get_config(arch).reduced())
