@@ -66,7 +66,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    plain version on copies of the same pools: all 40 span rows under the
    same check; row 0 of the span against a fused decode step from the same
    pools (a verify span of one is the decode step).
-3. Serve. repro_torch.launch.serve.main at full width: 16 requests of 256
+3. Serve. repro_torch.launch.serve.main at full width: 8 requests of 256
    prompt tokens and 64 generated tokens over 8 slots, 64-token chunks.
    Every serve of phases 3, 3b and 3e but 3e(i) runs twice on the same
    requests (paired_serve; 3e(i)'s eager twin is dropped for time): with the engine's captured steps (CUDA graphs, the
@@ -80,7 +80,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    wall and the device's idle share over the serve (1 - busy / host wall,
    busy the union of the device records).
 3b. Paged serve. ServeEngine(paged=PagedConfig(page_size=64)) at full width
-   with phase 2's params: 32 requests sharing a 128-token system prompt plus
+   with phase 2's params: 16 requests sharing a 128-token system prompt plus
    128 tokens each, 64 generated, 8 slots, max_len 320, 64-token chunks,
    greedy. Fails unless decode ran fused (no lane activation), the prefix
    was shared, nothing was refused, every request got 64 tokens and the
@@ -88,8 +88,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    requests whose tokens equal a lane-mode run's on the same requests
    (information only: bf16 kernels may flip a near-tied argmax).
 3e. Speculative paged serve. ServeEngine(paged=..., speculation=...) at 3b's
-   shape with phase 2's params, greedy: (i) depth SPEC_K on 3b's 32
-   requests; (ii) the cost-priced depth with the n-gram drafter on 16
+   shape with phase 2's params, greedy: (i) depth SPEC_K on 3b's 16
+   requests; (ii) the cost-priced depth with the n-gram drafter on 8
    prompts that repeat a seeded 16-token pattern to 256 tokens, beside the
    same requests without speculation (a pair of its own: the two graphs
    runs give what speculation buys end to end); (iii) the draft-model drafter
@@ -116,7 +116,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    CUDA kernel over bf16 pools holding the dequantized rows
    (_require_logits), and captured against eager through the engine's step
    code: logits and pools bit-equal, launches equal.
-3g. Long-context serve. 8 requests sharing a 3584-token document plus 512
+3g. Long-context serve. 4 requests sharing a 3584-token document plus 512
    tokens each, 64 generated, batch 4, max_len 4160, page 64, 256-token
    chunks, one bucket of 4096: fails unless kernel.plan splits each KV
    head's keys at the engine's table width (65); paired (eager first) under
@@ -235,7 +235,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    max |y| and to max |s| within WKV_REL_TOL. Then a model on each library,
    sharing the params: one prefill of RWKV_PREFILL tokens and DECODE_STEPS
    greedy decode steps, every logits row under _require_logits.
-7b. Lane serve at phase 3's shapes (16 x (256 + 64), 8 slots, chunk 64),
+7b. Lane serve at phase 3's shapes (8 x (256 + 64), 8 slots, chunk 64),
    7c paged (PagedConfig(), phase 3b's requests: nothing pages, so fused is
    false, requests activate through lanes, the system prompt is shared as
    the tail state at its 128-row boundary; tokens equal a lane-mode run's),
@@ -275,16 +275,50 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    summation order and the kernels' roundings), and in bf16 one ulp moves a head's bf16-rounded decay (a decode
    step from a shared state apart by rel L2 0.42, parting at layer 4).
 8b. The serve CLI (--arch zamba2-7b) at phase 3's shapes, lane mode; 8c
-   fused paged mode on phase 3b's requests (one prefix miss, 31 hits plus
+   fused paged mode on phase 3b's requests (one prefix miss, 15 hits plus
    one a preemption, the tails in the slot table, the KV in the pools; the
    share of the first wave's tokens equal to a lane-mode run's printed); 8d
    the n-gram drafter at depth SPEC_K on 8 of 3e(ii)'s prompts,
    fused paged (the graphs run must capture the paged commit). Each a
-   paired_serve under zamba_launch_check: rmsnorm 176 a pass (a decode step
-   or chunk; two a verify step, its commit replaying the span), the paged
-   kernel 13 a fused decode, verify or commit step, flash and swiglu never.
-   Phase 4's zamba rows: the lane and the fused paged decode step, and the
-   fused paged verify step with its commit on the pools, captured vs eager.
+   paired_serve under zamba_launch_check: rmsnorm 2 n_layers + applications
+   + 1 a pass (a decode step or chunk; two a verify step, its commit
+   replaying the span), the paged kernel once an application a fused
+   decode, verify or commit step, flash and swiglu never. Phase 4's zamba
+   rows: the lane and the fused paged decode step, and the fused paged
+   verify step with its commit on the pools, captured vs eager. 8c, 8d and
+   phase 4's zamba rows run ZAMBA_SERVE_LAYERS (12) of its 81 layers, its
+   widths kept (two groups, two applications of the shared block), for
+   phase 9's room in the script's time; 8a and 8b keep all 81.
+9. whisper-tiny at full width (4 encoder and 4 decoder layers, d 384, 6
+   heads of 64, d_ff 1536, vocab 51865 padded to 51968, layernorm, gelu,
+   bf16), seeded weights from the port's init on the card, the encoder
+   over WHISPER_ENC_LEN (1500) seeded frames (the conv frontend is a stub,
+   as in the reference). Its path runs two kernels: the flash forward, non
+   causal over the frames in the encoder and as the cross-attention (Sq 64,
+   1 and SPEC_K + 1 against 1500 keys, a ragged last key tile), causal in
+   Model.prefill's decoder; and the paged kernel (6 heads, group 1) in
+   fused paged decode and verify. Layernorm and gelu are plain torch, as
+   jnp in the reference.
+9a. The main path, counted: Model.prefill of WHISPER_PREFILL tokens over
+   (8, 1500, 384) frames (the flash kernel exactly 12 times) and
+   WHISPER_DECODE_STEPS bf16 decode steps (exactly 4 each), every one
+   against the torch_cpu library's from the same state (LOGITS_REL_L2 and
+   the argmax verdicts). Not counted: the flash kernel call by call against
+   its plain version in a prefill, a decode step and a first prefill chunk,
+   and the paged and flash kernels in a fused paged decode and verify step,
+   bf16 and float32 (TOLERANCE), the whole steps kernel vs plain; the
+   float32 model at full depth on both libraries within WHISPER_F32_REL_L2.
+9b. Lane serve: 16 requests of 64 tokens over their own frames, 192
+   generated, 8 slots, chunk 64; 9c fused paged (page and chunk 32): 32
+   requests in groups of a clip, the clip again, a twin of other frames and
+   that twin again: 16 prefix hits (plus the preemptions') and 16 misses
+   exactly, every first token equal to a lane run's; 9d n-gram depth
+   SPEC_K on 8 of 3e(ii)'s prompts over seeded frames, fused paged. Each a
+   paired_serve under whisper_launch_check: the flash kernel 4 times a
+   request's first chunk (the encoder) and 4 times a chunk, decode and
+   verify step (the cross-attention), the paged kernel 4 times a fused
+   decode or verify step, rmsnorm and swiglu never. Phase 4's whisper rows:
+   the lane and the fused paged decode step, captured vs eager.
 
 A captured step adds to each counter, on every replay, the launches its
 capture recorded, so the counters read the same with graphs and without.
@@ -315,10 +349,13 @@ before each of phase 7b, 7c and 7d and read just after it (rmsnorm's row:
 launches_phase7b, launches_phase7c, launches_phase7d). They are set to 0
 just before phase 8a's main path and read just after it (rows 1 and 3:
 launches_phase8a), and just before each of 8b, 8c and 8d and read just
-after it (row 1: launches_phase8b-8d; row 7: launches_phase8c, 8d).
+after it (row 1: launches_phase8b-8d; row 7: launches_phase8c, 8d), and
+likewise around phase 9a's main path and each of 9b, 9c and 9d (row 3:
+launches_phase9a-9d; row 7: launches_phase9c, 9d).
 Launches made to compare a kernel with its plain version, and those of
 phases 4 and 4b (measurements), are not counted.
 
+The [done] line prints each phase's seconds of command time.
 Stdout ends with the card's name and power limit (nvidia-smi), one JSON line
 {"kernels": [...]}, and, last, {"ok": true, "device": {...}}.
 """
@@ -373,16 +410,20 @@ LOGITS_REL_L2 = 3e-2
 # ulp at |x| is at most 2^-7 |x|, so tau <= 2^-7 max|logit|, inside the
 # LOGITS_REL_L2 max|logit| the prefill check allowed before.
 TIE_ULPS = 1
+# phase 3: the serve CLI, one wave of 8 slots (the script's time; no gate
+# needs more)
 SERVE_ARGS = ["--arch", ARCH, "--batch", "8", "--prompt-len", "256", "--gen-len", "64",
-              "--requests", "16", "--prefill-chunk", "64", "--device", "cuda"]
-# phase 3b: paged serving with a shared system prompt
-PAGED_REQUESTS, PAGED_SYSTEM, PAGED_UNIQUE, PAGED_GEN = 32, 128, 128, 64
+              "--requests", "8", "--prefill-chunk", "64", "--device", "cuda"]
+# phase 3b: paged serving with a shared system prompt, twice the slots in
+# requests (3e(i), 3f, 7c and 8c serve the same requests)
+PAGED_REQUESTS, PAGED_SYSTEM, PAGED_UNIQUE, PAGED_GEN = 16, 128, 128, 64
 PAGED_BATCH, PAGED_MAX_LEN, PAGED_CHUNK, PAGE = 8, 320, 64, 64
 # phase 3e: speculative paged serving at 3b's shapes; the draft depth of
 # 3e(i) and (iii) (attention_verify's k_max); (ii)'s prompts repeat a seeded
-# pattern of SPEC_PATTERN tokens up to SPEC_PROMPT tokens
+# pattern of SPEC_PATTERN tokens up to SPEC_PROMPT tokens, SPEC_REQUESTS of
+# them
 SPEC_K = 4
-SPEC_REQUESTS, SPEC_PROMPT, SPEC_PATTERN, SPEC_DRAFT_REQUESTS = 16, 256, 16, 8
+SPEC_REQUESTS, SPEC_PROMPT, SPEC_PATTERN, SPEC_DRAFT_REQUESTS = 8, 256, 16, 8
 # phase 4: the serve phase's slot table (8 slots of 256 + 64 rows), decode at
 # the first generated position, a chunk that ends there; 10 traced steps
 PROFILE_BATCH, PROFILE_FILL, PROFILE_CHUNK, PROFILE_GEN = 8, 256, 64, 64
@@ -393,8 +434,9 @@ MULTI_SPLIT_FILL = 4096
 # phase 3g: a long-context fused paged serve on which the paged kernel splits:
 # LONG_REQUESTS requests share a LONG_DOC-token document and add LONG_OWN
 # tokens each (one bucket), then generate LONG_GEN; batch LONG_BATCH,
-# LONG_CHUNK-token chunks, room for LONG_MAX_LEN rows (a table of 65 pages)
-LONG_REQUESTS, LONG_DOC, LONG_OWN, LONG_GEN = 8, 3584, 512, 64
+# LONG_CHUNK-token chunks, room for LONG_MAX_LEN rows (a table of 65 pages);
+# one wave of LONG_BATCH
+LONG_REQUESTS, LONG_DOC, LONG_OWN, LONG_GEN = 4, 3584, 512, 64
 LONG_BATCH, LONG_CHUNK, LONG_MAX_LEN = 4, 256, 4160
 # phase 3h: run() starts on STREAM_FIRST of 3b's requests; a thread submits
 # the rest of the first STREAM_TOTAL at seeded Poisson times, STREAM_GAP_S
@@ -411,7 +453,7 @@ RWKV_PREFILL = (4, 256)
 WKV_REL_TOL = 1e-3
 # 7a's float32 model, h100 vs torch_cpu library: phase 5b's float32 bound
 RWKV_F32_REL_L2 = 1e-4
-RWKV_SERVE_REQUESTS, RWKV_PROMPT, RWKV_GEN = 16, 256, 64
+RWKV_SERVE_REQUESTS, RWKV_PROMPT, RWKV_GEN = 8, 256, 64     # phase 3's
 # 7b-7d serve rwkv6-7b at RWKV_SERVE_LAYERS of its 32 layers, its widths kept
 # (the first RWKV_SERVE_LAYERS layers of the seeded weights): room in the
 # script's time for phase 8; 7a and phase 4's rwkv rows keep all 32
@@ -431,12 +473,34 @@ ZAMBA_SHARED = 13               # applications of zamba2-7b's shared attention b
 ZAMBA_GATED_WIDTH = 7168        # zamba2-7b's d_inner, the gated rmsnorm's row (phase 1)
 ZAMBA_SERVE_ARGS = ["--arch", ZAMBA_ARCH] + SERVE_ARGS[2:]
 ZAMBA_SPEC_GEN = 32             # 8d's tokens a request (the script's time)
+# 8c, 8d and phase 4's zamba rows run ZAMBA_SERVE_LAYERS of its 81 layers,
+# its widths kept (two groups of 6 and two applications of the shared
+# block, zamba_cut): room in the script's time for phase 9; 8a and the 8b
+# CLI serve keep all 81
+ZAMBA_SERVE_LAYERS = 12
 # 8a's float32 gates run zamba2-7b at ZAMBA_F32_LAYERS of its 81 layers,
 # widths kept (one group of 6, the shared block, 1 remainder layer): its
 # seeded layers amplify a difference layer after layer (phase 8a's
 # chunked-vs-scan SSD, 8e-7 in a layer, reaches 9.5e-3 of the float32
 # prefill's logits at 81 layers and 1.1e-4 at 13)
 ZAMBA_F32_LAYERS = 7
+# phase 9: whisper-tiny at full width over WHISPER_ENC_LEN frames (Whisper's
+# 30-second window after its conv frontend, which is a stub: the frames are
+# seeded embeddings). 9a: Model.prefill of WHISPER_PREFILL decoder tokens and
+# WHISPER_DECODE_STEPS decode steps; 9b: WHISPER_REQUESTS requests of
+# WHISPER_PROMPT + WHISPER_GEN rows (256 of its 448-token decoder context) at
+# batch WHISPER_BATCH, chunks of WHISPER_CHUNK; 9c: WHISPER_PAGED_REQUESTS at
+# 9b's lengths, fused paged at page and chunk WHISPER_PAGE, so that a
+# 64-token prompt shares its first WHISPER_SHARED rows (a page); phase 9a's
+# paged steps at fill WHISPER_FILL
+WHISPER_ARCH = "whisper-tiny"
+WHISPER_ENC_LEN = 1500
+WHISPER_PREFILL = (8, 64)
+WHISPER_DECODE_STEPS = 16
+WHISPER_F32_REL_L2 = 1e-4       # 9a's float32 model, h100 vs torch_cpu: phase 5b's bound
+WHISPER_REQUESTS, WHISPER_PROMPT, WHISPER_GEN = 16, 64, 192
+WHISPER_BATCH, WHISPER_CHUNK, WHISPER_FILL = 8, 64, 128
+WHISPER_PAGED_REQUESTS, WHISPER_PAGE, WHISPER_PAGED_CHUNK, WHISPER_SHARED = 32, 32, 32, 32
 # the report entries two serves of the same requests must share, graphs on
 # and off (counts, not times; report["paged"] and report["spec"] in full)
 SERVE_COUNTED = ("requests", "generated_tokens", "steps", "padded_slot_steps_steady",
@@ -917,6 +981,14 @@ def kernel_phase(dev) -> list[dict]:
         # zamba2-7b's shared attention block in Model.prefill, D 112
         (2, 32, 32, 512, 512, 112, torch.bfloat16, True, None),
         (2, 32, 32, 512, 512, 112, torch.float32, True, None),
+        # whisper-tiny (phase 9), non-causal against 1500 keys, 23 key tiles
+        # of 64 and a ragged 28: the encoder's self-attention, and the
+        # cross-attention of a prefill chunk, a decode step and a verify span
+        (8, 6, 6, WHISPER_ENC_LEN, WHISPER_ENC_LEN, 64, torch.bfloat16, False, None),
+        (8, 6, 6, WHISPER_ENC_LEN, WHISPER_ENC_LEN, 64, torch.float32, False, None),
+        (1, 6, 6, WHISPER_CHUNK, WHISPER_ENC_LEN, 64, torch.bfloat16, False, None),
+        (8, 6, 6, 1, WHISPER_ENC_LEN, 64, torch.bfloat16, False, None),
+        (8, 6, 6, SPEC_K + 1, WHISPER_ENC_LEN, 64, torch.bfloat16, False, None),
     ]
     cases = []
     for b, h, kh, sq, sk, d, dt, causal, kv_len in fa_cases:
@@ -930,9 +1002,9 @@ def kernel_phase(dev) -> list[dict]:
         kvl = sk if kv_len is None else kv_len
         qi = torch.arange(sq, device=dev)[:, None] + (kvl - sq)
         kj = torch.arange(sk, device=dev)[None, :]
-        allowed = (kj < kvl) & ((kj <= qi) if causal else True)
+        allowed = (kj < kvl) & ((kj <= qi) if causal else torch.ones_like(qi, dtype=bool))
         pairs = int(allowed.sum())                   # what this data needs
-        mask = None if (kv_len is None and sq == sk) else allowed
+        mask = None if (kv_len is None and (sq == sk or not causal)) else allowed
         _timed_device(
             c, lambda: fa.flash_attention(q, k, v, causal=causal, kv_len=kv_len),
             lambda: fa.ref.attention(q, k, v, causal=causal, kv_len=kv_len),
@@ -1024,7 +1096,8 @@ def paged_cases(dev, pa) -> list[dict]:
     1, partial pages, a full table), the serving verify span (SQ 5 at the
     same fills, a table as wide as phase 3e's, cdiv(max_len + k_max, page)),
     a GQA verify-shaped span, a long context (kv_len 3900-4096), batch-1 GQA
-    at kv_len 4096 (qwen3-14b's 40 over 8 heads of 128), and f32. Each case
+    at kv_len 4096 (qwen3-14b's 40 over 8 heads of 128), f32, zamba2-7b's
+    32 heads of 112 and whisper-tiny's 6 heads of 64 at page 32. Each case
     records its split plan (kernel.plan on this card); the main and the
     serving verify case also their kernels per call (more than 1 fails)."""
     import torch
@@ -1036,6 +1109,8 @@ def paged_cases(dev, pa) -> list[dict]:
     edges = [0, 1, 100, 320, 257, 64, 63, 200]
     long = [3900, 3928, 3956, 3984, 4012, 4040, 4068, 4096]
     verify_width = -(-(PAGED_MAX_LEN + SPEC_K) // PAGE)
+    whisper = [65, 90, 115, 140, 165, 190, 215, 240]
+    whisper_width = -(-(WHISPER_PROMPT + WHISPER_GEN) // WHISPER_PAGE)
     # (B, H, KH, D, page, SQ, kv_len per sequence, table width, dtype, main)
     specs = [
         (8, 16, 16, 64, PAGE, 1, steady, 5, torch.bfloat16, True),
@@ -1054,6 +1129,12 @@ def paged_cases(dev, pa) -> list[dict]:
         (8, 32, 32, 112, PAGE, 1, steady, 5, torch.float32, False),
         (8, 32, 32, 112, PAGE, SPEC_K + 1, [n + SPEC_K + 1 for n in steady], verify_width,
          torch.float32, False),
+        # whisper-tiny's decoder self-attention (6 heads of 64, group 1) in
+        # phase 9's fused paged serve (page WHISPER_PAGE, 64-token prompts
+        # and up to 192 generated): the decode step and the verify span
+        (8, 6, 6, 64, WHISPER_PAGE, 1, whisper, whisper_width, torch.bfloat16, False),
+        (8, 6, 6, 64, WHISPER_PAGE, SPEC_K + 1, [n + SPEC_K + 1 for n in whisper],
+         whisper_width + 1, torch.bfloat16, False),
     ]
     cases = []
     for b, h, kh, d, page, sq, kv_lens, width, dt, main in specs:
@@ -1620,32 +1701,32 @@ def model_phase(dev, gpu: str) -> tuple[dict, object, dict]:
 
 
 def paged_state(dev, model, params, batch: int, fill: int, seed: int,
-                max_len: int = PAGED_MAX_LEN):
+                max_len: int = PAGED_MAX_LEN, page: int = PAGE, extra: dict | None = None):
     """(tails, pools, tables): ``batch`` prefilled prompts of ``fill``
-    tokens, each leaf that pages (``model.state_page_axes``: (stack, B, KH,
-    S, hd), token axis 3) moved into fused pools (stack, 1, KH, n_pages,
-    PAGE, hd) behind permuted page tables (page 0 is the scratch page that
-    pads every table row past its coverage), room for ``max_len`` rows
-    (default the serve phase's); the other leaves, a family's tails (none
-    for the dense family), as a tails-only slot table; the (B, P) tables on
-    the device."""
+    tokens (``extra``: more of the prefill's batch, whisper's frames), each
+    leaf that pages (``model.state_page_axes``: (stack, B, KH, S, hd), token
+    axis 3) moved into fused pools (stack, 1, KH, n_pages, ``page``, hd)
+    behind permuted page tables (page 0 is the scratch page that pads every
+    table row past its coverage), room for ``max_len`` rows (default the
+    serve phase's); the other leaves, a family's tails (none for the dense
+    family), as a tails-only slot table; the (B, P) tables on the device."""
     import torch
 
     cfg = model.cfg
     g = torch.Generator(device=dev).manual_seed(seed)
     tokens = torch.randint(0, cfg.vocab, (batch, fill), generator=g, device=dev)
-    _, state = model.prefill(params, {"tokens": tokens}, fill)
+    _, state = model.prefill(params, {"tokens": tokens, **(extra or {})}, fill)
     axes = model.state_page_axes(state)
-    width = -(-max_len // PAGE)
+    width = -(-max_len // page)
     n_pages = 1 + batch * width
     perm = (torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(seed))
             + 1).view(batch, width)
-    pools = {n: torch.zeros((x.shape[0], 1, x.shape[2], n_pages, PAGE, x.shape[4]),
+    pools = {n: torch.zeros((x.shape[0], 1, x.shape[2], n_pages, page, x.shape[4]),
                             dtype=model.dtype, device=dev)
              for n, x in state.items() if axes[n] is not None}
     for b in range(batch):
-        for p in range(-(-fill // PAGE)):
-            rows = slice(p * PAGE, min((p + 1) * PAGE, fill))
+        for p in range(-(-fill // page)):
+            rows = slice(p * page, min((p + 1) * page, fill))
             n_rows = rows.stop - rows.start
             for n in pools:
                 pools[n][:, 0, :, int(perm[b, p]), :n_rows] = state[n][:, b, :, rows]
@@ -1659,19 +1740,21 @@ def paged_pools(dev, model, params, batch: int, fill: int, seed: int,
     return paged_state(dev, model, params, batch, fill, seed, max_len)[1:]
 
 
-class _PlainPaged:
-    """A library's ops with attention_decode_paged and attention_verify_paged
-    bound to their plain version: the model step through the kernel vs
-    through the plain version, every other primitive the same."""
+class _PlainOps:
+    """A library's ops with the kernels named in ``plain`` bound to their
+    plain versions, every other primitive the same: a model step through the
+    kernels vs through the plain versions. ``plain`` defaults to the paged
+    kernel's two primitives."""
 
-    def __init__(self, ops):
-        self._ops = ops
+    def __init__(self, ops, plain: dict | None = None):
+        if plain is None:
+            from repro_torch.kernels.paged.ref import paged_attention_ref
+            plain = {"attention_decode_paged": paged_attention_ref,
+                     "attention_verify_paged": paged_attention_ref}
+        self._ops, self._plain = ops, plain
 
     def __getattr__(self, name):
-        if name in ("attention_decode_paged", "attention_verify_paged"):
-            from repro_torch.kernels.paged.ref import paged_attention_ref
-            return paged_attention_ref
-        return getattr(self._ops, name)
+        return self._plain[name] if name in self._plain else getattr(self._ops, name)
 
 
 def paged_step_compare(dev, model, params) -> dict:
@@ -1689,7 +1772,7 @@ def paged_step_compare(dev, model, params) -> dict:
     tokens = torch.randint(0, model.cfg.vocab, (batch, 1), generator=g, device=dev)
     pos = torch.full((batch,), fill, dtype=torch.int64, device=dev)
     logits = {}
-    for name, tsl in (("kernel", model.tsl), ("plain", _PlainPaged(model.tsl))):
+    for name, tsl in (("kernel", model.tsl), ("plain", _PlainOps(model.tsl))):
         copy = {n: t.clone() for n, t in pools.items()}
         logits[name], _, _ = lm.lm_decode_step_paged(tsl, params, {}, copy, tables,
                                                      tokens, pos, model.cfg)
@@ -1736,7 +1819,7 @@ def paged_verify_check(dev, model, params) -> dict:
     span = torch.randint(0, cfg.vocab, (batch, SPEC_K + 1), generator=g, device=dev)
     pos = torch.full((batch,), fill, dtype=torch.int64, device=dev)
     logits = {}
-    for name, tsl in (("kernel", model.tsl), ("plain", _PlainPaged(model.tsl))):
+    for name, tsl in (("kernel", model.tsl), ("plain", _PlainOps(model.tsl))):
         copy = {n: t.clone() for n, t in pools.items()}
         logits[name], _, _ = lm.lm_verify_step_paged(tsl, params, {}, copy, tables, span,
                                                      pos, cfg)
@@ -3832,7 +3915,7 @@ def zamba_paged_check(dev, runs) -> dict:
                                      "attention_verify_paged": paged_attention_ref},
                              f"phase 8a {label} fused paged step")
         logits = {}
-        for name, tsl in (("kernel", compared), ("plain", _PlainPaged(m.tsl))):
+        for name, tsl in (("kernel", compared), ("plain", _PlainOps(m.tsl))):
             for kind, fn, toks in steps:
                 st = {n: t.clone() for n, t in tails.items()}
                 pl = {n: t.clone() for n, t in pools.items()}
@@ -4050,10 +4133,14 @@ def zamba_serve_phase(dev, params, gpu: str) -> dict:
        shapes, lane mode (its own seeded weights; untraced: reading its ~1.1
        million device records took longer than the serve; phase 4's rows
        give a captured step's idle share).
+    8c and 8d run ZAMBA_SERVE_LAYERS of its 81 layers, its widths kept
+       (zamba_cut: the first two groups of 6 of 8a's weights, two
+       applications of the shared block), for phase 9's room in the
+       script's time.
     8c fused paged mode (PagedConfig(page_size=PAGE)) on phase 3b's
        requests: the tails in the slot table, the shared block's KV in the
-       pools through the paged kernel (ZAMBA_SHARED launches a decode step),
-       the system prompt shared at its 128-row boundary (31 prefix hits, the
+       pools through the paged kernel (once an application a decode step),
+       the system prompt shared at its 128-row boundary (15 prefix hits, the
        tail restored by copy, and each preemption's continuation hitting it
        again). The share of the first wave's requests whose tokens equal a
        lane-mode run's is printed (information: lane mode attends by the
@@ -4063,18 +4150,19 @@ def zamba_serve_phase(dev, params, gpu: str) -> dict:
        phase 3e(ii)'s pattern prompts, ZAMBA_SPEC_GEN tokens each (the
        script's time), fused paged: verify steps run and
        each is followed by its commit on the pools (jit_cache
-       "commit_paged" in the graphs run; ZAMBA_SHARED paged launches a
+       "commit_paged" in the graphs run; a paged launch an application a
        decode, verify or commit step)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as serve_cli
     from repro_torch.serve import PagedConfig, Request, ServeEngine, SpeculationConfig
 
-    cfg = get_config(ZAMBA_ARCH)
-    kw = dict(batch=PAGED_BATCH, max_len=PAGED_MAX_LEN, device=dev, params=params,
+    full = get_config(ZAMBA_ARCH)
+    cfg, cut = zamba_cut(full, params, ZAMBA_SERVE_LAYERS)
+    kw = dict(batch=PAGED_BATCH, max_len=PAGED_MAX_LEN, device=dev, params=cut,
               prefill_chunk=PAGED_CHUNK)
     out = {}
 
-    def check(n_req, fused, spec=False, gen=PAGED_GEN):
+    def check(n_req, fused, spec=False, gen=PAGED_GEN, cfg=cfg):
         def run_check(report, launched):
             problems = []
             if report["target"] != "h100":
@@ -4110,14 +4198,14 @@ def zamba_serve_phase(dev, params, gpu: str) -> dict:
 
     out["8b"] = serve("phase8b", f"serve CLI --arch {ZAMBA_ARCH}",
                       lambda: serve_cli.main(ZAMBA_SERVE_ARGS)["report"],
-                      check(RWKV_SERVE_REQUESTS, fused=False), True)
+                      check(RWKV_SERVE_REQUESTS, fused=False, cfg=full), True)
     steps = out["8b"]["report"]["step_log"]
     print(f"[phase8b] lane serve {ZAMBA_ARCH} on {gpu}: decode steps "
           f"{sum(e['decoded'] > 0 for e in steps)}, prefill chunks "
           f"{sum(e['chunks'] for e in steps)}, launches of the pair {out['8b']['launches']}; "
           f"phase {out['8b']['seconds']:.1f} s", flush=True)
 
-    out["8c"] = serve("phase8c", f"fused paged serve {ZAMBA_ARCH}",
+    out["8c"] = serve("phase8c", f"fused paged serve {ZAMBA_ARCH} at {cfg.n_layers} layers",
                       lambda: ServeEngine(cfg, paged=PagedConfig(page_size=PAGE), **kw).run(
                           paged_requests(cfg.vocab, Request)),
                       check(PAGED_REQUESTS, fused=True), False)
@@ -4149,8 +4237,8 @@ def zamba_serve_phase(dev, params, gpu: str) -> dict:
           f"{out['8c']['launches']}; phase {out['8c']['seconds']:.1f} s", flush=True)
 
     spec_kw = dict(kw, max_len=SPEC_PROMPT + PAGED_GEN)
-    out["8d"] = serve("phase8d", f"speculative fused paged serve {ZAMBA_ARCH}, n-gram depth "
-                      f"{SPEC_K}",
+    out["8d"] = serve("phase8d", f"speculative fused paged serve {ZAMBA_ARCH} at "
+                      f"{cfg.n_layers} layers, n-gram depth {SPEC_K}",
                       lambda: ServeEngine(cfg, paged=PagedConfig(page_size=PAGE),
                                           speculation=SpeculationConfig(fixed_k=SPEC_K),
                                           **spec_kw).run(
@@ -4174,7 +4262,8 @@ def zamba_serve_phase(dev, params, gpu: str) -> dict:
 
 def zamba_profile_phase(dev, model, params, gpu: str) -> dict:
     """Phase 4's step table for zamba2-7b (run in phase 8, where its model
-    lives), through the engine's step code (serve/graphs.py) at batch
+    lives, at ZAMBA_SERVE_LAYERS of its layers), through the engine's step
+    code (serve/graphs.py) at batch
     PROFILE_BATCH and position PROFILE_FILL, captured and eager, by
     _profile: the lane decode step, the fused paged decode step, and the
     fused paged verify step of a span SPEC_K + 1 followed by its commit on
@@ -4223,7 +4312,8 @@ def zamba_profile_phase(dev, model, params, gpu: str) -> dict:
                         "fused": fused.sizes(("decode", "verify", "commit_paged"))}
     for kind in steps:
         c, e = out[kind]["captured"], out[kind]["eager"]
-        print(f"[phase4] {kind} ({ZAMBA_ARCH}) on {gpu}, captured vs eager: host wall "
+        print(f"[phase4] {kind} ({ZAMBA_ARCH}, {cfg.n_layers} layers) on {gpu}, captured vs "
+              f"eager: host wall "
               f"{c['wall_ms']:.3f} vs {e['wall_ms']:.3f} ms, device busy "
               f"{c['device_busy_ms']} vs {e['device_busy_ms']} ms, idle share "
               f"{c.get('device_idle_share')} vs {e.get('device_idle_share')}, kernels per "
@@ -4275,7 +4365,9 @@ def zamba_phase(dev, gpu: str) -> dict:
     out.update(zamba_serve_phase(dev, params, gpu))
     t0 = time.perf_counter()
     saved = read_counts()
-    out["phase4"] = zamba_profile_phase(dev, model, params, gpu)
+    # phase 4's rows at 8c's and 8d's depth, widths kept
+    cut_cfg, cut = zamba_cut(cfg, params, ZAMBA_SERVE_LAYERS)
+    out["phase4"] = zamba_profile_phase(dev, build_model(cut_cfg, device=dev), cut, gpu)
     for name, fn in counters().items():
         fn.launches = saved[name]
     out["phase4"]["seconds"] = time.perf_counter() - t0
@@ -4283,6 +4375,587 @@ def zamba_phase(dev, gpu: str) -> dict:
     print(f"[phase8] {ZAMBA_ARCH} done on {gpu}: phase {out['seconds']:.1f} s (8a "
           f"{out['8a']['seconds']:.1f}, 8b {out['8b']['seconds']:.1f}, 8c "
           f"{out['8c']['seconds']:.1f}, 8d {out['8d']['seconds']:.1f}, phase 4's rows "
+          f"{out['phase4']['seconds']:.1f})", flush=True)
+    return out
+
+
+def whisper_launch_check(cfg, launched, report, *, fused: bool) -> list:
+    """The problems of one whisper serve's launch counts. The flash kernel
+    launches n_enc_layers times for each request's first chunk (the encoder,
+    non-causal over enc_len frames; a prefix hit skips it, a preemption's
+    continuation that misses runs it again) and n_layers times a prefill
+    chunk, decode step and verify step (the cross-attention, non-causal over
+    enc_len keys). The paged kernel launches n_layers times a fused decode or
+    verify step, never in lanes; rmsnorm and swiglu never (layernorm and gelu
+    are plain torch, as jnp in the reference)."""
+    chunks = sum(e["chunks"] for e in report["step_log"])
+    spec = report.get("spec") or {}
+    verify = spec.get("verify_steps", 0)
+    decode = sum(e["decoded"] > 0 for e in report["step_log"]) - verify
+    paged = report.get("paged") or {}
+    first = report["requests"] + paged.get("preemptions", 0) - paged.get("prefix_hits", 0)
+    want = {"flash_attention": cfg.n_enc_layers * first
+            + cfg.n_layers * (chunks + decode + verify),
+            "paged_attention": cfg.n_layers * (decode + verify) if fused else 0,
+            "rmsnorm": 0, "swiglu": 0}
+    return [f"{name} launched {launched[name]} times, want {n} ({first} first chunks, "
+            f"{chunks} prefill chunks, {decode} decode steps, {verify} verify steps)"
+            for name, n in want.items() if launched[name] != n]
+
+
+def whisper_frames(rng, n: int, d: int) -> list:
+    """``n`` seeded (WHISPER_ENC_LEN, d) float32 frame embeddings (the conv
+    frontend's output: a stub in the reference too)."""
+    import numpy as np
+
+    return [rng.standard_normal((WHISPER_ENC_LEN, d), dtype=np.float32) for _ in range(n)]
+
+
+def whisper_requests(vocab: int, d: int, request_cls, n: int, seed: int = 41) -> list:
+    """9b: ``n`` requests of WHISPER_PROMPT seeded tokens over their own
+    seeded frames, WHISPER_GEN generated."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    frames = whisper_frames(rng, n, d)
+    return [request_cls(rid=f"w{i}", tokens=rng.integers(0, vocab, WHISPER_PROMPT)
+                        .astype(np.int32), gen_len=WHISPER_GEN, embeds=frames[i])
+            for i in range(n)]
+
+
+def whisper_paged_requests(vocab: int, d: int, request_cls) -> list:
+    """9c: WHISPER_PAGED_REQUESTS requests in groups of four over one
+    prompt: a (frames A), a clip transcribed twice (A again), b (frames B:
+    a twin of the first that differs only in its frames), and b again. Each
+    shares its first WHISPER_SHARED rows: the repeats hit the prefix store,
+    the first and the twin of other frames miss."""
+    import numpy as np
+
+    rng = np.random.default_rng(43)
+    out = []
+    for grp in range(WHISPER_PAGED_REQUESTS // 4):
+        toks = rng.integers(0, vocab, WHISPER_PROMPT).astype(np.int32)
+        fa, fb = whisper_frames(rng, 2, d)
+        for name, frames in (("a", fa), ("a2", fa), ("b", fb), ("b2", fb)):
+            out.append(request_cls(rid=f"c{grp}{name}", tokens=toks.copy(),
+                                   gen_len=WHISPER_GEN, embeds=frames,
+                                   shared_prefix_len=WHISPER_SHARED))
+    return out
+
+
+def whisper_paged_check(dev, runs, frames) -> dict:
+    """9a, paged: one fused paged decode step and one verify span of
+    SPEC_K + 1 at batch WHISPER_BATCH over WHISPER_FILL prefilled rows (page
+    WHISPER_PAGE; the cross K/V tails from ``frames``), per (label, model,
+    params, rel_l2) of ``runs``: every paged call (the self-attention) and
+    every flash call (the cross-attention at Sq 1 and SPEC_K + 1 against
+    enc_len keys) against its plain version on the operands the step gives
+    it (_Compared, TOLERANCE); the whole step's logits against the step
+    through the plain versions on copies of the same tails and pools, under
+    _require_logits at ``rel_l2``; row 0 of the span against the decode step
+    at the same bound."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import attention
+    from repro_torch.kernels.paged.ref import paged_attention_ref
+    from repro_torch.nn import encdec
+
+    batch, fill = WHISPER_BATCH, WHISPER_FILL
+    plain = {"attention_decode_paged": paged_attention_ref,
+             "attention_verify_paged": paged_attention_ref, "flash_attention": attention}
+    out = {"batch": batch, "kv_len": fill + 1, "span": SPEC_K + 1, "page": WHISPER_PAGE}
+    for label, m, p, rel_l2 in runs:
+        cfg, vocab = m.cfg, m.cfg.padded_vocab
+        g = torch.Generator(device=dev).manual_seed(34)
+        span = torch.randint(0, cfg.vocab, (batch, SPEC_K + 1), generator=g, device=dev)
+        pos = torch.full((batch,), fill, dtype=torch.int64, device=dev)
+        tails, pools, tables = paged_state(
+            dev, m, p, batch, fill, seed=33, max_len=fill + 2 * WHISPER_PAGE,
+            page=WHISPER_PAGE, extra={"audio_embeds": frames.to(m.dtype)})
+        compared = _Compared(m.tsl, plain, f"phase 9a {label} fused paged step")
+        steps = (("decode", encdec.encdec_decode_step_paged, span[:, :1]),
+                 ("verify", encdec.encdec_verify_step_paged, span))
+        logits = {}
+        for name, tsl in (("kernel", compared), ("plain", _PlainOps(m.tsl, plain))):
+            for kind, fn, toks in steps:
+                st = {n: t.clone() for n, t in tails.items()}
+                pl = {n: t.clone() for n, t in pools.items()}
+                logits[name, kind] = fn(tsl, p, st, pl, tables, toks, pos, cfg)[0].reshape(
+                    -1, vocab)
+        r = {kind: _logits_check(logits["kernel", kind], logits["plain", kind], cfg.vocab)
+             for kind, _, _ in steps}
+        r["verify_row0_vs_decode"] = _logits_check(
+            logits["kernel", "verify"].reshape(batch, -1, vocab)[:, 0],
+            logits["kernel", "decode"], cfg.vocab)
+        r["kernel_calls_vs_plain"] = _worst(compared.results)
+        if r["kernel_calls_vs_plain"]["calls"] != 4 * cfg.n_layers:
+            raise AssertionError(f"phase 9a {label}: {r['kernel_calls_vs_plain']['calls']} "
+                                 f"paged and flash calls compared, want {4 * cfg.n_layers}")
+        for kind in ("decode", "verify", "verify_row0_vs_decode"):
+            _require_logits(f"phase 9a {label} fused paged {kind}, kernel vs plain", r[kind],
+                            rel_l2=rel_l2)
+        out[label] = r
+        del tails, pools
+    return out
+
+
+def whisper_layers_phase(dev, model, params, params32, gpu: str) -> dict:
+    """Phase 9a: whisper-tiny's main path and its layers against the plain
+    versions on the card.
+
+    The main path, counted (the counters set to 0 just before it and read
+    just after): Model.prefill of WHISPER_PREFILL decoder tokens over
+    (batch, WHISPER_ENC_LEN, d) seeded frames through the h100 library (the
+    flash kernel n_enc_layers times non-causal over the frames, n_layers
+    times causal over the tokens and n_layers times as the cross-attention:
+    12, gated exactly), then WHISPER_DECODE_STEPS greedy bf16 decode steps
+    (the flash kernel n_layers times each, the cross-attention at Sq 1),
+    each against the torch_cpu library's step from a copy of the same state
+    (phase 2's bar: _require_logits, LOGITS_REL_L2 and the argmax verdicts);
+    the prefill too.
+
+    Then, not counted:
+    * the flash kernel against its plain version at each call of a bf16
+      and a float32 prefill (12), a decode step (4) and a first prefill
+      chunk of 64 tokens into a batch-1 donor (the encoder at (1, 6, 1500,
+      1500) and the cross-attention at Sq 64: 8), on the operands the model
+      gives it (_Compared, TOLERANCE);
+    * the float32 model at full depth on both libraries: one prefill and
+      WHISPER_DECODE_STEPS decode steps, each library on its own state,
+      every row within WHISPER_F32_REL_L2 (8 layers: no amplification to
+      stand in the way, unlike zamba2-7b's 81);
+    * whisper_paged_check: the fused paged decode and verify steps, bf16
+      (LOGITS_REL_L2) and float32 (WHISPER_F32_REL_L2)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.nn import encdec
+    from repro_torch.nn.model import build_model
+
+    cfg = model.cfg
+    plain = build_model(cfg, device=dev, target="torch_cpu")
+    b, t = WHISPER_PREFILL
+    max_len = t + WHISPER_DECODE_STEPS
+    g = torch.Generator(device=dev).manual_seed(31)
+    tokens = torch.randint(0, cfg.vocab, (b, t), generator=g, device=dev)
+    frames = torch.randn((b, WHISPER_ENC_LEN, cfg.d_model), generator=g, device=dev)
+    batch = {"tokens": tokens, "audio_embeds": frames.to(model.dtype)}
+    per_prefill = cfg.n_enc_layers + 2 * cfg.n_layers
+    out, checks = {}, {}
+
+    # the main path: prefill + decode steps through the kernels, counted
+    for fn in counters().values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, state = model.prefill(params, batch, max_len)
+    torch.cuda.synchronize()
+    out["prefill_s"] = time.perf_counter() - t0
+    out["prefill_launches"] = read_counts()
+    if out["prefill_launches"]["flash_attention"] != per_prefill \
+            or out["prefill_launches"]["paged_attention"]:
+        raise AssertionError(f"phase 9a: launches per prefill {out['prefill_launches']}, "
+                             f"want flash {per_prefill} and paged 0")
+    want, _ = plain.prefill(params, batch, max_len)
+    checks["bf16_prefill"] = _logits_check(got, want, cfg.vocab)
+    toks = got[:, :cfg.vocab].argmax(-1)
+    generated = []
+    for i in range(WHISPER_DECODE_STEPS):
+        shared = {n: x.clone() for n, x in state.items()}
+        before = read_counts()
+        got, state = model.decode_step(params, state, toks[:, None], t + i)
+        after = read_counts()
+        step = {k: after[k] - before[k] for k in after}
+        if step["flash_attention"] != cfg.n_layers or step["paged_attention"]:
+            raise AssertionError(f"phase 9a: decode step {i} launched {step}, want flash "
+                                 f"{cfg.n_layers} and paged 0")
+        want, _ = plain.decode_step(params, shared, toks[:, None], t + i)
+        checks[f"bf16_decode_{i}"] = _logits_check(got, want, cfg.vocab)
+        toks = got[:, :cfg.vocab].argmax(-1)
+        generated.append(toks.tolist())
+    out["decode_step_launches"] = step
+    if tuple(got.shape) != (b, cfg.padded_vocab):
+        raise AssertionError(f"phase 9a: decode logits {tuple(got.shape)}")
+    out["launches"] = read_counts()
+    out["greedy_tokens"] = generated
+    for name, c in checks.items():
+        _require_logits(f"phase 9a {name}, h100 vs torch_cpu library", c)
+    del state, shared
+    saved = read_counts()
+
+    # the flash kernel in context, bf16 and float32: a prefill, a decode
+    # step and a first prefill chunk, call by call
+    cfg32 = cfg.replace(dtype="float32")
+    m32 = build_model(cfg32, device=dev)
+    calls = {}
+    for label, m, p in (("bf16", model, params), ("f32", m32, params32)):
+        fr = frames.to(m.dtype)
+        compared = _Compared(m.tsl, {"flash_attention": flash_ref.attention},
+                             f"phase 9a {label}")
+        _, st = encdec.encdec_prefill(compared, p, tokens, cfg, audio_embeds=fr,
+                                      max_len=max_len)
+        encdec.encdec_decode_step(compared, p, st, tokens[:, :1], t, cfg)
+        donor = m.init_decode_state(1, max_len, enc_len=WHISPER_ENC_LEN)
+        encdec.encdec_prefill_chunk(compared, p, donor, tokens[:1], 0, cfg,
+                                    audio_embeds=fr[:1])
+        calls[label] = _worst(compared.results)
+        want_calls = per_prefill + cfg.n_layers + cfg.n_enc_layers + cfg.n_layers
+        if calls[label]["calls"] != want_calls:
+            raise AssertionError(f"phase 9a {label}: {calls[label]['calls']} flash calls "
+                                 f"compared, want {want_calls}")
+        del st, donor
+    out["flash_calls_vs_plain"] = calls
+
+    # float32 at full depth: prefill and decode steps, each library on its
+    # own state
+    pc = build_model(cfg32, device=dev, target="torch_cpu")
+    batch32 = {"tokens": tokens, "audio_embeds": frames}
+    got, st = m32.prefill(params32, batch32, max_len)
+    want, pst = pc.prefill(params32, batch32, max_len)
+    checks["f32_prefill"] = _logits_check(got, want, cfg.vocab)
+    toks = got[:, :cfg.vocab].argmax(-1)
+    for i in range(WHISPER_DECODE_STEPS):
+        got, st = m32.decode_step(params32, st, toks[:, None], t + i)
+        want, pst = pc.decode_step(params32, pst, toks[:, None], t + i)
+        checks[f"f32_decode_{i}"] = _logits_check(got, want, cfg.vocab)
+        toks = got[:, :cfg.vocab].argmax(-1)
+    del st, pst
+    for name, c in checks.items():
+        if name.startswith("f32"):
+            _require_logits(f"phase 9a whisper {name}, h100 vs torch_cpu library", c,
+                            rel_l2=WHISPER_F32_REL_L2)
+    out["logits"] = checks
+    out["paged"] = whisper_paged_check(dev, [("bf16", model, params, LOGITS_REL_L2),
+                                             ("f32", m32, params32, WHISPER_F32_REL_L2)],
+                                       frames)
+    torch.cuda.empty_cache()
+    for name, fn in counters().items():      # kernel vs plain: not a main path
+        fn.launches = saved[name]
+
+    def worst(prefix):
+        return max(c["logits_rel_l2"] for n, c in checks.items() if n.startswith(prefix))
+
+    pg = out["paged"]
+    print(f"[phase9a] {WHISPER_ARCH} prefill {WHISPER_PREFILL} over {WHISPER_ENC_LEN} frames "
+          f"({out['prefill_s']:.3f} s, first call) + {WHISPER_DECODE_STEPS} decode steps on "
+          f"{gpu}: launches per prefill {out['prefill_launches']}, per decode step "
+          f"{out['decode_step_launches']}, main path {out['launches']}; bf16 h100 vs torch_cpu "
+          f"rel L2 prefill {checks['bf16_prefill']['logits_rel_l2']:.3g}, decode steps worst "
+          f"{worst('bf16_decode'):.3g} (bound {LOGITS_REL_L2}, argmax verdicts), failed "
+          f"argmax rows none; float32 worst rel L2 {worst('f32'):.3g} (bound "
+          f"{WHISPER_F32_REL_L2}); flash kernel vs plain at each call of a prefill, a decode "
+          f"step and a first chunk: {json.dumps(calls)}; fused paged steps, paged and flash "
+          f"calls vs plain: bf16 {json.dumps(pg['bf16']['kernel_calls_vs_plain'])}, float32 "
+          f"{json.dumps(pg['f32']['kernel_calls_vs_plain'])}, whole step kernel vs plain rel "
+          f"L2 bf16 decode {pg['bf16']['decode']['logits_rel_l2']:.3g}, verify "
+          f"{pg['bf16']['verify']['logits_rel_l2']:.3g}, float32 decode "
+          f"{pg['f32']['decode']['logits_rel_l2']:.3g}, verify "
+          f"{pg['f32']['verify']['logits_rel_l2']:.3g}; {json.dumps(checks)}; paged "
+          f"{json.dumps(pg)}", flush=True)
+    return out
+
+
+def whisper_first_difference(dev, cfg, params, requests, lane: dict, paged: dict,
+                             differ: dict, n: int = 4) -> dict:
+    """The argmax verdict at the first token where a fused paged request's
+    output parts from lane mode's, for the ``n`` earliest partings: the
+    request replayed at batch 1 through the h100 library in lane mode (the
+    plain decode attention, as lane mode's) on the common history, and the
+    plain gap between lane mode's token and the paged run's at that step
+    against TIE_ULPS bf16 ulps at the row's largest |logit| (argmax_verdicts'
+    tau). Information: the replay's roundings (batch 1, whole-prompt
+    prefill) are not the serve's."""
+    import torch
+
+    from repro_torch.nn.model import build_model
+
+    model = build_model(cfg, device=dev)
+    by_rid = {r.rid: r for r in requests}
+    out = {}
+    for rid, j in sorted(differ.items(), key=lambda kv: kv[1])[:n]:
+        r = by_rid[rid]
+        batch = {"tokens": torch.as_tensor(r.tokens, device=dev).long()[None],
+                 "audio_embeds": torch.as_tensor(r.embeds, device=dev)[None].to(model.dtype)}
+        logits, st = model.prefill(params, batch, WHISPER_PROMPT + WHISPER_GEN)
+        for i in range(j):
+            tok = torch.tensor([[lane[rid][i]]], device=dev)
+            logits, st = model.decode_step(params, st, tok, WHISPER_PROMPT + i)
+        row = logits.float()[0, :cfg.vocab]
+        gap = (row[lane[rid][j]] - row[paged[rid][j]]).item()
+        tau = TIE_ULPS * bf16_ulp(row.abs().max().item())
+        out[rid] = {"token": j, "lane": lane[rid][j], "paged": paged[rid][j],
+                    "replay_argmax": int(row.argmax()), "plain_gap": gap, "tau": tau,
+                    "verdict": "within a tie" if abs(gap) <= tau else "beyond a tie"}
+    return out
+
+
+def whisper_serve_phase(dev, params, gpu: str) -> dict:
+    """Phases 9b-9d: whisper-tiny served at full width with enc_len
+    WHISPER_ENC_LEN, each serve a paired_serve (captured and eager: equal
+    outputs, counters and launches; both sides untraced) under
+    whisper_launch_check, the counters set to 0 just before each pair and
+    read just after it.
+    9b lane mode: WHISPER_REQUESTS requests of WHISPER_PROMPT tokens over
+       their own seeded frames, WHISPER_GEN generated (256 rows of Whisper's
+       448-token decoder context), WHISPER_BATCH slots, chunks of
+       WHISPER_CHUNK: the first chunk's captured step runs the encoder.
+    9c fused paged mode (page and chunk WHISPER_PAGE) on
+       whisper_paged_requests: the cross K/V tails in the slot table, the
+       self-attention off the pools (n_layers paged launches a decode step);
+       the 16 repeats hit the prefix store (plus one hit a preemption's
+       continuation) and the 16 firsts and twins of other frames miss,
+       exactly. Against a lane-mode run of the same requests: every first
+       token equal (prefill is the same code in both; a prefix hit restores
+       its rows and cross K/V bit for bit), the rest printed (lane mode
+       attends by the plain decode attention, paged by the kernel: bf16
+       roundings may flip a near-tied argmax, which the per-call gates of 9a
+       bound; whisper_first_difference prints the argmax verdict where the
+       earliest four part), and so is the sameness of each clip transcribed
+       twice.
+    9d the n-gram drafter at fixed depth SPEC_K on SPEC_DRAFT_REQUESTS of
+       phase 3e(ii)'s pattern prompts over seeded frames, fused paged: verify
+       steps run, their cross-attention the flash kernel at Sq SPEC_K + 1."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve import PagedConfig, Request, ServeEngine, SpeculationConfig
+
+    cfg = get_config(WHISPER_ARCH)
+    kw = dict(batch=WHISPER_BATCH, max_len=WHISPER_PROMPT + WHISPER_GEN, device=dev,
+              params=params, enc_len=WHISPER_ENC_LEN)
+    out = {}
+
+    def check(n_req, fused, gen=WHISPER_GEN, spec=False):
+        def run_check(report, launched):
+            problems = []
+            if report["target"] != "h100":
+                problems.append(f"served with target {report['target']!r}")
+            if report["requests"] != n_req or report["refused"]:
+                problems.append(f"{report['requests']} of {n_req} answered, refused "
+                                f"{report['refused']}")
+            short = {r: len(t) for r, t in report["outputs"].items() if len(t) != gen}
+            if short or len(report["outputs"]) != n_req:
+                problems.append(f"requests without {gen} tokens: {short}")
+            if spec and not report["spec"]["verify_steps"]:
+                problems.append("no verify step ran")
+            if fused:
+                # more requests than slots park, and activate by a tail restore
+                paged = report["paged"]
+                parked = n_req > WHISPER_BATCH
+                if not paged["fused"] or paged["lane_activations"] or \
+                        parked != (paged["tail_restores"] > 0):
+                    problems.append(f"paged: fused {paged['fused']}, lane activations "
+                                    f"{paged['lane_activations']}, tail restores "
+                                    f"{paged['tail_restores']}")
+            return problems + whisper_launch_check(cfg, launched, report, fused=fused)
+        return run_check
+
+    def serve(tag, name, run, run_check, graphs_first):
+        for fn in counters().values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        pair = paired_serve(tag, name, gpu, run, run_check, graphs_first, trace=())
+        pair["launches"] = read_counts()
+        pair["seconds"] = time.perf_counter() - t0
+        return pair
+
+    out["9b"] = serve("phase9b", f"lane serve {WHISPER_ARCH}, enc_len {WHISPER_ENC_LEN}",
+                      lambda: ServeEngine(cfg, prefill_chunk=WHISPER_CHUNK, **kw).run(
+                          whisper_requests(cfg.vocab, cfg.d_model, Request,
+                                           WHISPER_REQUESTS)),
+                      check(WHISPER_REQUESTS, fused=False), True)
+    jit = out["9b"]["graphs"]["jit_cache"]
+    if jit != {"prefill_chunk": 1 + (WHISPER_PROMPT > WHISPER_CHUNK), "decode": 1}:
+        raise AssertionError(f"phase 9b: the graphs run captured {jit}")
+    steps = out["9b"]["report"]["step_log"]
+    print(f"[phase9b] lane serve {WHISPER_ARCH} on {gpu}: decode steps "
+          f"{sum(e['decoded'] > 0 for e in steps)}, prefill chunks "
+          f"{sum(e['chunks'] for e in steps)}, jit_cache {jit}, launches of the pair "
+          f"{out['9b']['launches']}; phase {out['9b']['seconds']:.1f} s", flush=True)
+
+    paged_kw = dict(kw, prefill_chunk=WHISPER_PAGED_CHUNK)
+
+    def requests():
+        return whisper_paged_requests(cfg.vocab, cfg.d_model, Request)
+
+    out["9c"] = serve("phase9c", f"fused paged serve {WHISPER_ARCH}",
+                      lambda: ServeEngine(cfg, paged=PagedConfig(page_size=WHISPER_PAGE),
+                                          **paged_kw).run(requests()),
+                      check(WHISPER_PAGED_REQUESTS, fused=True), False)
+    t0 = time.perf_counter()
+    report = out["9c"]["report"]
+    pg = report["paged"]
+    n_miss = WHISPER_PAGED_REQUESTS // 2
+    if pg["prefix_misses"] != n_miss or \
+            pg["prefix_hits"] != WHISPER_PAGED_REQUESTS - n_miss + pg["preemptions"]:
+        raise AssertionError(f"phase 9c: {pg['prefix_hits']} prefix hits and "
+                             f"{pg['prefix_misses']} misses with {pg['preemptions']} "
+                             f"preemptions, want {WHISPER_PAGED_REQUESTS - n_miss} + "
+                             f"preemptions and {n_miss}")
+    lane = ServeEngine(cfg, **paged_kw).run(requests())
+    outs = report["outputs"]
+    firsts = [r for r in outs if outs[r][0] != lane["outputs"][r][0]]
+    if firsts:
+        raise AssertionError(f"phase 9c: first tokens differ from lane mode's for {firsts}")
+    differ = {r: next(i for i, (x, y) in enumerate(zip(lane["outputs"][r], toks)) if x != y)
+              for r, toks in outs.items() if toks != lane["outputs"][r]}
+    verdicts = whisper_first_difference(dev, cfg, params, requests(), lane["outputs"], outs,
+                                        differ)
+    twins = {r[:-1] for r in outs if r.endswith("2")}
+    same_twice = sum(outs[f"{r}"] == outs[f"{r}2"] for r in twins)
+    other_frames = sum(outs[r[:-1] + "a"] != outs[r[:-1] + "b"] for r in outs
+                       if r.endswith("a"))
+    out["9c"].update(lane_decode_tokens_per_s=lane["decode_tokens_per_s"],
+                     share_equal_to_lane=1 - len(differ) / WHISPER_PAGED_REQUESTS,
+                     first_differing_token=differ, first_difference_verdicts=verdicts,
+                     clips_equal_twice=same_twice,
+                     twins_of_other_frames_differing=other_frames)
+    out["9c"]["seconds"] += time.perf_counter() - t0
+    print(f"[phase9c] fused paged serve {WHISPER_ARCH} on {gpu}: prefix hits "
+          f"{pg['prefix_hits']}, misses {pg['prefix_misses']}, preemptions "
+          f"{pg['preemptions']}; first tokens of all {WHISPER_PAGED_REQUESTS} equal a "
+          f"lane-mode run's; whole outputs equal for "
+          f"{WHISPER_PAGED_REQUESTS - len(differ)}/{WHISPER_PAGED_REQUESTS} (information; "
+          f"first differing token of the others {differ}; the argmax verdict there, "
+          f"replayed at batch 1 through the plain decode attention: {json.dumps(verdicts)}); "
+          f"clips transcribed twice with "
+          f"equal outputs {same_twice}/{len(twins)}, twins of other frames with other "
+          f"outputs {other_frames}/{len(twins) // 2}; lane {lane['decode_tokens_per_s']:.1f} "
+          f"tokens/s; paged {json.dumps(pg)}; launches of the pair {out['9c']['launches']}; "
+          f"phase {out['9c']['seconds']:.1f} s", flush=True)
+
+    def spec_reqs():
+        reqs = spec_requests(cfg.vocab, Request, SPEC_DRAFT_REQUESTS)
+        frames = whisper_frames(np.random.default_rng(45), len(reqs), cfg.d_model)
+        for r, f in zip(reqs, frames):
+            r.embeds = f
+        return reqs
+
+    spec_kw = dict(kw, max_len=SPEC_PROMPT + PAGED_GEN, prefill_chunk=PAGED_CHUNK)
+    out["9d"] = serve("phase9d", f"speculative fused paged serve {WHISPER_ARCH}, n-gram "
+                      f"depth {SPEC_K}",
+                      lambda: ServeEngine(cfg, paged=PagedConfig(page_size=WHISPER_PAGE),
+                                          speculation=SpeculationConfig(fixed_k=SPEC_K),
+                                          **spec_kw).run(spec_reqs()),
+                      check(SPEC_DRAFT_REQUESTS, fused=True, gen=PAGED_GEN, spec=True), True)
+    jit = out["9d"]["graphs"]["jit_cache"]
+    if jit.get("verify", 0) <= 0:
+        raise AssertionError(f"phase 9d: the graphs run captured no verify step: {jit}")
+    spec = out["9d"]["report"]["spec"]
+    out["9d"]["spec"] = {k: spec[k] for k in ("verify_steps", "decode_steps", "drafted_tokens",
+                                              "accepted_tokens", "accepted_rate",
+                                              "mean_accepted_span")}
+    print(f"[phase9d] speculative fused paged serve {WHISPER_ARCH} on {gpu}: "
+          f"{json.dumps(out['9d']['spec'])}, jit_cache {jit}; launches of the pair "
+          f"{out['9d']['launches']}; phase {out['9d']['seconds']:.1f} s", flush=True)
+    for r in out.values():
+        r.pop("report")
+    return out
+
+
+def whisper_profile_phase(dev, model, params, gpu: str) -> dict:
+    """Phase 4's step table for whisper-tiny (run in phase 9, where its model
+    lives), through the engine's step code (serve/graphs.py) at batch
+    WHISPER_BATCH and position PROFILE_FILL, cross K/V of WHISPER_ENC_LEN
+    rows, captured and eager, by _profile: the lane decode step and the
+    fused paged decode step (page WHISPER_PAGE). Not a main path: its
+    launches are not counted."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import StepGraphs, disable_graphs
+    from repro_torch.serve.graphs import run_model_step
+
+    cfg = model.cfg
+    rng = np.random.default_rng(42)
+    state = model.init_decode_state(WHISPER_BATCH, PROFILE_FILL + PROFILE_GEN,
+                                    enc_len=WHISPER_ENC_LEN)
+    for leaf in state.values():
+        leaf.normal_(generator=torch.Generator(device=dev).manual_seed(44))
+    tokens = rng.integers(0, cfg.vocab, (WHISPER_BATCH, 1))
+    pos = np.full(WHISPER_BATCH, PROFILE_FILL, np.int64)
+    frames = torch.randn((WHISPER_BATCH, WHISPER_ENC_LEN, cfg.d_model),
+                         generator=torch.Generator(device=dev).manual_seed(46), device=dev)
+    lane, fused = StepGraphs(dev), StepGraphs(dev)
+    out = {}
+    with torch.inference_mode():
+        tails, pools, tables = paged_state(
+            dev, model, params, WHISPER_BATCH, PROFILE_FILL, seed=47,
+            max_len=PROFILE_FILL + PROFILE_GEN, page=WHISPER_PAGE,
+            extra={"audio_embeds": frames.to(model.dtype)})
+        tables = tables.cpu().numpy()
+        steps = {"whisper_decode_step": lambda: run_model_step(lane, "decode", model, params,
+                                                               state, tokens, pos),
+                 "whisper_decode_step_paged": lambda: run_model_step(
+                     fused, "decode", model, params, tails, tokens, pos, pools=pools,
+                     tables=tables)}
+        for kind, fn in steps.items():
+            def eager(fn=fn):
+                with disable_graphs():
+                    return fn()
+            out[kind] = {"batch": WHISPER_BATCH, "pos": PROFILE_FILL,
+                         "enc_len": WHISPER_ENC_LEN,
+                         "captured": _profile(fn, host_top=False),
+                         "eager": _profile(eager, host_top=False)}
+    out["jit_cache"] = {"lane": lane.sizes(("decode",)), "fused": fused.sizes(("decode",))}
+    for kind in steps:
+        c, e = out[kind]["captured"], out[kind]["eager"]
+        print(f"[phase4] {kind} ({WHISPER_ARCH}) on {gpu}, captured vs eager: host wall "
+              f"{c['wall_ms']:.3f} vs {e['wall_ms']:.3f} ms, device busy "
+              f"{c['device_busy_ms']} vs {e['device_busy_ms']} ms, idle share "
+              f"{c.get('device_idle_share')} vs {e.get('device_idle_share')}, kernels per "
+              f"step {c['launches']} vs {e['launches']}; top kernels (captured) "
+              f"{json.dumps(c.get('top_kernels_ms'))}", flush=True)
+    return out
+
+
+def whisper_phase(dev, gpu: str) -> dict:
+    """Phase 9: whisper-tiny at full width (4 encoder and 4 decoder layers,
+    d 384, 6 heads of 64, d_ff 1536, vocab 51865 padded to 51968,
+    layernorm, gelu, bf16) over WHISPER_ENC_LEN frames, seeded weights from
+    the port's init on the card: 9a the main path and the layers, 9b-9d
+    serving, and its rows of phase 4's step table."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.nn.model import EncDecModel, build_model
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    cfg = get_config(WHISPER_ARCH)
+    model = build_model(cfg, device=dev)
+    assert isinstance(model, EncDecModel) and model.lib.TARGET_NAME == "h100"
+    params = model.init(0)
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    one = model.init_decode_state(1, 1, enc_len=WHISPER_ENC_LEN)
+    cross_slot = sum(t.numel() * t.element_size() for n, t in one.items()
+                     if n.startswith("cross"))
+    kv_token = sum(t.numel() * t.element_size() for n, t in one.items() if n in ("k", "v"))
+    print(f"[phase9] {WHISPER_ARCH} on {gpu}: {n_params / 1e6:.3f}M params "
+          f"({sum(t.numel() * t.element_size() for t in leaves) / 1e6:.2f} MB; the "
+          f"reference's param_count {cfg.param_count() / 1e6:.3f}M), a decode-state slot "
+          f"{cross_slot / 1e6:.3f} MB of cross K/V at enc_len {WHISPER_ENC_LEN} + "
+          f"{kv_token / 1e3:.3f} KB of self K/V a token; init "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    out = {"params": n_params, "cross_slot_bytes": cross_slot, "kv_token_bytes": kv_token}
+    t0 = time.perf_counter()
+    params32 = tree_map(lambda x: x.float(), params)
+    with torch.inference_mode():
+        out["9a"] = whisper_layers_phase(dev, model, params, params32, gpu)
+    del params32
+    out["9a"]["seconds"] = time.perf_counter() - t0
+    out.update(whisper_serve_phase(dev, params, gpu))
+    t0 = time.perf_counter()
+    saved = read_counts()
+    out["phase4"] = whisper_profile_phase(dev, model, params, gpu)
+    for name, fn in counters().items():
+        fn.launches = saved[name]
+    out["phase4"]["seconds"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[phase9] {WHISPER_ARCH} done on {gpu}: phase {out['seconds']:.1f} s (9a "
+          f"{out['9a']['seconds']:.1f}, 9b {out['9b']['seconds']:.1f}, 9c "
+          f"{out['9c']['seconds']:.1f}, 9d {out['9d']['seconds']:.1f}, phase 4's rows "
           f"{out['phase4']['seconds']:.1f})", flush=True)
     return out
 
@@ -4311,30 +4984,39 @@ def main() -> int:
     print(gpu, flush=True)
     dev = resolve_device("cuda")
 
-    kernels = kernel_phase(dev)
+    # each phase's seconds of command time, printed on the [done] line
+    phase_s: dict[str, float] = {}
+
+    def timed(name: str, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        phase_s[name] = round(time.perf_counter() - t0, 1)
+        return result
+
+    kernels = timed("1", kernel_phase, dev)
     for fn in counters().values():
         fn.launches = 0
-    model, lm, params = model_phase(dev, gpu)
-    serve = serve_phase(gpu)
+    model, lm, params = timed("2", model_phase, dev, gpu)
+    serve = timed("3", serve_phase, gpu)
     counts = read_counts()
-    paged = paged_serve_phase(dev, params, gpu)
+    paged = timed("3b", paged_serve_phase, dev, params, gpu)
     for fn in counters().values():
         fn.launches = 0
-    spec = spec_serve_phase(dev, params, gpu, paged["outputs"])
+    spec = timed("3e", spec_serve_phase, dev, params, gpu, paged["outputs"])
     spec["launches"] = read_counts()
     for fn in counters().values():
         fn.launches = 0
-    int8 = int8_serve_phase(dev, lm, params, gpu, paged)
+    int8 = timed("3f", int8_serve_phase, dev, lm, params, gpu, paged)
     int8["launches"] = read_counts()
-    long = long_context_phase(dev, params, gpu)
-    stream = stream_phase(dev, params, gpu)
+    long = timed("3g", long_context_phase, dev, params, gpu)
+    stream = timed("3h", stream_phase, dev, params, gpu)
     for fn in counters().values():
         fn.launches = 0
-    app = app_phase(dev, gpu)
+    app = timed("3c", app_phase, dev, gpu)
     app["launches"] = read_counts()
     for fn in counters().values():
         fn.launches = 0
-    suite = suite_phase(gpu)
+    suite = timed("3d", suite_phase, gpu)
     suite["launches"] = read_counts()
     path_of = {"paged_attention": paged["launches"], "range_count": app["launches"],
                "hadd": app["launches"], "to_integral": app["launches"],
@@ -4353,11 +5035,11 @@ def main() -> int:
             row["launches_phase3g"] = long["launches"]["paged_attention"]
             row["launches_phase3h"] = stream["launches"]["paged_attention"]
     saved = read_counts()
-    profile_phase(dev, lm, params, gpu)
-    multi_split_phase(dev, lm, params, gpu)
+    timed("4", profile_phase, dev, lm, params, gpu)
+    timed("4b", multi_split_phase, dev, lm, params, gpu)
     for name, fn in counters().items():       # measurements, not a main path
         fn.launches = saved[name]
-    train = train_phase(dev, gpu)
+    train = timed("5a-5c", train_phase, dev, gpu)
     sources = {"flash_attention_fwd_lse": ("flash_attention.cu", "kernel.py:197"),
                "flash_attention_bwd_dq": ("flash_attention_bwd.cu", "kernel.py:300"),
                "flash_attention_bwd_dkv": ("flash_attention_bwd.cu", "kernel.py:333")}
@@ -4379,8 +5061,8 @@ def main() -> int:
     for row in kernels:
         if row["name"] in train["kernel_cases"]["plain_backward_ms"]:
             row["plain_backward_ms"] = train["kernel_cases"]["plain_backward_ms"][row["name"]]
-    compiled = compiled_train_phase(dev, gpu)
-    cli = train_cli_phase(dev, gpu)
+    compiled = timed("5d", compiled_train_phase, dev, gpu)
+    cli = timed("6", train_cli_phase, dev, gpu)
     for row in kernels:           # the training kernels: launches on every train path
         if row["name"] in cli["launches_per_step"]["6a uninterrupted"]:
             row["launches_phase5c"] = train["launches"][row["name"]]
@@ -4393,7 +5075,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[phase7] before: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
           f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved", flush=True)
-    rwkv = rwkv_phase(dev, gpu)
+    rwkv = timed("7", rwkv_phase, dev, gpu)
     for row in kernels:           # rmsnorm (ln_x) on each rwkv serving path
         if row["name"] == "rmsnorm":
             for part in ("7b", "7c", "7d"):
@@ -4404,13 +5086,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[phase8] before: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
           f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved", flush=True)
-    zamba = zamba_phase(dev, gpu)
-    # each phase-8 path's launches: 8a the main path (prefill + decode
-    # steps), 8b-8d each serve's pair
-    paths = {"8a": zamba["8a"]["launches"],
-             **{part: zamba[part]["launches"] for part in ("8b", "8c", "8d")}}
-    want = {"rmsnorm": ("8a", "8b", "8c", "8d"), "flash_attention": ("8a",),
-            "paged_attention": ("8c", "8d")}
+    zamba = timed("8", zamba_phase, dev, gpu)
+    # phase 9 holds whisper-tiny's weights: zamba2-7b's go first
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[phase9] before: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved", flush=True)
+    whisper = timed("9", whisper_phase, dev, gpu)
+    # each phase-8 and phase-9 path's launches: 8a and 9a the main path
+    # (prefill + decode steps), 8b-8d and 9b-9d each serve's pair
+    paths = {"8a": zamba["8a"]["launches"], "9a": whisper["9a"]["launches"],
+             **{part: zamba[part]["launches"] for part in ("8b", "8c", "8d")},
+             **{part: whisper[part]["launches"] for part in ("9b", "9c", "9d")}}
+    want = {"rmsnorm": ("8a", "8b", "8c", "8d"),
+            "flash_attention": ("8a", "9a", "9b", "9c", "9d"),
+            "paged_attention": ("8c", "8d", "9c", "9d")}
     for row in kernels:
         for part in want.get(row["name"], ()):
             row[f"launches_phase{part}"] = paths[part][row["name"]]
@@ -4438,8 +5128,10 @@ def main() -> int:
           f"{ {p: rwkv[p]['launches'] for p in ('7b', '7c', '7d')} } "
           f"({rwkv['seconds']:.1f} s), {ZAMBA_ARCH} launches "
           f"{ {p: zamba[p]['launches'] for p in ('8a', '8b', '8c', '8d')} } "
-          f"({zamba['seconds']:.1f} s) on {gpu}; total "
-          f"{time.perf_counter() - t_start:.1f} s",
+          f"({zamba['seconds']:.1f} s), {WHISPER_ARCH} launches "
+          f"{ {p: whisper[p]['launches'] for p in ('9a', '9b', '9c', '9d')} } "
+          f"({whisper['seconds']:.1f} s) on {gpu}; seconds per phase "
+          f"{json.dumps(phase_s)}; total {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(gpu)
     print(json.dumps({"kernels": kernels}))

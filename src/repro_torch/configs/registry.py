@@ -6,8 +6,8 @@ import importlib
 
 from .arch import ArchConfig
 
-# the dense family, rwkv (ssm) and zamba (hybrid); the other families'
-# configs come with their port
+# the dense family, rwkv (ssm), zamba (hybrid) and whisper (audio); the
+# other families' configs come with their port
 _MODULES = {
     "yi-34b": "yi_34b",
     "mistral-large-123b": "mistral_large_123b",
@@ -15,6 +15,7 @@ _MODULES = {
     "qwen1.5-0.5b": "qwen15_05b",
     "rwkv6-7b": "rwkv6_7b",
     "zamba2-7b": "zamba2_7b",
+    "whisper-tiny": "whisper_tiny",
 }
 
 ARCH_IDS = tuple(_MODULES)

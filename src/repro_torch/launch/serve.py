@@ -9,6 +9,9 @@ is configurable). Runs on the card unless ``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --reduced --device cpu --batch 4 --prompt-len 32 --gen-len 32
+
+``--arch whisper-tiny`` serves the audio family over an encoder of
+``--prompt-len`` frames (zeros, as the reference's CLI feeds it).
 """
 
 from __future__ import annotations
@@ -65,7 +68,10 @@ def main(argv=None) -> dict:
         max_len=bucket + args.gen_len,
         sampling=SamplingConfig(temperature=args.temperature, top_k=args.top_k),
         seed=args.seed, device=args.device,
-        prefill_chunk=args.prefill_chunk, buckets=buckets)
+        prefill_chunk=args.prefill_chunk, buckets=buckets,
+        # the audio family: an encoder of prompt-len frames, each request's
+        # zeros (the reference CLI's choice, ``repro/launch/serve.py:71``)
+        enc_len=args.prompt_len if cfg.family == "audio" else None)
 
     rng = np.random.default_rng(args.seed)
     sla_s = args.sla_ms / 1e3 if args.sla_ms is not None else None

@@ -85,6 +85,34 @@ def attention_forward(tsl, p, x, cfg, *, causal: bool = True, positions=None):
     return tsl.matmul(o, p["wo"]), (k, v)
 
 
+def cross_attention_forward(tsl, p, x, k, v, cfg):
+    """Decoder cross-attention against precomputed encoder K/V (B,KH,S_enc,hd),
+    non-causal, no RoPE on either side (``repro/nn/attention.py:79``).
+    x: (B,S,D) -> (B,S,D)."""
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.hd
+    q = tsl.matmul(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    q = q.reshape(b, s, h, hd).transpose(1, 2).contiguous()
+    o = tsl.flash_attention(q, k, v, causal=False)
+    o = o.transpose(1, 2).reshape(b, s, h * hd)
+    return tsl.matmul(o, p["wo"])
+
+
+def project_kv(tsl, p, x, cfg):
+    """Encoder-side K/V projection for cross attention (``:93``): x (B,S,D)
+    -> k, v (B,KH,S,hd), contiguous heads-major."""
+    b, s, _ = x.shape
+    kh, hd = cfg.n_kv_heads, cfg.hd
+    k = tsl.matmul(x, p["wk"])
+    v = tsl.matmul(x, p["wv"])
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    return (k.reshape(b, s, kh, hd).transpose(1, 2).contiguous(),
+            v.reshape(b, s, kh, hd).transpose(1, 2).contiguous())
+
+
 def attention_prefill_chunk(tsl, p, x, k_cache, v_cache, pos, cfg):
     """Continuation prefill of one chunk into an existing cache.
 

@@ -1,9 +1,10 @@
 """Model facade (mirrors ``repro/nn/model.py``) for the dense ``lm`` family,
-the rwkv (``ssm``) family and the zamba (``hybrid``) family.
+the rwkv (``ssm``) family, the zamba (``hybrid``) family and the whisper
+(``audio``) family.
 
 ``build_model(cfg, device=...)`` returns a :class:`Model` (dense), a
-:class:`RwkvModel` or a :class:`ZambaModel` bound to the generated library
-for its device (``h100``
+:class:`RwkvModel`, a :class:`ZambaModel` or an :class:`EncDecModel` bound
+to the generated library for its device (``h100``
 kernels on the card, ``torch_cpu`` plain versions on the host; ``target=``
 overrides), with one surface:
 
@@ -14,15 +15,18 @@ overrides), with one surface:
          aux 0 for the dense family; differentiable: a train step makes the
          params leaves that require grad, serving keeps inference mode)
     prefill(params, batch, max_len) -> (last_logits (B,V), state)
-    prefill_chunk(params, state, tokens, pos, n_real=None)
+        (audio: ``batch["audio_embeds"]`` (B, enc_len, D) too)
+    prefill_chunk(params, state, tokens, pos, n_real=None[, embeds=None])
         -> (logits (B,C,V), state)
         (continuation prefill of one chunk at cache fill ``pos``, an int or
          a (B,) device tensor; ``n_real`` (int or device tensor) counts the
-         chunk's real rows, the rest trailing padding. The dense family
-         ignores it: its padding rows need no masking (nn/attention.py).
-         rwkv and zamba skip their recurrent updates exactly; rwkv ignores
-         ``pos``.
-         The reference's ``kv_len`` and ``embeds`` have no counterpart)
+         chunk's real rows, the rest trailing padding. The dense and audio
+         families ignore it: their padding rows need no masking
+         (nn/attention.py). rwkv and zamba skip their recurrent updates
+         exactly; rwkv ignores ``pos``. ``embeds``, the audio family's
+         only: the request's (B, enc_len, D) frames, which ride the FIRST
+         chunk (the encoder runs there and seeds the cross K/V), as the
+         reference's do. The reference's ``kv_len`` has no counterpart)
     decode_step(params, state, tokens_t, pos) -> (logits (B,V), state)
         (pos: int, or a (B,) tensor of per-slot positions)
     verify_step(params, state, tokens, pos) -> (logits (B,SV,V), state)
@@ -34,6 +38,7 @@ overrides), with one surface:
          rejected rows; rwkv: nothing is written; zamba: the tails are not
          written, the shared block's span rows are; see verify_commit)
     init_decode_state(batch, max_len) -> zeroed state dict
+        (audio: ``enc_len=`` sizes the cross K/V, default max_len)
     state_batch_axes(state) -> {leaf: slot axis}
     state_page_axes(state) -> {leaf: token axis | None}  (paged serving)
     decode_step_paged(params, state, pools, tables, tokens_t, pos)
@@ -62,7 +67,7 @@ Unlike the reference, state is updated IN PLACE by prefill_chunk,
 decode_step, the dense verify_step, the recurrent families' verify_commit,
 insert_slot and reset_slot (each still returns it), and the page pools by
 decode_step_paged, verify_step_paged and zamba's verify_commit_paged. rwkv
-and zamba are served, not trained: their ``loss`` raises.
+zamba and whisper are served, not trained: their ``loss`` raises.
 
 ``load_jax_params(np_tree, cfg, device)`` turns the reference's params
 (``build_model(cfg).init(PRNGKey(s))``, ``np.asarray`` per leaf) into this
@@ -81,17 +86,20 @@ from repro_torch import tsl_api
 from repro_torch.configs.arch import ArchConfig
 from repro_torch.device import resolve_device
 
-from . import lm, rwkv_lm, zamba
+from . import encdec, lm, rwkv_lm, zamba
 from .common import init_leaf
 
-# where the families that are not ported yet, and rwkv's and zamba's
-# training, stand
+# where the families that are not ported yet, and rwkv's, zamba's and
+# whisper's training, stand
 FAMILIES_TODO = "ROADMAP.md, queue 1, item 6"
 RWKV_TRAIN_TODO = "training the ssm (rwkv) family is not ported yet " \
                   "(ROADMAP.md, queue 1, item 11)"
 HYBRID_TRAIN_TODO = "training the hybrid (zamba) family is not ported yet " \
                     "(ROADMAP.md, queue 1, item 12)"
-TRAIN_TODO = {"ssm": RWKV_TRAIN_TODO, "hybrid": HYBRID_TRAIN_TODO}
+AUDIO_TRAIN_TODO = "training the audio (whisper) family is not ported yet " \
+                   "(ROADMAP.md, queue 1, item 13)"
+TRAIN_TODO = {"ssm": RWKV_TRAIN_TODO, "hybrid": HYBRID_TRAIN_TODO,
+              "audio": AUDIO_TRAIN_TODO}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -295,8 +303,61 @@ class ZambaModel(Model):
                                                tokens, pos, self.cfg, n_commit)
 
 
+class EncDecModel(Model):
+    """The whisper (``audio``) family: an encoder over precomputed frame
+    embeddings and a decoder with causal self-attention and cross-attention
+    to the encoder's K/V (``nn/encdec.py``). Its state has both kinds: the
+    self-attention caches, which page, and the per-request cross K/V, fixed
+    at ``enc_len`` rows (tails). Served in lane and fused paged mode, with
+    speculation (a KV family: the verify steps commit their own rows)."""
+
+    def init(self, seed: int = 0) -> dict:
+        return encdec.encdec_params(self.cfg, _init_make(self, seed))
+
+    def forward_logits(self, params, batch):
+        return encdec.encdec_forward(self.tsl, params, batch["tokens"], self.cfg,
+                                     audio_embeds=batch["audio_embeds"])
+
+    def loss(self, params, batch, *, remat: bool = True):
+        raise NotImplementedError(AUDIO_TRAIN_TODO)
+
+    def prefill(self, params, batch, max_len: int):
+        return encdec.encdec_prefill(self.tsl, params, batch["tokens"], self.cfg,
+                                     audio_embeds=batch["audio_embeds"], max_len=max_len)
+
+    def prefill_chunk(self, params, state, tokens, pos, n_real=None, embeds=None):
+        return encdec.encdec_prefill_chunk(self.tsl, params, state, tokens, pos, self.cfg,
+                                           audio_embeds=embeds)
+
+    def decode_step(self, params, state, tokens_t, pos):
+        return encdec.encdec_decode_step(self.tsl, params, state, tokens_t, pos, self.cfg)
+
+    def init_decode_state(self, batch: int, max_len: int, enc_len: int | None = None):
+        return encdec.init_encdec_state(self.cfg, batch, max_len,
+                                        max_len if enc_len is None else enc_len,
+                                        self.dtype, self.device)
+
+    def state_batch_axes(self, state):
+        return encdec.state_batch_axes(state)
+
+    def state_page_axes(self, state):
+        return encdec.state_page_axes(state)
+
+    def verify_step(self, params, state, tokens, pos):
+        return encdec.encdec_verify_step(self.tsl, params, state, tokens, pos, self.cfg)
+
+    def decode_step_paged(self, params, state, pools, tables, tokens_t, pos):
+        return encdec.encdec_decode_step_paged(self.tsl, params, state, pools, tables,
+                                               tokens_t, pos, self.cfg)
+
+    def verify_step_paged(self, params, state, pools, tables, tokens, pos):
+        return encdec.encdec_verify_step_paged(self.tsl, params, state, pools, tables,
+                                               tokens, pos, self.cfg)
+
+
 _FAMILIES = {"dense": (Model, lm.lm_params), "ssm": (RwkvModel, rwkv_lm.rwkv_params),
-             "hybrid": (ZambaModel, zamba.zamba_params)}
+             "hybrid": (ZambaModel, zamba.zamba_params),
+             "audio": (EncDecModel, encdec.encdec_params)}
 
 
 def _family(cfg: ArchConfig):
@@ -304,8 +365,8 @@ def _family(cfg: ArchConfig):
             cfg.family == "dense" and (cfg.act, cfg.norm) != ("swiglu", "rmsnorm")):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} ({cfg.act}, {cfg.norm}) is not "
-            f"ported yet (this port has the dense swiglu/rmsnorm lm family, rwkv "
-            f"and zamba; {FAMILIES_TODO})")
+            f"ported yet (this port has the dense swiglu/rmsnorm lm family, rwkv, "
+            f"zamba and whisper; {FAMILIES_TODO})")
     if cfg.family == "hybrid" and (cfg.attn_every <= 0 or cfg.ssm_state <= 0):
         # zamba's layout divides the layers by attn_every, and its SSD has
         # ssm_state channels: a config without either is no zamba
@@ -314,6 +375,11 @@ def _family(cfg: ArchConfig):
             f"ssm_state={cfg.ssm_state} is not ported: the hybrid family is zamba2's "
             f"layout, a shared attention block after every attn_every > 0 Mamba2 "
             f"layers of ssm_state > 0 channels")
+    if cfg.family == "audio" and (not cfg.enc_dec or cfg.n_enc_layers <= 0):
+        raise NotImplementedError(
+            f"{cfg.name}: an audio config with enc_dec={cfg.enc_dec} and "
+            f"n_enc_layers={cfg.n_enc_layers} is not ported: the audio family is "
+            f"whisper's encoder-decoder, n_enc_layers > 0 encoder layers")
     return _FAMILIES[cfg.family]
 
 
@@ -328,7 +394,8 @@ def load_jax_params(np_tree: dict, cfg: ArchConfig,
                     device: torch.device | str = "cuda") -> dict:
     """The reference's params as this port's params: the same nested dict
     and the same stacked (L, ...) leaves (zamba's grouped (G, k, ...) and
-    remainder (rem, ...) ones), copied 1:1 (no transposes), each in its own
+    remainder (rem, ...) ones; whisper's ``enc_blocks`` and ``dec_blocks``,
+    its layernorms' ``b`` leaves among them), copied 1:1 (no transposes), each in its own
     dtype (rwkv's ``w_base``, zamba's ``A_log``, ``dt_bias`` and ``D_skip``
     are float32 in a bf16 model). Raises on a missing, extra or misshaped
     leaf."""

@@ -94,6 +94,15 @@ KV in the pools, a prefill completes into pages plus a tail snapshot, a
 prefix entry holds the shared pages and the tail at its boundary (restored
 by copy), and the commit replays on the pools
 (``Model.verify_commit_paged``), as the reference does.
+
+The audio family (whisper): every state is sized by the engine's fixed
+``enc_len`` (the cross K/V rows), which the engine requires for it; a
+request's (enc_len, D) frames (``Request.embeds``, zeros when it carries
+none) ride its FIRST prefill chunk, where the encoder runs and seeds the
+cross K/V (a captured step of its own). The cross K/V are tails: fused paged
+mode keeps them in the slot table beside the self-attention pages, and the
+prefix key hashes the frames, so requests with equal tokens and other
+frames never share.
 """
 
 from __future__ import annotations
@@ -158,13 +167,22 @@ class ServeEngine:
                  buckets: tuple[int, ...] | None = None,
                  paged: PagedConfig | None = None,
                  speculation: SpeculationConfig | None = None,
-                 draft_params: dict | None = None):
+                 draft_params: dict | None = None, enc_len: int | None = None):
         """``params``: weights to serve (e.g. ``load_jax_params`` of the
         reference's); default ``model.init(seed)``. ``target`` overrides the
         library the device would select (``torch_cpu`` on the card runs the
         plain versions). ``paged`` switches on paged slot memory,
         ``speculation`` speculative decoding. ``draft_params``: the weights
-        of a ``draft_model`` drafter; default its ``init(seed + 2)``."""
+        of a ``draft_model`` drafter; default its ``init(seed + 2)``.
+        ``enc_len``: the audio family's encoder length, which every
+        request's frames are sized to (required for it, as in the
+        reference)."""
+        if cfg.family == "audio" and enc_len is None:
+            raise ValueError("audio family: pass enc_len (the fixed encoder "
+                             "length every request's frames are sized to)")
+        self.enc_len = enc_len
+        # the decode states' extra shape: the audio family's cross K/V rows
+        self._state_kw = {"enc_len": enc_len} if cfg.family == "audio" else {}
         self.cfg = cfg
         self.batch = batch
         self.max_len = max_len
@@ -210,7 +228,7 @@ class ServeEngine:
         self._act_seq = 0
         self._preempt_count = 0
         if paged is not None:
-            donor = self.model.init_decode_state(1, self._state_len)
+            donor = self.model.init_decode_state(1, self._state_len, **self._state_kw)
             shapes = {n: (tuple(t.shape), t.dtype) for n, t in donor.items()}
             self._page_axes = self.model.state_page_axes(donor)
             psize = paged.page_size or selected_page_size(self.model.tsl)
@@ -240,10 +258,11 @@ class ServeEngine:
             self.cost_model = None
         elif self._store is not None:
             self.cost_model = PagedAdmission(cfg, batch, max_len, lib=self.model.lib,
-                                             budget=self._store, policy=self.policy)
+                                             budget=self._store, policy=self.policy,
+                                             enc_len=enc_len)
         else:
             self.cost_model = CostModelAdmission(cfg, batch, max_len, lib=self.model.lib,
-                                                 policy=self.policy)
+                                                 policy=self.policy, enc_len=enc_len)
         # -- speculative decoding (draft / verify over the slot table) -------
         self._drafter = None
         self._spec_policy = None
@@ -253,7 +272,8 @@ class ServeEngine:
                                           device=self.device, target=target,
                                           params=draft_params)
             pricing = self.cost_model or CostModelAdmission(
-                cfg, batch, max_len, lib=self.model.lib, policy=self.policy)
+                cfg, batch, max_len, lib=self.model.lib, policy=self.policy,
+                enc_len=enc_len)
             if self.cost_model is not None:
                 self.cost_model.spec_k = self._k_max
             self._spec_policy = SpeculationPolicy(
@@ -300,10 +320,28 @@ class ServeEngine:
     def _chunk(self, task: _PrefillTask, seg: np.ndarray, n_real: int):
         """One continuation-prefill chunk into the task's donor; returns a
         copy of the logits row at the chunk's last REAL token, (1, V) (the
-        step's logits are overwritten by the next step)."""
+        step's logits are overwritten by the next step). The audio family's
+        first chunk carries the request's frames."""
+        embeds = self._first_chunk_embeds(task.req) if task.chunk_idx == 0 else None
         logits = run_prefill_chunk(self._graphs, self.model, self.params, task.donor, seg,
-                                   task.fill, n_real)
+                                   task.fill, n_real, embeds=embeds)
         return logits[:, max(n_real, 1) - 1].clone()
+
+    def _first_chunk_embeds(self, req: Request) -> torch.Tensor | None:
+        """The audio family's media for a FIRST chunk (``repro/serve/
+        engine.py:547-559``): the request's (1, enc_len, D) frames in the
+        model's dtype on its device, zeros when it carries none; None for
+        the other families."""
+        if self.cfg.family != "audio":
+            return None
+        shape = (1, self.enc_len, self.cfg.d_model)
+        if req.embeds is None:
+            return torch.zeros(shape, dtype=self.model.dtype, device=self.device)
+        frames = torch.as_tensor(np.asarray(req.embeds, np.float32))[None]
+        if tuple(frames.shape) != shape:
+            raise ValueError(f"request {req.rid!r}: frames {tuple(frames.shape[1:])} are "
+                             f"not (enc_len {self.enc_len}, d_model {self.cfg.d_model})")
+        return frames.to(device=self.device, dtype=self.model.dtype)
 
     def _step_kinds(self) -> tuple:
         """The compiled step kinds this engine reports (``jit_cache``)."""
@@ -315,7 +353,7 @@ class ServeEngine:
         return ("prefill_chunk", "decode", "verify") + commit
 
     def _new_donor(self) -> dict:
-        return self.model.init_decode_state(1, self._state_len)
+        return self.model.init_decode_state(1, self._state_len, **self._state_kw)
 
     def _init_state(self) -> dict:
         """The slot table, allocated at the first run and zeroed at every
@@ -326,7 +364,7 @@ class ServeEngine:
             return self._state
         # _state_len = max_len + k_max: the verify span's headroom rows;
         # admission and the overrun guards still cap real fill at max_len
-        state = self.model.init_decode_state(self.batch, self._state_len)
+        state = self.model.init_decode_state(self.batch, self._state_len, **self._state_kw)
         if self._fused:
             # fused mode keeps only the TAIL leaves in the slot table (none
             # for the dense family): the paged leaves live in the pools
@@ -373,7 +411,7 @@ class ServeEngine:
             return None, 0
         key = prefix_key(arch=self.cfg.name, page_size=self._store.page,
                          int8=self._store.int8, seed=self._seed,
-                         tokens=np.asarray(req.tokens, np.int64)[:t])
+                         tokens=np.asarray(req.tokens, np.int64)[:t], embeds=req.embeds)
         return key, t
 
     def _reserve_paged(self, sched: Scheduler, tasks: list, now, step: int) -> None:
@@ -492,7 +530,8 @@ class ServeEngine:
         sched.requeue_front(Request(
             rid=rid, tokens=np.asarray(hist[:-1], np.int64), gen_len=m.gen_len,
             sla_s=req.sla_s, arrival_s=req.arrival_s, temperature=req.temperature,
-            shared_prefix_len=req.shared_prefix_len, resume_token=int(hist[-1])))
+            shared_prefix_len=req.shared_prefix_len, resume_token=int(hist[-1]),
+            embeds=req.embeds))
         self._store.free(rid)
         self._act_stamp.pop(slot, None)
         if self._drafter is not None:

@@ -91,20 +91,31 @@ def run_model_step(graphs: StepGraphs, kind: str, model, params, state: dict,
 
 
 def run_prefill_chunk(graphs: StepGraphs, model, params, donor: dict,
-                      tokens: np.ndarray, fill: int, n_real: int) -> torch.Tensor:
+                      tokens: np.ndarray, fill: int, n_real: int,
+                      embeds: torch.Tensor | None = None) -> torch.Tensor:
     """One prefill chunk of ``model``: tokens (1, C), the first ``n_real``
     real and the rest padding, into the batch-1 ``donor`` at cache fill
     ``fill``, the donor updated in place (staged through the step's own
     donor). ``fill`` and ``n_real`` are staged (1,) device tensors, so one
-    captured chunk serves every fill and padding amount. Returns the static
-    (1, C, V) logits."""
+    captured chunk serves every fill and padding amount. ``embeds``, the
+    audio family's first chunk's (1, enc_len, D) frames on the device, runs
+    the encoder too: other shapes and other work, so a step of its own,
+    keyed apart, as the reference's jitted chunk compiles a second entry
+    for it. Returns the static (1, C, V) logits."""
     args = {"tokens": tokens, "fill": np.asarray([fill], np.int64),
             "n_real": np.asarray([n_real], np.int64), **donor}
+    key = tokens.shape[1]
+    if embeds is None:
+        def body(tokens, fill, n_real, **leaves):
+            return model.prefill_chunk(params, leaves, tokens, fill, n_real=n_real)[0]
+    else:
+        args["embeds"] = embeds
+        key = (key, "embeds")
 
-    def body(tokens, fill, n_real, **leaves):
-        return model.prefill_chunk(params, leaves, tokens, fill, n_real=n_real)[0]
-    return graphs.step("prefill_chunk", tokens.shape[1], body, args,
-                       inout=tuple(donor))(**args)
+        def body(tokens, fill, n_real, embeds, **leaves):
+            return model.prefill_chunk(params, leaves, tokens, fill, n_real=n_real,
+                                       embeds=embeds)[0]
+    return graphs.step("prefill_chunk", key, body, args, inout=tuple(donor))(**args)
 
 
 def run_commit(graphs: StepGraphs, model, params, state: dict, tokens: np.ndarray,

@@ -88,14 +88,21 @@ def selected_page_size(ops) -> int:
     return int(out.shape[0])
 
 
-def prefix_key(*, arch: str, page_size: int, int8: bool, seed: int, tokens) -> str:
-    """Content address of a shareable prefix: a sha256 digest over what
-    determines the page content — the arch and param seed, the page
-    geometry and precision (int8 and full-precision pages never share a
-    key), and the prefix token ids."""
+def prefix_key(*, arch: str, page_size: int, int8: bool, seed: int, tokens,
+               prefix_rows: int = 0, embeds=None) -> str:
+    """Content address of a shareable prefix (``repro/serve/paging.py:109``):
+    a sha256 digest over what determines the page content — the arch and
+    param seed, the page geometry and precision (int8 and full-precision
+    pages never share a key), the media prefix rows, the prefix token ids,
+    and the raw bytes of the request's media when it has any (an audio
+    request's frames: two requests with equal tokens and other frames have
+    other cross K/V, so they must never share). The reference's digest, key
+    for key."""
     h = hashlib.sha256()
-    h.update(repr((arch, int(page_size), bool(int8), int(seed))).encode())
+    h.update(repr((arch, int(page_size), bool(int8), int(seed), int(prefix_rows))).encode())
     h.update(np.ascontiguousarray(np.asarray(tokens, np.int64)).tobytes())
+    if embeds is not None:
+        h.update(np.ascontiguousarray(np.asarray(embeds, np.float32)).tobytes())
     return h.hexdigest()[:16]
 
 

@@ -119,7 +119,8 @@ class Request:
     system prompt; None lets the engine share the whole prompt minus its
     last token), and ``resume_token`` is set on a PREEMPTED continuation —
     the emitted but unconsumed token to resume with instead of sampling a
-    first one."""
+    first one. ``embeds``: the audio family's (enc_len, D) encoder frames
+    (None: zeros), which ride the first prefill chunk."""
 
     rid: str
     tokens: object                  # prompt token array (1-D, int)
@@ -130,6 +131,7 @@ class Request:
     temperature: float | None = None
     shared_prefix_len: int | None = None
     resume_token: int | None = None
+    embeds: object | None = None    # per-request media: audio (enc_len, D) frames
 
     @property
     def prompt_len(self) -> int:
@@ -170,9 +172,11 @@ class Refusal:
 
 
 # attention layers a decode step reads a cache in, per family priced: zamba
-# applies its one shared block after every attn_every Mamba2 layers
+# applies its one shared block after every attn_every Mamba2 layers; a
+# whisper decoder layer reads two, its self-attention cache and the cross K/V
 _ATTN_LAYERS = {"dense": lambda cfg: cfg.n_layers, "ssm": lambda cfg: 0,
-                "hybrid": lambda cfg: cfg.n_layers // max(cfg.attn_every, 1)}
+                "hybrid": lambda cfg: cfg.n_layers // max(cfg.attn_every, 1),
+                "audio": lambda cfg: 2 * cfg.n_layers}
 # families whose speculative commit replays the accepted prefix
 _REPLAY_COMMIT = ("ssm", "hybrid")
 
@@ -185,8 +189,11 @@ class CostModelAdmission:
                  + n_attn_layers x lib.cost("attention_decode", "bytes", ...)
       step_s     = bytes / TARGET.hbm_bw
     with n_attn_layers n_layers for the dense family, 0 for rwkv (ssm),
-    whose step is its param bytes alone, and n_layers // attn_every for
-    zamba (hybrid: 13 shared-block applications for zamba2-7b). The
+    whose step is its param bytes alone, n_layers // attn_every for
+    zamba (hybrid: 13 shared-block applications for zamba2-7b), and two a
+    decoder layer for whisper (audio: the self-attention cache at the fill,
+    the cross K/V at the fixed ``enc_len``, default the fill, as
+    ``repro/serve/scheduler.py:327-331`` prices them). The
     reference adds each family's recurrent-state term (``ssd_scan`` /
     ``wkv6_scan``) only to the collective bytes of a tensor-parallel mesh
     (``comms_bytes_per_step``), which vanish at one shard, so neither
@@ -212,13 +219,14 @@ class CostModelAdmission:
     """
 
     def __init__(self, cfg, batch: int, max_len: int, *, lib,
-                 policy: BucketPolicy | None = None):
+                 policy: BucketPolicy | None = None, enc_len: int | None = None):
         if cfg.family not in _ATTN_LAYERS:
-            raise NotImplementedError(f"admission prices the dense, ssm and hybrid "
-                                      f"families only, not {cfg.family!r}")
+            raise NotImplementedError(f"admission prices the dense, ssm, hybrid and "
+                                      f"audio families only, not {cfg.family!r}")
         self.cfg = cfg
         self.batch = batch
         self.max_len = max_len
+        self.enc_len = enc_len          # audio: the fixed cross K/V length
         self.lib = lib
         self.policy = policy            # None -> exact-length admission
         self.param_bytes = cfg.param_count() * self._dtype_bytes()
@@ -234,17 +242,31 @@ class CostModelAdmission:
     def _dtype_bytes(self) -> int:
         return 2 if "16" in self.cfg.dtype else 4
 
+    def _attn_bytes(self, prim: str, s: int, **shape) -> float:
+        """Every attention layer's bytes of one step over the slot table
+        (UPD cost channel, ``prim`` at cache fill ``s``): a whisper decoder
+        layer reads its cache at ``s`` and its cross K/V at ``enc_len``.
+        The UPD bytes formulas follow the bf16 convention (2 B/elem):
+        rescaled to the serving dtype, as the params are priced."""
+        cfg = self.cfg
+
+        def per_layer(s_: int) -> float:
+            return self.lib.cost(prim, "bytes", B=self.batch, H=cfg.n_heads,
+                                 KH=cfg.n_kv_heads, S=s_, D=cfg.hd, **shape)
+
+        if cfg.family == "audio":
+            enc = self.enc_len if self.enc_len is not None else s
+            raw = cfg.n_layers * (per_layer(s) + per_layer(enc))
+        else:
+            raw = self._attn_layers * per_layer(s)
+        return raw * (self._dtype_bytes() / 2.0)
+
     def decode_bytes_per_step(self, s: int | None = None) -> float:
         """Bytes one full-slot-table decode step moves (UPD cost channel).
         ``s`` is the cache fill to charge attention reads at; defaults to
         the slot table's max_len (steady-state worst case)."""
-        cfg = self.cfg
-        raw = self.lib.cost("attention_decode", "bytes", B=self.batch,
-                            H=cfg.n_heads, KH=cfg.n_kv_heads,
-                            S=self.max_len if s is None else s, D=cfg.hd)
-        # UPD bytes formulas follow the bf16 convention (2 B/elem): rescale
-        # to the serving dtype so both terms use the same element size
-        return self.param_bytes + self._attn_layers * raw * (self._dtype_bytes() / 2.0)
+        return self.param_bytes + self._attn_bytes(
+            "attention_decode", self.max_len if s is None else s)
 
     def step_seconds(self, s: int | None = None) -> float:
         if s is not None:
@@ -262,12 +284,9 @@ class CostModelAdmission:
         prefix through the chunked-prefill path, modeled as a factor of 2.
         The price the speculation policy weighs against expected accepted
         tokens."""
-        cfg = self.cfg
-        raw = self.lib.cost("attention_verify", "bytes", B=self.batch, H=cfg.n_heads,
-                            KH=cfg.n_kv_heads, SV=int(k) + 1,
-                            S=self.max_len if s is None else s, D=cfg.hd)
-        attn = self._attn_layers * raw * (self._dtype_bytes() / 2.0)
-        commit_factor = 2.0 if cfg.family in _REPLAY_COMMIT else 1.0
+        attn = self._attn_bytes("attention_verify", self.max_len if s is None else s,
+                                SV=int(k) + 1)
+        commit_factor = 2.0 if self.cfg.family in _REPLAY_COMMIT else 1.0
         return (self.param_bytes + attn) / self.hbm_bw * commit_factor
 
     def emit_seconds_per_token(self, s: int | None = None) -> float:
@@ -340,8 +359,8 @@ class PagedAdmission(CostModelAdmission):
     re-prefill prompt."""
 
     def __init__(self, cfg, batch: int, max_len: int, *, lib, budget,
-                 policy: BucketPolicy | None = None):
-        super().__init__(cfg, batch, max_len, lib=lib, policy=policy)
+                 policy: BucketPolicy | None = None, enc_len: int | None = None):
+        super().__init__(cfg, batch, max_len, lib=lib, policy=policy, enc_len=enc_len)
         self.budget = budget
 
     def admit(self, req: Request, now_s: float) -> tuple[bool, str]:

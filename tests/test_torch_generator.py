@@ -37,7 +37,9 @@ SLICE_PRIMITIVES = ("load", "set1", "embed_lookup", "cache_update", "matmul", "r
                     # the rwkv family
                     "token_shift", "wkv6_scan", "wkv6_decode", "silu", "sigmoid",
                     # the zamba family
-                    "causal_conv1d", "ssd_scan", "ssd_chunked", "ssd_decode")
+                    "causal_conv1d", "ssd_scan", "ssd_chunked", "ssd_decode",
+                    # the whisper family
+                    "gelu")
 KERNEL_MODULES = {"rmsnorm": "repro_torch.kernels.rmsnorm.ops",
                   "swiglu": "repro_torch.kernels.swiglu.ops",
                   "flash_attention": "repro_torch.kernels.flash_attention.ops",
@@ -220,7 +222,7 @@ def _args(prim, rng):
                 _rand(rng, 1, 4, 9, 8)), {"causal": True}
     if prim == "token_shift":
         return (_rand(rng, 2, 5, 6), _rand(rng, 6, lo=0, hi=1)), {}
-    if prim in ("silu", "sigmoid"):
+    if prim in ("silu", "sigmoid", "gelu"):
         return (_rand(rng, 6, 19, lo=-4, hi=4),), {}
     if prim in ("wkv6_scan", "wkv6_decode"):
         lead = (2, 9) if prim == "wkv6_scan" else (2,)

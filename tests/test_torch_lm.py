@@ -162,8 +162,14 @@ def test_every_registered_arch_matches_the_reference(arch):
     model = build_model(cfg, device="cpu")
     params = load_jax_params(jax.tree.map(np.asarray, jparams), cfg, "cpu")
     toks = _prompt(cfg, 2, 10, 3)
-    want = jmodel.forward_logits(jparams, {"tokens": jnp.asarray(toks)})
-    got = model.forward_logits(params, {"tokens": torch.from_numpy(toks)})
+    jbatch, batch = {"tokens": jnp.asarray(toks)}, {"tokens": torch.from_numpy(toks)}
+    if cfg.family == "audio":
+        # the encoder's seeded frames (the conv frontend is a stub in both)
+        frames = np.random.default_rng(4).standard_normal((2, 12, cfg.d_model))
+        jbatch["audio_embeds"] = jnp.asarray(frames, jnp.float32)
+        batch["audio_embeds"] = torch.from_numpy(frames.astype(np.float32))
+    want = jmodel.forward_logits(jparams, jbatch)
+    got = model.forward_logits(params, batch)
     _close(got, want)
 
 
