@@ -319,6 +319,66 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    verify step (the cross-attention), the paged kernel 4 times a fused
    decode or verify step, rmsnorm and swiglu never. Phase 4's whisper rows:
    the lane and the fused paged decode step, captured vs eager.
+10. internvl2-2b (the vlm family) at full width (24 layers, d 2048, 16
+   heads of 128 over 8 KV heads, d_ff 8192, vocab 92553 padded to 92672,
+   bf16), seeded weights from the port's init on the card, VLM_PREFIX (256)
+   seeded vision rows (the ViT frontend is a stub, as in the reference)
+   projected ahead of every prompt. Its path runs rmsnorm, swiglu, the
+   flash forward (GQA 16/8 in Model.prefill) and the paged kernel (group
+   2) in fused paged decode and verify.
+10a. The main path, counted (lm_steps_vs_plain): Model.prefill of
+   VLM_PREFILL tokens behind the vision rows (the flash kernel exactly 24
+   times, rmsnorm 49, swiglu 24) and VLM_DECODE_STEPS bf16 decode steps
+   (rmsnorm 49 and swiglu 24 each), every one against the torch_cpu
+   library's from the same state (LOGITS_REL_L2 and the argmax verdicts).
+   Not counted: every flash, rmsnorm and swiglu call of a prefill and a
+   decode step (lm_calls_vs_plain) and every paged, rmsnorm and swiglu call
+   of a fused paged decode and verify step (lm_paged_check) against its
+   plain version, bf16 and float32 (TOLERANCE), the whole steps kernel vs
+   plain; the float32 model at full depth on both libraries within
+   VLM_F32_REL_L2.
+10b. Lane serve: 16 requests of 128 tokens behind their own images, 64
+   generated, 8 slots, chunk 64 (the first chunk, with the vision rows, a
+   captured step of its own); 10c fused paged (page and chunk 64): 32
+   requests in groups over one 128-token head, an image, the image again,
+   another image and it again: 16 prefix hits (plus the preemptions') and
+   16 misses exactly (the key covers the image), every first token equal to
+   a lane run's; 10d n-gram depth SPEC_K on 8 of 3e(ii)'s prompts behind
+   seeded images, fused paged. Each a paired_serve under lm_launch_check:
+   rmsnorm 2 n_layers + 1 and swiglu n_layers a prefill chunk, decode or
+   verify step, the paged kernel n_layers a fused decode or verify step,
+   flash never (the chunks attend by the plain chunk attention). Phase 4's
+   internvl2 rows: the lane and the fused paged decode step at position
+   VLM_PROFILE_FILL, captured vs eager, beside their bound
+   (lm_decode_bound_ms).
+11. The moe family at full width with a stated cut of layers: no card
+   holds a whole grok-1-314b (628 GB in bf16) or arctic-480b (958 GB).
+   Their path runs rmsnorm, the flash forward (GQA 48/8, 56/8), the paged
+   kernel (group 6) and swiglu inside the h100 expert_ffn (and in arctic's
+   dense residual); routing, dispatch and combine are plain torch, as jnp
+   in the reference.
+11a. grok-1-314b at MOE_LAYERS (4) of 64 layers (42.6 GB): the main path,
+   counted (lm_steps_vs_plain: flash exactly 4 a prefill, rmsnorm 9 and
+   swiglu 4 a pass), each step against the torch_cpu library under ONE
+   routing (its expert ids recorded from a rerun through the h100 library:
+   a near-tied router flips on bf16 roundings, and a row routed apart is a
+   different result; each library's own routing is printed); every flash,
+   rmsnorm and expert_ffn (the swiglu kernel inside against the plain
+   swiglu) call of a prefill and a decode step against its plain version,
+   and every moe_dispatch against the torch_cpu library's on the same
+   operands, exactly (the kept mask, the drops counted); the fused paged
+   steps' calls; then, after 11b and phase 4's row, the float32 model at
+   MOE_F32_LAYERS layer (26 GB, the bf16 weights freed first) within
+   MOE_F32_REL_L2.
+11b. grok at 11a's cut, lane and fused paged serves of 8 × (128 + 32) at
+   batch 8, chunk and page 64, the even requests sharing a 64-token head
+   (fused: 1 miss for it and one for each other request's first page, the
+   rest hits), paired_serve under lm_launch_check, every first token equal
+   across the modes. Phase 4's row: a captured grok decode step (every
+   expert read: expert_ffn computes each expert's capacity rows).
+11c. arctic-480b at ARCTIC_LAYERS (1) of 35 layers (28.2 GB): 11a's main
+   path and kernel calls (swiglu twice a pass: the experts' and the dense
+   residual's).
 
 A captured step adds to each counter, on every replay, the launches its
 capture recorded, so the counters read the same with graphs and without.
@@ -351,7 +411,10 @@ just before phase 8a's main path and read just after it (rows 1 and 3:
 launches_phase8a), and just before each of 8b, 8c and 8d and read just
 after it (row 1: launches_phase8b-8d; row 7: launches_phase8c, 8d), and
 likewise around phase 9a's main path and each of 9b, 9c and 9d (row 3:
-launches_phase9a-9d; row 7: launches_phase9c, 9d).
+launches_phase9a-9d; row 7: launches_phase9c, 9d), around phase 10a's, 11a's
+and 11c's main paths and each of 10b, 10c, 10d and 11b's two serves (rows 1
+and 2: launches_phase10a-11c; row 3: 10a, 11a, 11c; row 7: 10c, 10d,
+11b-paged).
 Launches made to compare a kernel with its plain version, and those of
 phases 4 and 4b (measurements), are not counted.
 
@@ -501,6 +564,40 @@ WHISPER_F32_REL_L2 = 1e-4       # 9a's float32 model, h100 vs torch_cpu: phase 5
 WHISPER_REQUESTS, WHISPER_PROMPT, WHISPER_GEN = 16, 64, 192
 WHISPER_BATCH, WHISPER_CHUNK, WHISPER_FILL = 8, 64, 128
 WHISPER_PAGED_REQUESTS, WHISPER_PAGE, WHISPER_PAGED_CHUNK, WHISPER_SHARED = 32, 32, 32, 32
+# phase 10: internvl2-2b at full width, VLM_PREFIX seeded vision rows (one
+# ViT tile of patch embeddings: the frontend is a stub, as in the reference)
+# ahead of every prompt. 10a: Model.prefill of VLM_PREFILL tokens and
+# VLM_DECODE_STEPS decode steps, the float32 model at full depth within
+# VLM_F32_REL_L2; 10b: VLM_REQUESTS requests of VLM_PROMPT + VLM_GEN at batch
+# VLM_BATCH, chunks of VLM_CHUNK; 10c: VLM_PAGED_REQUESTS fused paged at page
+# PAGE, a VLM_SHARED-token head (the share boundary, vision rows included, on
+# a page) + VLM_OWN tokens each, VLM_PAGED_GEN generated; 10d: n-gram depth
+# SPEC_K, VLM_PAGED_GEN tokens; phase 4's rows at position VLM_PROFILE_FILL
+# (10b's mid-generation)
+VLM_ARCH = "internvl2-2b"
+VLM_PREFIX = 256
+VLM_PREFILL = (4, 256)
+VLM_DECODE_STEPS = 8
+VLM_F32_REL_L2 = 1e-4           # 10a's float32 model, h100 vs torch_cpu: phase 5b's bound
+VLM_REQUESTS, VLM_PROMPT, VLM_GEN, VLM_BATCH, VLM_CHUNK = 16, 128, 64, 8, 64
+VLM_PAGED_REQUESTS, VLM_SHARED, VLM_OWN, VLM_PAGED_GEN = 32, 128, 64, 32
+VLM_PROFILE_FILL = VLM_PREFIX + VLM_PROMPT + VLM_GEN // 2
+# phase 11: the moe family at full width with a stated cut of layers (a
+# whole grok-1-314b is 628 GB in bf16, arctic-480b 958 GB: no 80 GB card
+# holds either). 11a: grok at MOE_LAYERS of its 64 layers (42.6 GB),
+# Model.prefill of MOE_PREFILL and MOE_DECODE_STEPS decode steps, the float32
+# model at MOE_F32_LAYERS layer (26 GB) within MOE_F32_REL_L2; 11b: its
+# serves, MOE_REQUESTS requests of MOE_PROMPT + MOE_GEN at batch
+# PROFILE_BATCH, chunks and pages of PAGE, the even requests sharing a
+# MOE_SHARED-token head; 11c: arctic at ARCTIC_LAYERS of its 35 layers (28
+# GB), ARCTIC_PREFILL and ARCTIC_DECODE_STEPS
+MOE_ARCH = "grok-1-314b"
+MOE_LAYERS, MOE_PREFILL, MOE_DECODE_STEPS = 4, (2, 128), 8
+MOE_F32_LAYERS = 1
+MOE_F32_REL_L2 = 1e-4           # 11a's float32 model, h100 vs torch_cpu: phase 5b's bound
+MOE_REQUESTS, MOE_PROMPT, MOE_GEN, MOE_SHARED = 8, 128, 32, 64
+ARCTIC_ARCH = "arctic-480b"
+ARCTIC_LAYERS, ARCTIC_PREFILL, ARCTIC_DECODE_STEPS = 1, (1, 64), 4
 # the report entries two serves of the same requests must share, graphs on
 # and off (counts, not times; report["paged"] and report["spec"] in full)
 SERVE_COUNTED = ("requests", "generated_tokens", "steps", "padded_slot_steps_steady",
@@ -989,6 +1086,12 @@ def kernel_phase(dev) -> list[dict]:
         (1, 6, 6, WHISPER_CHUNK, WHISPER_ENC_LEN, 64, torch.bfloat16, False, None),
         (8, 6, 6, 1, WHISPER_ENC_LEN, 64, torch.bfloat16, False, None),
         (8, 6, 6, SPEC_K + 1, WHISPER_ENC_LEN, 64, torch.bfloat16, False, None),
+        # internvl2-2b's Model.prefill (10a): 16 heads of 128 over 8 KV heads,
+        # the 256 vision rows + 256 tokens; grok-1-314b's (11a): 48 over 8
+        (4, 16, 8, VLM_PREFIX + VLM_PREFILL[1], VLM_PREFIX + VLM_PREFILL[1], 128,
+         torch.bfloat16, True, None),
+        (MOE_PREFILL[0], 48, 8, MOE_PREFILL[1], MOE_PREFILL[1], 128, torch.bfloat16, True,
+         None),
     ]
     cases = []
     for b, h, kh, sq, sk, d, dt, causal, kv_len in fa_cases:
@@ -1097,7 +1200,9 @@ def paged_cases(dev, pa) -> list[dict]:
     same fills, a table as wide as phase 3e's, cdiv(max_len + k_max, page)),
     a GQA verify-shaped span, a long context (kv_len 3900-4096), batch-1 GQA
     at kv_len 4096 (qwen3-14b's 40 over 8 heads of 128), f32, zamba2-7b's
-    32 heads of 112 and whisper-tiny's 6 heads of 64 at page 32. Each case
+    32 heads of 112, whisper-tiny's 6 heads of 64 at page 32, and the decode
+    step and verify span of internvl2-2b (16 over 8 heads of 128) and
+    grok-1-314b (48 over 8). Each case
     records its split plan (kernel.plan on this card); the main and the
     serving verify case also their kernels per call (more than 1 fails)."""
     import torch
@@ -1111,6 +1216,10 @@ def paged_cases(dev, pa) -> list[dict]:
     verify_width = -(-(PAGED_MAX_LEN + SPEC_K) // PAGE)
     whisper = [65, 90, 115, 140, 165, 190, 215, 240]
     whisper_width = -(-(WHISPER_PROMPT + WHISPER_GEN) // WHISPER_PAGE)
+    vlm = [VLM_PROFILE_FILL + 4 * i for i in range(-4, 4)]
+    vlm_width = -(-(VLM_PREFIX + VLM_SHARED + VLM_OWN + VLM_PAGED_GEN + SPEC_K) // PAGE)
+    moe = [MOE_PROMPT + 4 * i + 1 for i in range(8)]
+    moe_width = -(-(MOE_PROMPT + MOE_GEN + SPEC_K) // PAGE)
     # (B, H, KH, D, page, SQ, kv_len per sequence, table width, dtype, main)
     specs = [
         (8, 16, 16, 64, PAGE, 1, steady, 5, torch.bfloat16, True),
@@ -1135,6 +1244,15 @@ def paged_cases(dev, pa) -> list[dict]:
         (8, 6, 6, 64, WHISPER_PAGE, 1, whisper, whisper_width, torch.bfloat16, False),
         (8, 6, 6, 64, WHISPER_PAGE, SPEC_K + 1, [n + SPEC_K + 1 for n in whisper],
          whisper_width + 1, torch.bfloat16, False),
+        # internvl2-2b (16 heads of 128 over 8: group 2) in phase 10's fused
+        # paged serves behind 256 vision rows, and grok-1-314b (48 over 8:
+        # group 6, a span of 5 is 30 rows) in phase 11b's: decode and verify
+        (8, 16, 8, 128, PAGE, 1, vlm, vlm_width, torch.bfloat16, False),
+        (8, 16, 8, 128, PAGE, SPEC_K + 1, [n + SPEC_K + 1 for n in vlm], vlm_width,
+         torch.bfloat16, False),
+        (8, 48, 8, 128, PAGE, 1, moe, moe_width, torch.bfloat16, False),
+        (8, 48, 8, 128, PAGE, SPEC_K + 1, [n + SPEC_K + 1 for n in moe], moe_width,
+         torch.bfloat16, False),
     ]
     cases = []
     for b, h, kh, d, page, sq, kv_lens, width, dt, main in specs:
@@ -4960,6 +5078,924 @@ def whisper_phase(dev, gpu: str) -> dict:
     return out
 
 
+def lm_ffn_calls(cfg) -> int:
+    """swiglu launches (and, for the moe family, expert_ffn calls) a pass of
+    the lm backbone: one a layer (the MLP, or the activation inside the
+    experts' FFN), two for arctic (its dense residual MLP too)."""
+    return cfg.n_layers * (2 if cfg.moe_dense_residual else 1)
+
+
+def lm_launch_check(cfg, launched, report, *, fused: bool) -> list:
+    """The problems of one vlm or moe serve's launch counts: rmsnorm
+    2 n_layers + 1 a pass (a prefill chunk, decode step or verify step),
+    swiglu lm_ffn_calls a pass, the paged kernel n_layers a fused decode or
+    verify step and never in lanes, the flash kernel never (the engine's
+    chunks attend by the plain chunk attention, as jnp in the reference)."""
+    chunks = sum(e["chunks"] for e in report["step_log"])
+    verify = (report.get("spec") or {}).get("verify_steps", 0)
+    decode = sum(e["decoded"] > 0 for e in report["step_log"]) - verify
+    passes = chunks + decode + verify
+    want = {"rmsnorm": (2 * cfg.n_layers + 1) * passes,
+            "swiglu": lm_ffn_calls(cfg) * passes,
+            "paged_attention": cfg.n_layers * (decode + verify) if fused else 0,
+            "flash_attention": 0}
+    return [f"{name} launched {launched[name]} times, want {n} ({chunks} prefill chunks, "
+            f"{decode} decode steps, {verify} verify steps of {cfg.n_layers} layers)"
+            for name, n in want.items() if launched[name] != n]
+
+
+def lm_serve_check(cfg, n_req: int, gen: int, *, fused: bool, batch: int,
+                   spec: bool = False):
+    """paired_serve's ``check`` for a vlm or moe serve: served on h100, every
+    request answered with ``gen`` tokens, verify steps ran where ``spec``;
+    fused: decode straight off the pools, requests beyond the slots parked
+    and activated by a tail restore; and lm_launch_check."""
+    def check(report, launched):
+        problems = []
+        if report["target"] != "h100":
+            problems.append(f"served with target {report['target']!r}")
+        if report["requests"] != n_req or report["refused"]:
+            problems.append(f"{report['requests']} of {n_req} answered, refused "
+                            f"{report['refused']}")
+        short = {r: len(t) for r, t in report["outputs"].items() if len(t) != gen}
+        if short or len(report["outputs"]) != n_req:
+            problems.append(f"requests without {gen} tokens: {short}")
+        if spec and not report["spec"]["verify_steps"]:
+            problems.append("no verify step ran")
+        if fused:
+            paged = report["paged"]
+            if not paged["fused"] or paged["lane_activations"] or \
+                    (n_req > batch) != (paged["tail_restores"] > 0):
+                problems.append(f"paged: fused {paged['fused']}, lane activations "
+                                f"{paged['lane_activations']}, tail restores "
+                                f"{paged['tail_restores']}")
+        return problems + lm_launch_check(cfg, launched, report, fused=fused)
+    return check
+
+
+class _Routing:
+    """A library's ops that record, in call order, the (T, k) expert ids of
+    every topk_gating call (``picked``) and the (T·k,) kept mask of every
+    moe_dispatch call (``kept``). With ``pinned`` (another run's
+    ``picked``), topk_gating returns those ids, in their order, weighted by
+    the softmax of this library's own float32 logits at them (the
+    definition's arithmetic): one routing for two libraries."""
+
+    def __init__(self, ops, pinned=None):
+        self._ops, self.picked, self.kept = ops, [], []
+        self._pinned = None if pinned is None else list(pinned)
+
+    def __getattr__(self, name):
+        return {"topk_gating": self._topk, "moe_dispatch": self._dispatch}.get(
+            name) or getattr(self._ops, name)
+
+    def _topk(self, logits, k=2):
+        import torch
+
+        if self._pinned is None:
+            w, idx = self._ops.topk_gating(logits, k=k)
+        else:
+            idx = self._pinned.pop(0)
+            w = torch.softmax(logits.float().gather(-1, idx), dim=-1).to(logits.dtype)
+        self.picked.append(idx)
+        return w, idx
+
+    def _dispatch(self, *args, **kw):
+        xe, info = self._ops.moe_dispatch(*args, **kw)
+        self.kept.append(info[2])
+        return xe, info
+
+
+class _SameDispatch:
+    """Ops whose moe_dispatch also runs ``other``'s (the torch_cpu
+    library's) on the same operands: the dispatched block, each row's
+    expert, slot and weight, and the kept mask must be EXACTLY equal (a row
+    dropped on one side only is a different result); the drops are
+    counted."""
+
+    def __init__(self, ops, other, label: str):
+        self._ops, self._other, self._label = ops, other, label
+        self.calls, self.rows, self.dropped = 0, 0, 0
+
+    def __getattr__(self, name):
+        return self._dispatch if name == "moe_dispatch" else getattr(self._ops, name)
+
+    def _dispatch(self, *args, **kw):
+        import torch
+
+        xe, info = self._ops.moe_dispatch(*args, **kw)
+        xe2, info2 = self._other.moe_dispatch(*args, **kw)
+        same = torch.equal(xe, xe2) and info[4] == info2[4] and all(
+            torch.equal(a, b) for a, b in zip(info[:4], info2[:4]))
+        if not same:
+            raise AssertionError(f"{self._label} moe_dispatch call {self.calls}: the h100 "
+                                 f"and torch_cpu libraries dispatch the same rows apart "
+                                 f"(kept rows {int(info[2].sum())} vs "
+                                 f"{int(info2[2].sum())})")
+        self.calls += 1
+        self.rows += info[2].numel()
+        self.dropped += int((~info[2]).sum())
+        return xe, info
+
+
+def lm_plain_calls(cfg) -> dict:
+    """The plain version of every kernel the lm backbone's steps call
+    (_Compared): flash, paged, rmsnorm, swiglu, and the h100 expert_ffn
+    with the plain swiglu (its activation is the swiglu kernel)."""
+    import functools
+
+    from repro_torch.kernels.flash_attention.ref import attention
+    from repro_torch.kernels.moe import ops as moe_ops
+    from repro_torch.kernels.paged.ref import paged_attention_ref
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm
+    from repro_torch.kernels.swiglu.ref import swiglu
+
+    return {"flash_attention": attention, "attention_decode_paged": paged_attention_ref,
+            "attention_verify_paged": paged_attention_ref, "rmsnorm": rmsnorm,
+            "swiglu": swiglu, "expert_ffn": functools.partial(moe_ops.expert_ffn, act=swiglu)}
+
+
+def _uncounted(fn):
+    """fn() with the launch counters left as they were (a comparison run)."""
+    saved = read_counts()
+    try:
+        return fn()
+    finally:
+        for name, f in counters().items():
+            f.launches = saved[name]
+
+
+def lm_steps_vs_plain(tag: str, dev, model, params, batch: dict, steps: int, *,
+                      counted: bool, rel_l2: float) -> dict:
+    """Model.prefill of ``batch`` (tokens, and vlm vision_embeds) and
+    ``steps`` greedy decode steps through the model's library (the main
+    path where ``counted``: the counters set to 0 just before and read just
+    after, launches gated exactly per pass), each against the torch_cpu
+    library's on the card from a copy of the same state under
+    _require_logits at ``rel_l2`` (phase 2's bar).
+
+    The moe family is compared under ONE routing: a rerun through the h100
+    library records each layer's expert ids (uncounted), and the other side
+    takes them (_Routing, pinned); the kept masks must then be equal. Its
+    torch_cpu library computes the experts' FFN in float32 (the reference's
+    arithmetic) where h100 rounds the products and the activation to bf16,
+    so against it the logits are held to ``rel_l2`` and the argmax verdicts
+    printed (``logits_vs_torch_cpu``); phase 2's whole bar holds the step
+    against the same library with every kernel bound to its plain version
+    (_PlainOps over lm_plain_calls: the flash, rmsnorm and swiglu kernels'
+    roundings alone, as for the dense family). Each library's own routing
+    is compared as information (rows routed apart, kept rows apart, drops
+    on each side, the unpinned rel L2: a near-tied router picks another
+    expert on bf16 roundings, and a row routed apart is a different
+    result)."""
+    import torch
+
+    from repro_torch.nn import lm
+    from repro_torch.nn.model import build_model
+
+    cfg = model.cfg
+    plain = build_model(cfg, device=dev, target="torch_cpu")
+    moe = bool(cfg.n_experts)
+    b, t = batch["tokens"].shape
+    vision = batch.get("vision_embeds")
+    rows = t + (cfg.vision_prefix if vision is not None else 0)
+    max_len = rows + steps
+    per_pass = {"rmsnorm": 2 * cfg.n_layers + 1, "swiglu": lm_ffn_calls(cfg),
+                "paged_attention": 0}
+    out, checks, routing, vs_lib = {"rows": rows}, {}, {}, {}
+
+    def versus(name, got, run):
+        """got: the library's (rows, V) logits; run(tsl) -> the same step's
+        logits through ``tsl`` on a copy of the same inputs."""
+        if not moe:
+            checks[name] = _logits_check(got, run(plain.tsl), cfg.vocab)
+            return
+        rec = _Routing(model.tsl)
+        again = _uncounted(lambda: run(rec))
+        own, pin = _Routing(plain.tsl), _Routing(plain.tsl, pinned=rec.picked)
+        kplain = _Routing(_PlainOps(model.tsl, lm_plain_calls(cfg)), pinned=rec.picked)
+        want_own, want, want_k = run(own), run(pin), run(kplain)
+        for side in (pin, kplain):
+            kept_apart = sum(int((a != c).sum()) for a, c in zip(rec.kept, side.kept))
+            if kept_apart:
+                raise AssertionError(f"{tag} {name}: under one routing {kept_apart} rows "
+                                     f"kept on one side only")
+        checks[name] = _logits_check(got, want_k, cfg.vocab)
+        vs_lib[name] = _logits_check(got, want, cfg.vocab)
+        if vs_lib[name]["logits_rel_l2"] > rel_l2 or not vs_lib[name]["finite"]:
+            raise AssertionError(f"{tag} {name}, h100 vs torch_cpu library under one "
+                                 f"routing: rel L2 {vs_lib[name]['logits_rel_l2']:.3g} > "
+                                 f"{rel_l2}")
+        routing[name] = {
+            "rerun_equal": bool(torch.equal(again, got)),
+            "rows_routed_apart": sum(int((a.sort(-1).values != c.sort(-1).values).any(-1)
+                                         .sum()) for a, c in zip(rec.picked, own.picked)),
+            "kept_rows_apart": sum(int((a != c).sum()) for a, c in zip(rec.kept, own.kept)),
+            "dropped_h100": sum(int((~k).sum()) for k in rec.kept),
+            "dropped_torch_cpu": sum(int((~k).sum()) for k in own.kept),
+            "rows_routed": sum(k.numel() for k in rec.kept),
+            "own_routing_rel_l2": _logits_check(got, want_own, cfg.vocab)["logits_rel_l2"]}
+
+    if counted:
+        for fn in counters().values():
+            fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, state = model.prefill(params, batch, max_len)
+    torch.cuda.synchronize()
+    out["prefill_s"] = time.perf_counter() - t0
+    if counted:
+        out["prefill_launches"] = read_counts()
+        want = {**per_pass, "flash_attention": cfg.n_layers}
+        if {k: out["prefill_launches"][k] for k in want} != want:
+            raise AssertionError(f"{tag}: launches per prefill {out['prefill_launches']}, "
+                                 f"want {want}")
+    if tuple(got.shape) != (b, cfg.padded_vocab):
+        raise AssertionError(f"{tag}: prefill logits {tuple(got.shape)}")
+    versus("prefill", got, lambda tsl: lm.lm_prefill(
+        tsl, params, batch["tokens"], cfg, max_len=max_len, vision_embeds=vision)[0])
+    toks = got[:, :cfg.vocab].argmax(-1)
+    generated = []
+    for i in range(steps):
+        shared = {n: x.clone() for n, x in state.items()}
+        before = read_counts()
+        got, state = model.decode_step(params, state, toks[:, None], rows + i)
+        after = read_counts()
+        step = {k: after[k] - before[k] for k in after}
+        want = {**per_pass, "flash_attention": 0}
+        if counted and {k: step[k] for k in want} != want:
+            raise AssertionError(f"{tag}: decode step {i} launched {step}, want {want}")
+        versus(f"decode_{i}", got, lambda tsl, i=i, toks=toks: lm.lm_decode_step(
+            tsl, params, {n: x.clone() for n, x in shared.items()}, toks[:, None], rows + i,
+            cfg)[0])
+        toks = got[:, :cfg.vocab].argmax(-1)
+        generated.append(toks.tolist())
+    if counted:
+        out["decode_step_launches"] = step
+        out["launches"] = read_counts()
+    out["greedy_tokens"] = generated
+    against = "kernels vs their plain versions" if moe else "h100 vs torch_cpu library"
+    for name, c in checks.items():
+        _require_logits(f"{tag} {name}, {against}", c, rel_l2=rel_l2)
+    out["logits"], out["routing"] = checks, routing
+    out["worst_rel_l2"] = max(c["logits_rel_l2"] for c in checks.values())
+    if moe:
+        out["logits_vs_torch_cpu"] = vs_lib
+        out["vs_torch_cpu_worst_rel_l2"] = max(c["logits_rel_l2"] for c in vs_lib.values())
+        out["vs_torch_cpu_argmax_failed"] = {n: c["argmax"]["failed_rows"]
+                                             for n, c in vs_lib.items()
+                                             if c["argmax"]["failed_rows"]}
+    return out
+
+
+def lm_calls_vs_plain(tag: str, dev, model, params, batch: dict) -> dict:
+    """Every kernel call of a prefill of ``batch`` and of one decode step
+    after it against its plain version on the operands the model gives it
+    (_Compared over lm_plain_calls, TOLERANCE): flash n_layers times,
+    rmsnorm 2 n_layers + 1 a pass, swiglu / expert_ffn lm_ffn_calls a pass;
+    for the moe family every moe_dispatch against the torch_cpu library's
+    (_SameDispatch: exactly equal, drops counted). Uncounted."""
+    from repro_torch.nn import lm
+    from repro_torch.nn.model import build_model
+
+    cfg = model.cfg
+    plain = build_model(cfg, device=dev, target="torch_cpu")
+    compared = _Compared(model.tsl, lm_plain_calls(cfg), tag)
+    tsl = _SameDispatch(compared, plain.tsl, tag) if cfg.n_experts else compared
+    vision = batch.get("vision_embeds")
+    t = batch["tokens"].shape[1] + (cfg.vision_prefix if vision is not None else 0)
+
+    def run():
+        _, st = lm.lm_prefill(tsl, params, batch["tokens"], cfg, max_len=t + 1,
+                              vision_embeds=vision)
+        lm.lm_decode_step(tsl, params, st, batch["tokens"][:, :1], t, cfg)
+    _uncounted(run)
+    want = cfg.n_layers + 2 * (2 * cfg.n_layers + 1 + lm_ffn_calls(cfg))
+    out = _worst(compared.results)
+    if out["calls"] != want:
+        raise AssertionError(f"{tag}: {out['calls']} kernel calls compared, want {want}")
+    if cfg.n_experts:
+        out["dispatch"] = {"calls": tsl.calls, "rows": tsl.rows, "dropped": tsl.dropped}
+    return out
+
+
+def lm_paged_check(tag: str, dev, runs) -> dict:
+    """One fused paged decode step and one verify span of SPEC_K + 1 at batch
+    PROFILE_BATCH over PROFILE_FILL prefilled rows (page PAGE), per (label,
+    model, params, rel_l2) of ``runs``: every paged, rmsnorm, swiglu and
+    expert_ffn call against its plain version on the operands the step
+    gives it (_Compared, TOLERANCE); the whole step's logits against the
+    step through the plain versions on copies of the same pools, under
+    _require_logits at ``rel_l2`` (None: printed only: a moe step through
+    the plain versions routes on its own activations); row 0 of the span
+    against the decode step likewise. Uncounted."""
+    import torch
+
+    from repro_torch.nn import lm
+
+    batch, fill = PROFILE_BATCH, PROFILE_FILL
+    out = {"batch": batch, "kv_len": fill + 1, "span": SPEC_K + 1, "page": PAGE}
+    for label, m, p, rel_l2 in runs:
+        cfg, vocab = m.cfg, m.cfg.padded_vocab
+        plain = lm_plain_calls(cfg)
+        g = torch.Generator(device=dev).manual_seed(54)
+        span = torch.randint(0, cfg.vocab, (batch, SPEC_K + 1), generator=g, device=dev)
+        pos = torch.full((batch,), fill, dtype=torch.int64, device=dev)
+        _, pools, tables = _uncounted(lambda: paged_state(dev, m, p, batch, fill, seed=53))
+        compared = _Compared(m.tsl, plain, f"{tag} {label} fused paged step")
+        steps = (("decode", lm.lm_decode_step_paged, span[:, :1]),
+                 ("verify", lm.lm_verify_step_paged, span))
+        logits = {}
+
+        def run():
+            for name, tsl in (("kernel", compared), ("plain", _PlainOps(m.tsl, plain))):
+                for kind, fn, toks in steps:
+                    pl = {n: x.clone() for n, x in pools.items()}
+                    logits[name, kind] = fn(tsl, p, {}, pl, tables, toks, pos, cfg)[0] \
+                        .reshape(-1, vocab)
+        _uncounted(run)
+        r = {kind: _logits_check(logits["kernel", kind], logits["plain", kind], cfg.vocab)
+             for kind, _, _ in steps}
+        r["verify_row0_vs_decode"] = _logits_check(
+            logits["kernel", "verify"].reshape(batch, -1, vocab)[:, 0],
+            logits["kernel", "decode"], cfg.vocab)
+        r["kernel_calls_vs_plain"] = _worst(compared.results)
+        want = 2 * (cfg.n_layers + 2 * cfg.n_layers + 1 + lm_ffn_calls(cfg))
+        if r["kernel_calls_vs_plain"]["calls"] != want:
+            raise AssertionError(f"{tag} {label}: {r['kernel_calls_vs_plain']['calls']} "
+                                 f"kernel calls compared, want {want}")
+        if rel_l2 is not None:
+            for kind in ("decode", "verify", "verify_row0_vs_decode"):
+                _require_logits(f"{tag} {label} fused paged {kind}, kernel vs plain",
+                                r[kind], rel_l2=rel_l2)
+        out[label] = r
+        del pools
+    return out
+
+
+def lm_decode_bound_ms(params, cfg, batch: int, kv_rows: int) -> float:
+    """The least device time of one decode step at ``batch`` over
+    ``kv_rows`` cached rows a slot: every parameter read once (the embedding
+    only at the batch's rows; a moe layer's every expert, as expert_ffn
+    computes each expert's capacity rows), each slot's K/V of every layer
+    read once and its new row written, and the (batch, padded_vocab) logits
+    written, over HBM_BYTES_PER_S."""
+    from repro_torch.train.optimizer import tree_leaves
+
+    item = params["embed"].element_size()
+    weights = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    weights -= (cfg.padded_vocab - batch) * cfg.d_model * item
+    kv = 2 * cfg.n_layers * batch * cfg.n_kv_heads * (kv_rows + 1) * cfg.hd * item
+    logits = batch * cfg.padded_vocab * item
+    return (weights + kv + logits) / HBM_BYTES_PER_S * 1e3
+
+
+def lm_profile_rows(tag: str, dev, model, params, gpu: str, fill: int, kinds) -> dict:
+    """Phase 4's rows for the vlm or moe family (run in its phase, where its
+    model lives), through the engine's step code at batch PROFILE_BATCH,
+    position ``fill``, captured and eager (_profile): ``kinds`` of "lane"
+    (the lane decode step) and "fused" (the fused paged decode step, page
+    PAGE), each beside lm_decode_bound_ms. Not a main path: uncounted."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import StepGraphs, disable_graphs
+    from repro_torch.serve.graphs import run_model_step
+
+    cfg = model.cfg
+    rng = np.random.default_rng(52)
+    tokens = rng.integers(0, cfg.vocab, (PROFILE_BATCH, 1))
+    pos = np.full(PROFILE_BATCH, fill, np.int64)
+    out = {}
+    saved = read_counts()
+    with torch.inference_mode():
+        steps = {}
+        if "lane" in kinds:
+            state = model.init_decode_state(PROFILE_BATCH, fill + 2)
+            for leaf in state.values():
+                leaf.normal_(generator=torch.Generator(device=dev).manual_seed(55))
+            lane = StepGraphs(dev)
+            steps["decode_step"] = lambda: run_model_step(lane, "decode", model, params,
+                                                          state, tokens, pos)
+        if "fused" in kinds:
+            _, pools, tables = paged_state(dev, model, params, PROFILE_BATCH, fill, seed=56,
+                                           max_len=fill + 2)
+            tables = tables.cpu().numpy()
+            fused = StepGraphs(dev)
+            steps["decode_step_paged"] = lambda: run_model_step(
+                fused, "decode", model, params, {}, tokens, pos, pools=pools, tables=tables)
+        bound_ms = lm_decode_bound_ms(params, cfg, PROFILE_BATCH, fill)
+        for kind, fn in steps.items():
+            def eager(fn=fn):
+                with disable_graphs():
+                    return fn()
+            out[kind] = {"batch": PROFILE_BATCH, "pos": fill, "bound_ms": bound_ms,
+                         "captured": _profile(fn, host_top=False),
+                         "eager": _profile(eager, host_top=False)}
+    for name, f in counters().items():
+        f.launches = saved[name]
+    for kind in steps:
+        c, e = out[kind]["captured"], out[kind]["eager"]
+        print(f"[phase4] {tag} {kind} ({cfg.name}, {cfg.n_layers} layers) on {gpu}, captured "
+              f"vs eager: host wall {c['wall_ms']:.3f} vs {e['wall_ms']:.3f} ms, device busy "
+              f"{c['device_busy_ms']} vs {e['device_busy_ms']} ms (bound "
+              f"{bound_ms:.3f} ms, bytes), idle share {c.get('device_idle_share')} vs "
+              f"{e.get('device_idle_share')}, kernels per step {c['launches']} vs "
+              f"{e['launches']}; top kernels (captured) "
+              f"{json.dumps(c.get('top_kernels_ms'))}", flush=True)
+    return out
+
+
+def _serve_pair(tag, name, gpu, run, check, graphs_first):
+    """paired_serve (both sides untraced) with the counters set to 0 just
+    before it and read just after it, and its seconds."""
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    pair = paired_serve(tag, name, gpu, run, check, graphs_first, trace=())
+    pair["launches"] = read_counts()
+    pair["seconds"] = time.perf_counter() - t0
+    return pair
+
+
+def vlm_images(rng, n: int, d: int) -> list:
+    """``n`` seeded (VLM_PREFIX, d) float32 patch embeddings (the ViT
+    frontend's output: a stub in the reference too)."""
+    import numpy as np
+
+    return [rng.standard_normal((VLM_PREFIX, d), dtype=np.float32) for _ in range(n)]
+
+
+def vlm_requests(vocab: int, d: int, request_cls, n: int) -> list:
+    """10b: ``n`` requests of VLM_PROMPT seeded tokens behind their own
+    seeded images, VLM_GEN generated."""
+    import numpy as np
+
+    rng = np.random.default_rng(61)
+    images = vlm_images(rng, n, d)
+    return [request_cls(rid=f"v{i}", tokens=rng.integers(0, vocab, VLM_PROMPT)
+                        .astype(np.int32), gen_len=VLM_GEN, embeds=images[i])
+            for i in range(n)]
+
+
+def vlm_paged_requests(vocab: int, d: int, request_cls) -> list:
+    """10c: VLM_PAGED_REQUESTS requests in groups of four over one
+    VLM_SHARED-token head, each with VLM_OWN tokens of its own: a (image A),
+    a2 (image A again: a hit on a's entry), b (image B, the same head: a
+    miss, the key covers the image) and b2 (image B again: a hit). The
+    share boundary is the 256 vision rows + VLM_SHARED tokens, whole pages."""
+    import numpy as np
+
+    rng = np.random.default_rng(63)
+    out = []
+    for grp in range(VLM_PAGED_REQUESTS // 4):
+        head = rng.integers(0, vocab, VLM_SHARED)
+        ia, ib = vlm_images(rng, 2, d)
+        for name, image in (("a", ia), ("a2", ia), ("b", ib), ("b2", ib)):
+            toks = np.concatenate([head, rng.integers(0, vocab, VLM_OWN)]).astype(np.int32)
+            out.append(request_cls(rid=f"i{grp}{name}", tokens=toks, gen_len=VLM_PAGED_GEN,
+                                   embeds=image, shared_prefix_len=VLM_SHARED))
+    return out
+
+
+def vlm_serve_phase(dev, params, gpu: str) -> dict:
+    """Phases 10b-10d: internvl2-2b served at full width behind VLM_PREFIX
+    vision rows a request, each serve a paired_serve (captured and eager:
+    equal outputs, counters and launches; both untraced) under
+    lm_serve_check, the counters set to 0 just before each pair and read
+    just after it.
+    10b lane mode: VLM_REQUESTS requests of VLM_PROMPT tokens behind their
+       own images, VLM_GEN generated, VLM_BATCH slots, chunks of VLM_CHUNK
+       (the first chunk's captured step carries the 256 vision rows: its own
+       entry, jit_cache prefill_chunk 2).
+    10c fused paged (page PAGE, chunk VLM_CHUNK) on vlm_paged_requests: the
+       repeats hit the prefix store (plus one a preemption's continuation)
+       and the firsts and the same heads behind another image miss, exactly;
+       every first token equal to a lane run's of the same requests (the
+       rest printed: lane mode attends by the plain decode attention).
+    10d the n-gram drafter at fixed depth SPEC_K on SPEC_DRAFT_REQUESTS of
+       3e(ii)'s pattern prompts behind seeded images, fused paged."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve import PagedConfig, Request, ServeEngine, SpeculationConfig
+
+    cfg = get_config(VLM_ARCH)
+    kw = dict(batch=VLM_BATCH, device=dev, params=params, prefill_chunk=VLM_CHUNK)
+    out = {}
+    out["10b"] = _serve_pair(
+        "phase10b", f"lane serve {VLM_ARCH}", gpu,
+        lambda: ServeEngine(cfg, max_len=VLM_PREFIX + VLM_PROMPT + VLM_GEN, **kw).run(
+            vlm_requests(cfg.vocab, cfg.d_model, Request, VLM_REQUESTS)),
+        lm_serve_check(cfg, VLM_REQUESTS, VLM_GEN, fused=False, batch=VLM_BATCH), True)
+    jit = out["10b"]["graphs"]["jit_cache"]
+    if jit != {"prefill_chunk": 2, "decode": 1}:
+        raise AssertionError(f"phase 10b: the graphs run captured {jit}")
+    steps = out["10b"]["report"]["step_log"]
+    print(f"[phase10b] lane serve {VLM_ARCH} on {gpu}: decode steps "
+          f"{sum(e['decoded'] > 0 for e in steps)}, prefill chunks "
+          f"{sum(e['chunks'] for e in steps)}, jit_cache {jit}, launches of the pair "
+          f"{out['10b']['launches']}; phase {out['10b']['seconds']:.1f} s", flush=True)
+
+    # one bucket of the whole prompt: the declared ones past 128 do not fit
+    # behind the vision rows in this table
+    paged_kw = dict(kw, max_len=VLM_PREFIX + VLM_SHARED + VLM_OWN + VLM_PAGED_GEN,
+                    buckets=(VLM_SHARED + VLM_OWN,))
+
+    def requests():
+        return vlm_paged_requests(cfg.vocab, cfg.d_model, Request)
+
+    out["10c"] = _serve_pair(
+        "phase10c", f"fused paged serve {VLM_ARCH}", gpu,
+        lambda: ServeEngine(cfg, paged=PagedConfig(page_size=PAGE), **paged_kw).run(
+            requests()),
+        lm_serve_check(cfg, VLM_PAGED_REQUESTS, VLM_PAGED_GEN, fused=True, batch=VLM_BATCH),
+        False)
+    t0 = time.perf_counter()
+    report = out["10c"]["report"]
+    pg = report["paged"]
+    n_miss = VLM_PAGED_REQUESTS // 2
+    if pg["prefix_misses"] != n_miss or \
+            pg["prefix_hits"] != VLM_PAGED_REQUESTS - n_miss + pg["preemptions"]:
+        raise AssertionError(f"phase 10c: {pg['prefix_hits']} prefix hits and "
+                             f"{pg['prefix_misses']} misses with {pg['preemptions']} "
+                             f"preemptions, want {VLM_PAGED_REQUESTS - n_miss} + preemptions "
+                             f"and {n_miss}")
+    lane = ServeEngine(cfg, **paged_kw).run(requests())
+    outs = report["outputs"]
+    firsts = [r for r in outs if outs[r][0] != lane["outputs"][r][0]]
+    if firsts:
+        raise AssertionError(f"phase 10c: first tokens differ from lane mode's for {firsts}")
+    differ = {r: next(i for i, (x, y) in enumerate(zip(lane["outputs"][r], toks)) if x != y)
+              for r, toks in outs.items() if toks != lane["outputs"][r]}
+    other_image = sum(outs[r] != outs[r[:-1] + "b"] for r in outs if r.endswith("a"))
+    out["10c"].update(share_equal_to_lane=1 - len(differ) / VLM_PAGED_REQUESTS,
+                      first_differing_token=differ,
+                      lane_decode_tokens_per_s=lane["decode_tokens_per_s"],
+                      heads_of_other_images_differing=other_image)
+    out["10c"]["seconds"] += time.perf_counter() - t0
+    print(f"[phase10c] fused paged serve {VLM_ARCH} on {gpu}: prefix hits "
+          f"{pg['prefix_hits']}, misses {pg['prefix_misses']}, preemptions "
+          f"{pg['preemptions']}; first tokens of all {VLM_PAGED_REQUESTS} equal a lane-mode "
+          f"run's; whole outputs equal for {VLM_PAGED_REQUESTS - len(differ)}/"
+          f"{VLM_PAGED_REQUESTS} (information; first differing token of the others "
+          f"{differ}); one head behind two images with other outputs {other_image}/"
+          f"{VLM_PAGED_REQUESTS // 4}; lane {lane['decode_tokens_per_s']:.1f} tokens/s; "
+          f"paged {json.dumps(pg)}; launches of the pair {out['10c']['launches']}; phase "
+          f"{out['10c']['seconds']:.1f} s", flush=True)
+
+    def spec_reqs():
+        reqs = spec_requests(cfg.vocab, Request, SPEC_DRAFT_REQUESTS, gen=VLM_PAGED_GEN)
+        for r, image in zip(reqs, vlm_images(np.random.default_rng(65), len(reqs),
+                                             cfg.d_model)):
+            r.embeds = image
+        return reqs
+
+    out["10d"] = _serve_pair(
+        "phase10d", f"speculative fused paged serve {VLM_ARCH}, n-gram depth {SPEC_K}", gpu,
+        lambda: ServeEngine(cfg, max_len=VLM_PREFIX + SPEC_PROMPT + VLM_PAGED_GEN,
+                            paged=PagedConfig(page_size=PAGE),
+                            speculation=SpeculationConfig(fixed_k=SPEC_K), **kw).run(
+            spec_reqs()),
+        lm_serve_check(cfg, SPEC_DRAFT_REQUESTS, VLM_PAGED_GEN, fused=True, batch=VLM_BATCH,
+                       spec=True), True)
+    jit = out["10d"]["graphs"]["jit_cache"]
+    if jit.get("verify", 0) <= 0:
+        raise AssertionError(f"phase 10d: the graphs run captured no verify step: {jit}")
+    spec = out["10d"]["report"]["spec"]
+    out["10d"]["spec"] = {k: spec[k] for k in ("verify_steps", "decode_steps", "drafted_tokens",
+                                              "accepted_tokens", "accepted_rate",
+                                              "mean_accepted_span")}
+    print(f"[phase10d] speculative fused paged serve {VLM_ARCH} on {gpu}: "
+          f"{json.dumps(out['10d']['spec'])}, jit_cache {jit}; launches of the pair "
+          f"{out['10d']['launches']}; phase {out['10d']['seconds']:.1f} s", flush=True)
+    for r in out.values():
+        r.pop("report")
+    return out
+
+
+def vlm_phase(dev, gpu: str) -> dict:
+    """Phase 10: internvl2-2b at full width (24 layers, d 2048, 16 heads of
+    128 over 8 KV heads, d_ff 8192, vocab 92553 padded to 92672, bf16),
+    seeded weights from the port's init on the card, VLM_PREFIX (256) seeded
+    vision rows ahead of every prompt. 10a the main path and the layers,
+    10b-10d serving, and its rows of phase 4's step table."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.nn.model import Model, build_model
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    cfg = get_config(VLM_ARCH)
+    model = build_model(cfg, device=dev)
+    assert type(model) is Model and model.lib.TARGET_NAME == "h100"
+    params = model.init(0)
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    kv_token = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * 2
+    print(f"[phase10] {VLM_ARCH} on {gpu}: {n_params / 1e9:.4f}B params "
+          f"({sum(t.numel() * t.element_size() for t in leaves) / 1e9:.3f} GB; the "
+          f"reference's param_count {cfg.param_count() / 1e9:.4f}B), {kv_token / 1024:.1f} KiB "
+          f"of K/V a cached row; init {time.perf_counter() - t_phase:.1f} s", flush=True)
+    out = {"params": n_params, "kv_row_bytes": kv_token}
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(60)
+    b, t = VLM_PREFILL
+    tokens = torch.randint(0, cfg.vocab, (b, t), generator=g, device=dev)
+    vision = torch.randn((b, VLM_PREFIX, cfg.d_model), generator=g, device=dev)
+    with torch.inference_mode():
+        r = lm_steps_vs_plain("phase 10a", dev, model, params,
+                              {"tokens": tokens, "vision_embeds": vision.to(model.dtype)},
+                              VLM_DECODE_STEPS, counted=True, rel_l2=LOGITS_REL_L2)
+        out["10a"] = r
+        cfg32 = cfg.replace(dtype="float32")
+        m32 = build_model(cfg32, device=dev)
+        params32 = tree_map(lambda x: x.float(), params)
+        calls = {"bf16": lm_calls_vs_plain("phase 10a bf16", dev, model, params,
+                                           {"tokens": tokens,
+                                            "vision_embeds": vision.to(model.dtype)}),
+                 "f32": lm_calls_vs_plain("phase 10a f32", dev, m32, params32,
+                                          {"tokens": tokens, "vision_embeds": vision})}
+        r["calls_vs_plain"] = calls
+        r32 = _uncounted(lambda: lm_steps_vs_plain(
+            "phase 10a f32", dev, m32, params32, {"tokens": tokens, "vision_embeds": vision},
+            VLM_DECODE_STEPS, counted=False, rel_l2=VLM_F32_REL_L2))
+        r["f32_worst_rel_l2"] = r32["worst_rel_l2"]
+        r["paged"] = lm_paged_check("phase 10a", dev,
+                                    [("bf16", model, params, LOGITS_REL_L2),
+                                     ("f32", m32, params32, VLM_F32_REL_L2)])
+        del params32, m32
+        torch.cuda.empty_cache()
+    r["seconds"] = time.perf_counter() - t0
+    pg = r["paged"]
+    print(f"[phase10a] {VLM_ARCH} prefill {VLM_PREFILL} behind {VLM_PREFIX} vision rows "
+          f"({r['rows']} rows; {r['prefill_s']:.3f} s, first call) + {VLM_DECODE_STEPS} decode "
+          f"steps on {gpu}: launches per prefill {r['prefill_launches']}, per decode step "
+          f"{r['decode_step_launches']}, main path {r['launches']}; bf16 h100 vs torch_cpu "
+          f"worst rel L2 {r['worst_rel_l2']:.3g} (bound {LOGITS_REL_L2}, argmax verdicts); "
+          f"float32 at full depth worst rel L2 {r['f32_worst_rel_l2']:.3g} (bound "
+          f"{VLM_F32_REL_L2}); kernel calls vs plain in a prefill and a decode step "
+          f"{json.dumps(calls)}; fused paged steps, calls vs plain bf16 "
+          f"{json.dumps(pg['bf16']['kernel_calls_vs_plain'])}, float32 "
+          f"{json.dumps(pg['f32']['kernel_calls_vs_plain'])}, whole step rel L2 bf16 decode "
+          f"{pg['bf16']['decode']['logits_rel_l2']:.3g}, verify "
+          f"{pg['bf16']['verify']['logits_rel_l2']:.3g}; {json.dumps(r['logits'])}; "
+          f"phase {r['seconds']:.1f} s", flush=True)
+    out.update(vlm_serve_phase(dev, params, gpu))
+    t0 = time.perf_counter()
+    out["phase4"] = lm_profile_rows("phase 10", dev, model, params, gpu, VLM_PROFILE_FILL,
+                                    ("lane", "fused"))
+    out["phase4"]["seconds"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[phase10] {VLM_ARCH} done on {gpu}: phase {out['seconds']:.1f} s (10a "
+          f"{r['seconds']:.1f}, 10b {out['10b']['seconds']:.1f}, 10c "
+          f"{out['10c']['seconds']:.1f}, 10d {out['10d']['seconds']:.1f}, phase 4's rows "
+          f"{out['phase4']['seconds']:.1f})", flush=True)
+    return out
+
+
+def moe_requests(vocab: int, request_cls) -> list:
+    """11b: MOE_REQUESTS requests of MOE_PROMPT seeded tokens, MOE_GEN
+    generated; the even ones share a MOE_SHARED-token head (a page)."""
+    import numpy as np
+
+    rng = np.random.default_rng(71)
+    head = rng.integers(0, vocab, MOE_SHARED)
+    out = []
+    for i in range(MOE_REQUESTS):
+        toks = rng.integers(0, vocab, MOE_PROMPT)
+        if i % 2 == 0:
+            toks[:MOE_SHARED] = head
+        out.append(request_cls(rid=f"m{i}", tokens=toks.astype(np.int32), gen_len=MOE_GEN,
+                               shared_prefix_len=MOE_SHARED if i % 2 == 0 else None))
+    return out
+
+
+def sliced_init(model, seed: int) -> dict:
+    """``model``'s parameter tree from the port's init_leaf, each stacked
+    leaf (the layer axis and, for experts, the expert axis in front of a
+    (fan-in, width) matrix) drawn one matrix at a time into its bf16 leaf:
+    the same distribution as ``model.init``, without the whole leaf's
+    float32 draw beside it (25.8 GB for grok-1-314b's four layers of one
+    expert weight; the earlier phases leave ~18 GiB the allocator cannot
+    hand back, PERF.md §7)."""
+    import itertools
+
+    import torch
+
+    from repro_torch.nn import lm
+    from repro_torch.nn.common import init_leaf
+
+    g = torch.Generator(device=model.device).manual_seed(seed)
+
+    def make(kind, shape, **kw):
+        if kind not in ("dense", "embed") or len(shape) < 3:
+            return init_leaf(kind, shape, dtype=model.dtype, device=model.device,
+                             generator=g, **kw)
+        out = torch.empty(shape, dtype=kw.get("leaf_dtype") or model.dtype,
+                          device=model.device)
+        for lead in itertools.product(*map(range, shape[:-2])):
+            out[lead] = init_leaf(kind, shape[-2:], dtype=model.dtype, device=model.device,
+                                  generator=g, **kw)
+        return out
+    return lm.lm_params(model.cfg, make)
+
+
+def moe_layers(dev, gpu: str, arch: str, n_layers: int, prefill: tuple, steps: int,
+               tag: str) -> tuple:
+    """(cfg, model, params, result): ``arch`` at full width cut to its first
+    ``n_layers`` layers (seeded from the port's init on the card, bf16,
+    sliced_init), its
+    main path counted (lm_steps_vs_plain) and every kernel call of a prefill
+    and a decode step against its plain version (lm_calls_vs_plain, the
+    moe_dispatch calls against the torch_cpu library's)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.nn.model import Model, build_model
+    from repro_torch.nn.moe import capacity_for
+    from repro_torch.train.optimizer import tree_leaves
+
+    t0 = time.perf_counter()
+    full = get_config(arch)
+    cfg = full.replace(n_layers=n_layers)
+    model = build_model(cfg, device=dev)
+    assert type(model) is Model and model.lib.TARGET_NAME == "h100"
+    params = sliced_init(model, 0)
+    leaves = tree_leaves(params)
+    size = sum(x.numel() * x.element_size() for x in leaves)
+    print(f"[{tag}] {arch} at {n_layers} of {full.n_layers} layers on {gpu}: "
+          f"{sum(x.numel() for x in leaves) / 1e9:.3f}B params ({size / 1e9:.2f} GB bf16; the "
+          f"whole model {full.param_count() / 1e9:.1f}B, "
+          f"{full.param_count() * 2 / 1e9:.0f} GB: no card holds it); capacity "
+          f"{capacity_for(cfg, prefill[0] * prefill[1])} rows an expert at the prefill, "
+          f"{capacity_for(cfg, prefill[0])} at a decode step; init "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+    g = torch.Generator(device=dev).manual_seed(70)
+    tokens = torch.randint(0, cfg.vocab, prefill, generator=g, device=dev)
+    with torch.inference_mode():
+        r = lm_steps_vs_plain(tag, dev, model, params, {"tokens": tokens}, steps,
+                              counted=True, rel_l2=LOGITS_REL_L2)
+        r["calls_vs_plain"] = lm_calls_vs_plain(tag, dev, model, params, {"tokens": tokens})
+    r["bytes"] = size
+    return cfg, model, params, r
+
+
+def moe_phase(dev, gpu: str) -> dict:
+    """Phase 11: the moe family at full width with a stated cut of layers
+    (grok-1-314b is 628 GB in bf16, arctic-480b 958 GB: no card holds
+    either).
+    11a grok-1-314b at MOE_LAYERS of its 64 layers (d 6144, 48 heads of 128
+       over 8, 8 experts of d_ff 32768, top-2, vocab 131072): the main path
+       (Model.prefill of MOE_PREFILL tokens and MOE_DECODE_STEPS decode
+       steps, counted, each against the torch_cpu library under one routing,
+       lm_steps_vs_plain), every kernel call of a prefill and a decode step
+       against its plain version (the swiglu kernel inside expert_ffn) and
+       every moe_dispatch against the torch_cpu library's (exact), the fused
+       paged steps' calls; then the float32 model at MOE_F32_LAYERS layer on
+       both libraries within MOE_F32_REL_L2 (after the serves: the bf16
+       weights go first).
+    11b grok served at 11a's cut: MOE_REQUESTS requests of MOE_PROMPT +
+       MOE_GEN at batch PROFILE_BATCH, chunks and pages of PAGE, lane and
+       fused paged, each a paired_serve under lm_serve_check; the fused run
+       shares the even requests' head (a miss, then hits); every first token
+       equal across the two modes. Phase 4's row: a captured grok decode
+       step.
+    11c arctic-480b at ARCTIC_LAYERS of its 35 layers (128 experts of d_ff
+       4864 and a dense residual MLP of 7168): its main path (ARCTIC_PREFILL,
+       ARCTIC_DECODE_STEPS decode steps, counted) and its kernel calls, as
+       11a (swiglu twice a layer: the experts' and the dense residual's)."""
+    import torch
+
+    from repro_torch.nn.model import build_model
+    from repro_torch.serve import PagedConfig, Request, ServeEngine
+
+    t_phase = time.perf_counter()
+    out = {}
+    t0 = time.perf_counter()
+    cfg, model, params, r = moe_layers(dev, gpu, MOE_ARCH, MOE_LAYERS, MOE_PREFILL,
+                                       MOE_DECODE_STEPS, "phase 11a")
+    with torch.inference_mode():
+        r["paged"] = lm_paged_check("phase 11a", dev, [("bf16", model, params, None)])
+    out["11a"] = r
+    pg = r["paged"]["bf16"]
+    print(f"[phase11a] {MOE_ARCH} prefill {MOE_PREFILL} + {MOE_DECODE_STEPS} decode steps "
+          f"at {MOE_LAYERS} layers on {gpu} ({r['prefill_s']:.3f} s, first call): launches "
+          f"per prefill {r['prefill_launches']}, per decode step {r['decode_step_launches']}, "
+          f"main path {r['launches']}; under one routing, bf16 kernels vs their plain "
+          f"versions worst rel L2 {r['worst_rel_l2']:.3g} (bound {LOGITS_REL_L2}, argmax "
+          f"verdicts), h100 vs torch_cpu library {r['vs_torch_cpu_worst_rel_l2']:.3g} (bound "
+          f"{LOGITS_REL_L2}; argmax beyond a tie on {r['vs_torch_cpu_argmax_failed']}, "
+          f"information: float32 experts there); each library's "
+          f"own routing (information) {json.dumps(r['routing'])}; kernel calls vs plain "
+          f"{json.dumps(r['calls_vs_plain'])}; fused paged steps, calls vs plain "
+          f"{json.dumps(pg['kernel_calls_vs_plain'])}, whole step rel L2 decode "
+          f"{pg['decode']['logits_rel_l2']:.3g}, verify {pg['verify']['logits_rel_l2']:.3g} "
+          f"(information: the plain step routes on its own activations); "
+          f"{json.dumps(r['logits'])}; {time.perf_counter() - t0:.1f} s", flush=True)
+
+    kw = dict(batch=PROFILE_BATCH, max_len=MOE_PROMPT + MOE_GEN, device=dev, params=params,
+              prefill_chunk=PAGE)
+    check = lm_serve_check(cfg, MOE_REQUESTS, MOE_GEN, fused=False, batch=PROFILE_BATCH)
+    out["11b-lane"] = _serve_pair(
+        "phase11b", f"lane serve {MOE_ARCH} at {MOE_LAYERS} layers", gpu,
+        lambda: ServeEngine(cfg, **kw).run(moe_requests(cfg.vocab, Request)), check, True)
+    out["11b-paged"] = _serve_pair(
+        "phase11b", f"fused paged serve {MOE_ARCH} at {MOE_LAYERS} layers", gpu,
+        lambda: ServeEngine(cfg, paged=PagedConfig(page_size=PAGE), **kw).run(
+            moe_requests(cfg.vocab, Request)),
+        lm_serve_check(cfg, MOE_REQUESTS, MOE_GEN, fused=True, batch=PROFILE_BATCH), False)
+    lane, paged = (out[k].pop("report") for k in ("11b-lane", "11b-paged"))
+    pg = paged["paged"]
+    # the even requests' head: one miss, then hits; each odd request's own
+    # first page: a miss
+    n_shared = (MOE_REQUESTS + 1) // 2
+    want_miss = 1 + MOE_REQUESTS - n_shared
+    if pg["prefix_misses"] != want_miss or \
+            pg["prefix_hits"] != n_shared - 1 + pg["preemptions"]:
+        raise AssertionError(f"phase 11b: {pg['prefix_hits']} prefix hits and "
+                             f"{pg['prefix_misses']} misses with {pg['preemptions']} "
+                             f"preemptions, want {n_shared - 1} + preemptions and "
+                             f"{want_miss}")
+    firsts = [r for r in lane["outputs"]
+              if lane["outputs"][r][0] != paged["outputs"][r][0]]
+    if firsts:
+        raise AssertionError(f"phase 11b: first tokens of lane and fused paged mode differ "
+                             f"for {firsts}")
+    same = sum(lane["outputs"][r] == paged["outputs"][r] for r in lane["outputs"])
+    out["11b-paged"]["whole_outputs_equal_to_lane"] = same
+    print(f"[phase11b] {MOE_ARCH} at {MOE_LAYERS} layers on {gpu}: lane "
+          f"{out['11b-lane']['graphs']['decode_tokens_per_s']:.1f} tokens/s (eager "
+          f"{out['11b-lane']['eager']['decode_tokens_per_s']:.1f}), fused paged "
+          f"{out['11b-paged']['graphs']['decode_tokens_per_s']:.1f} (eager "
+          f"{out['11b-paged']['eager']['decode_tokens_per_s']:.1f}), prefix hits "
+          f"{pg['prefix_hits']}, misses {pg['prefix_misses']}; every first token equal "
+          f"across the modes, whole outputs equal for {same}/{MOE_REQUESTS} (information); "
+          f"launches lane {out['11b-lane']['launches']}, fused paged "
+          f"{out['11b-paged']['launches']}; {out['11b-lane']['seconds']:.1f} + "
+          f"{out['11b-paged']['seconds']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    out["phase4"] = lm_profile_rows("phase 11", dev, model, params, gpu,
+                                    MOE_PROMPT + MOE_GEN // 2, ("lane",))
+    out["phase4"]["seconds"] = time.perf_counter() - t0
+
+    # float32 at MOE_F32_LAYERS layer: the bf16 weights go first (``kw``
+    # holds them too)
+    del model, params, kw
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg32 = cfg.replace(n_layers=MOE_F32_LAYERS, dtype="float32")
+    m32 = build_model(cfg32, device=dev)
+    params32 = sliced_init(m32, 0)
+    g = torch.Generator(device=dev).manual_seed(72)
+    tokens = torch.randint(0, cfg.vocab, MOE_PREFILL, generator=g, device=dev)
+    with torch.inference_mode():
+        r32 = _uncounted(lambda: lm_steps_vs_plain(
+            "phase 11a f32", dev, m32, params32, {"tokens": tokens}, MOE_DECODE_STEPS,
+            counted=False, rel_l2=MOE_F32_REL_L2))
+        r32["calls_vs_plain"] = lm_calls_vs_plain("phase 11a f32", dev, m32, params32,
+                                                  {"tokens": tokens})
+    out["11a"]["f32"] = {k: r32[k] for k in ("worst_rel_l2", "vs_torch_cpu_worst_rel_l2",
+                                              "routing", "calls_vs_plain")}
+    out["11a"]["f32"]["seconds"] = time.perf_counter() - t0
+    print(f"[phase11a] {MOE_ARCH} float32 at {MOE_F32_LAYERS} layer on {gpu}: under one "
+          f"routing, kernels vs plain worst rel L2 {r32['worst_rel_l2']:.3g}, h100 vs "
+          f"torch_cpu {r32['vs_torch_cpu_worst_rel_l2']:.3g} (bound {MOE_F32_REL_L2}); own "
+          f"routing {json.dumps(r32['routing'])}; kernel calls vs "
+          f"plain {json.dumps(r32['calls_vs_plain'])}; "
+          f"{out['11a']['f32']['seconds']:.1f} s", flush=True)
+    del m32, params32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg, model, params, r = moe_layers(dev, gpu, ARCTIC_ARCH, ARCTIC_LAYERS, ARCTIC_PREFILL,
+                                       ARCTIC_DECODE_STEPS, "phase 11c")
+    r["seconds"] = time.perf_counter() - t0
+    out["11c"] = r
+    print(f"[phase11c] {ARCTIC_ARCH} prefill {ARCTIC_PREFILL} + {ARCTIC_DECODE_STEPS} decode "
+          f"steps at {ARCTIC_LAYERS} layer on {gpu}: launches per prefill "
+          f"{r['prefill_launches']}, per decode step {r['decode_step_launches']} (swiglu: the "
+          f"experts' and the dense residual's), main path {r['launches']}; under one "
+          f"routing, bf16 kernels vs plain worst rel L2 {r['worst_rel_l2']:.3g}, h100 vs "
+          f"torch_cpu {r['vs_torch_cpu_worst_rel_l2']:.3g} (bound {LOGITS_REL_L2}; argmax "
+          f"beyond a tie on {r['vs_torch_cpu_argmax_failed']}, information); own routing "
+          f"{json.dumps(r['routing'])}; kernel calls vs plain "
+          f"{json.dumps(r['calls_vs_plain'])}; {r['seconds']:.1f} s", flush=True)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[phase11] done on {gpu}: phase {out['seconds']:.1f} s (11b "
+          f"{out['11b-lane']['seconds'] + out['11b-paged']['seconds']:.1f}, phase 4's row "
+          f"{out['phase4']['seconds']:.1f}, 11a float32 {out['11a']['f32']['seconds']:.1f}, "
+          f"11c {out['11c']['seconds']:.1f})", flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5093,14 +6129,32 @@ def main() -> int:
     print(f"[phase9] before: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
           f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved", flush=True)
     whisper = timed("9", whisper_phase, dev, gpu)
-    # each phase-8 and phase-9 path's launches: 8a and 9a the main path
-    # (prefill + decode steps), 8b-8d and 9b-9d each serve's pair
+    # phase 10 holds internvl2-2b's 3.8 GB of weights: whisper-tiny's go first
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[phase10] before: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved", flush=True)
+    vlm = timed("10", vlm_phase, dev, gpu)
+    # phase 11 holds 42.6 GB of grok-1-314b's layers: internvl2-2b's go first
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[phase11] before: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved", flush=True)
+    moe = timed("11", moe_phase, dev, gpu)
+    # each phase-8 to phase-11 path's launches: 8a, 9a, 10a, 11a and 11c the
+    # main path (prefill + decode steps), the others each serve's pair
     paths = {"8a": zamba["8a"]["launches"], "9a": whisper["9a"]["launches"],
              **{part: zamba[part]["launches"] for part in ("8b", "8c", "8d")},
-             **{part: whisper[part]["launches"] for part in ("9b", "9c", "9d")}}
-    want = {"rmsnorm": ("8a", "8b", "8c", "8d"),
-            "flash_attention": ("8a", "9a", "9b", "9c", "9d"),
-            "paged_attention": ("8c", "8d", "9c", "9d")}
+             **{part: whisper[part]["launches"] for part in ("9b", "9c", "9d")},
+             "10a": vlm["10a"]["launches"],
+             **{part: vlm[part]["launches"] for part in ("10b", "10c", "10d")},
+             **{part: moe[part]["launches"] for part in ("11a", "11b-lane", "11b-paged",
+                                                         "11c")}}
+    lm_paths = ("10a", "10b", "10c", "10d", "11a", "11b-lane", "11b-paged", "11c")
+    want = {"rmsnorm": ("8a", "8b", "8c", "8d") + lm_paths,
+            "swiglu": lm_paths,
+            "flash_attention": ("8a", "9a", "9b", "9c", "9d", "10a", "11a", "11c"),
+            "paged_attention": ("8c", "8d", "9c", "9d", "10c", "10d", "11b-paged")}
     for row in kernels:
         for part in want.get(row["name"], ()):
             row[f"launches_phase{part}"] = paths[part][row["name"]]
@@ -5130,7 +6184,11 @@ def main() -> int:
           f"{ {p: zamba[p]['launches'] for p in ('8a', '8b', '8c', '8d')} } "
           f"({zamba['seconds']:.1f} s), {WHISPER_ARCH} launches "
           f"{ {p: whisper[p]['launches'] for p in ('9a', '9b', '9c', '9d')} } "
-          f"({whisper['seconds']:.1f} s) on {gpu}; seconds per phase "
+          f"({whisper['seconds']:.1f} s), {VLM_ARCH} launches "
+          f"{ {p: vlm[p]['launches'] for p in ('10a', '10b', '10c', '10d')} } "
+          f"({vlm['seconds']:.1f} s), moe launches "
+          f"{ {p: moe[p]['launches'] for p in ('11a', '11b-lane', '11b-paged', '11c')} } "
+          f"({moe['seconds']:.1f} s) on {gpu}; seconds per phase "
           f"{json.dumps(phase_s)}; total {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(gpu)

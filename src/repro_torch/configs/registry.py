@@ -6,8 +6,8 @@ import importlib
 
 from .arch import ArchConfig
 
-# the dense family, rwkv (ssm), zamba (hybrid) and whisper (audio); the
-# other families' configs come with their port
+# every family of the JAX package: dense, moe, ssm (rwkv), hybrid (zamba),
+# vlm and audio (whisper)
 _MODULES = {
     "yi-34b": "yi_34b",
     "mistral-large-123b": "mistral_large_123b",
@@ -16,6 +16,9 @@ _MODULES = {
     "rwkv6-7b": "rwkv6_7b",
     "zamba2-7b": "zamba2_7b",
     "whisper-tiny": "whisper_tiny",
+    "internvl2-2b": "internvl2_2b",
+    "arctic-480b": "arctic_480b",
+    "grok-1-314b": "grok1_314b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -11,9 +11,11 @@ Each package mirrors the JAX package's split:
   the launch counter (``<wrapper>.launches``);
 * ``csrc/``     — the CUDA C++ sources, where the kernel is CUDA.
 
-``wkv6/`` and ``ssd/`` are the exceptions: they hold the RWKV6 and the
-Mamba2 SSD recurrences in plain torch and no kernel (the JAX package runs no
-Pallas kernel for either).
+``wkv6/``, ``ssd/`` and ``moe/`` are the exceptions: they hold the RWKV6
+and the Mamba2 SSD recurrences and the mixture-of-experts primitives in
+plain torch and no kernel of their own (the JAX package runs no Pallas
+kernel for any of them; the ``h100`` ``expert_ffn`` calls the swiglu
+kernel).
 
 Neither Triton nor the CUDA toolkit is imported when a module is imported:
 the host that runs the tests has neither.

@@ -12,6 +12,14 @@ is configurable). Runs on the card unless ``--device cpu``.
 
 ``--arch whisper-tiny`` serves the audio family over an encoder of
 ``--prompt-len`` frames (zeros, as the reference's CLI feeds it).
+``--arch internvl2-2b`` serves the vlm family: each request carries its own
+seeded (vision_prefix, d_model) patch embeddings (standard normal, from
+``--seed`` + 1), and the slot table holds the vision rows ahead of the
+prompt. ``--arch grok-1-314b`` / ``arctic-480b`` serve the moe family
+(``--reduced`` on the host: the full configs take hundreds of GB).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-2b \
+        --reduced --device cpu --batch 2 --requests 4 --prompt-len 12 --gen-len 6
 """
 
 from __future__ import annotations
@@ -54,9 +62,10 @@ def main(argv=None) -> dict:
     if args.reduced:
         cfg = cfg.reduced()
 
-    # budget the slot table for the length bucket the prompt pads to, or
-    # admission would refuse every request by construction; a prompt beyond
-    # the largest declared bucket extends the bucket set instead of refusing
+    # budget the slot table for the decode prefix (vlm vision rows) AND the
+    # length bucket the prompt pads to, or admission would refuse every
+    # request by construction; a prompt beyond the largest declared bucket
+    # extends the bucket set instead of refusing
     policy = BucketPolicy.from_upd(chunk=args.prefill_chunk)
     bucket = policy.assign(args.prompt_len)
     buckets = None
@@ -65,7 +74,7 @@ def main(argv=None) -> dict:
         buckets = policy.buckets + (bucket,)
     engine = ServeEngine(
         cfg, batch=args.batch,
-        max_len=bucket + args.gen_len,
+        max_len=cfg.decode_prefix + bucket + args.gen_len,
         sampling=SamplingConfig(temperature=args.temperature, top_k=args.top_k),
         seed=args.seed, device=args.device,
         prefill_chunk=args.prefill_chunk, buckets=buckets,
@@ -81,6 +90,11 @@ def main(argv=None) -> dict:
                 gen_len=args.gen_len, sla_s=sla_s)
         for i in range(args.requests)
     ]
+    if cfg.family == "vlm":
+        vision = np.random.default_rng(args.seed + 1)
+        for r in requests:
+            r.embeds = vision.standard_normal(
+                (cfg.vision_prefix, cfg.d_model)).astype(np.float32)
 
     report = engine.run(requests)
     first = report["outputs"].get("req0", [])

@@ -1,4 +1,5 @@
-"""Decoder-only transformer LM, dense family (mirrors ``repro/nn/lm.py``).
+"""Decoder-only transformer LM: the dense, moe and vlm backbones (mirrors
+``repro/nn/lm.py``).
 
 Layer params stay stacked along a leading L axis — the reference's layout,
 so its params load 1:1 — and a Python loop over the layers replaces
@@ -8,6 +9,15 @@ in ``torch.utils.checkpoint`` as the reference wraps its scan body in
 Decode, prefill-chunk and the speculative verify span write the KV cache
 state IN PLACE (see ``nn/attention.py``) and return it; the fused paged
 decode and verify steps write the page pools in place the same way.
+
+The moe family swaps every block's MLP for ``nn/moe.py``'s mixture of
+experts; its load-balance aux term is a training term, and training the
+moe family is not ported yet (ROADMAP.md, queue 1, item 15). The vlm
+family projects a request's (B, vision_prefix, D) patch embeddings through
+``vision_proj`` and reads them AHEAD of the first prompt token
+(``embed_inputs``): ``lm_forward`` and ``lm_prefill`` take them, and so does
+``lm_prefill_chunk`` on a request's first chunk, whose logits then have
+prefix + C rows. The decode, verify and paged steps are unchanged.
 """
 
 from __future__ import annotations
@@ -19,6 +29,7 @@ from .attention import (attention_decode, attention_forward, attention_prefill_c
                         attention_span_paged, attention_verify, init_attention)
 from .common import apply_norm_params, init_norm
 from .mlp import init_mlp, mlp_forward
+from .moe import init_moe, moe_forward
 
 
 def lm_params(cfg, make):
@@ -30,12 +41,18 @@ def lm_params(cfg, make):
             "attn_norm": init_norm(cfg, make, L),
             "attn": init_attention(cfg, make, L),
             "mlp_norm": init_norm(cfg, make, L),
-            "mlp": init_mlp(cfg, make, L),
         },
         "final_norm": init_norm(cfg, make),
     }
+    if cfg.n_experts:
+        params["blocks"]["moe"] = init_moe(cfg, make, L)
+    else:
+        params["blocks"]["mlp"] = init_mlp(cfg, make, L)
     if not cfg.tie_embeddings:
         params["head"] = make("dense", (cfg.d_model, cfg.padded_vocab))
+    if cfg.vision_prefix:
+        # the stub frontend's projection stands in for the ViT adapter
+        params["vision_proj"] = make("dense", (cfg.d_model, cfg.d_model))
     return params
 
 
@@ -53,21 +70,41 @@ def _block_forward(tsl, bp, x, cfg, positions):
     h, kv = attention_forward(tsl, bp["attn"],
                               apply_norm_params(tsl, cfg, bp["attn_norm"], x),
                               cfg, causal=True, positions=positions)
-    x = x + h
-    y = mlp_forward(tsl, bp["mlp"], apply_norm_params(tsl, cfg, bp["mlp_norm"], x), cfg)
-    return x + y, kv
+    return _ffn_residual(tsl, bp, x + h, cfg), kv
 
 
-def lm_forward(tsl, params, tokens, cfg, *, collect_cache: bool = False,
-               last_only: bool = False, remat: bool = False):
-    """tokens (B,S) -> (logits (B,S,V), caches | None).
+def _ffn_residual(tsl, bp, x, cfg):
+    """x + the block's feed-forward of its normed x: the moe family's
+    mixture of experts (its aux term dropped: no ported step trains the moe
+    family) or the MLP."""
+    y = apply_norm_params(tsl, cfg, bp["mlp_norm"], x)
+    if cfg.n_experts:
+        return x + moe_forward(tsl, bp["moe"], y, cfg)[0]
+    return x + mlp_forward(tsl, bp["mlp"], y, cfg)
 
-    ``collect_cache``: also return each layer's (k, v), (B,KH,S,hd).
+
+def embed_inputs(tsl, params, tokens, cfg, vision_embeds=None):
+    """The token embeddings, behind the projected vision prefix when the
+    config has one and ``vision_embeds`` (B, vision_prefix, D) is given."""
+    x = tsl.embed_lookup(params["embed"], tokens)
+    if cfg.vision_prefix and vision_embeds is not None:
+        v = tsl.matmul(vision_embeds.to(x.dtype), params["vision_proj"])
+        x = torch.cat([v, x], dim=1)
+    return x
+
+
+def lm_forward(tsl, params, tokens, cfg, *, vision_embeds=None,
+               collect_cache: bool = False, last_only: bool = False,
+               remat: bool = False):
+    """tokens (B,S) -> (logits (B,S',V), caches | None), S' = S plus the
+    vision prefix rows when ``vision_embeds`` is given.
+
+    ``collect_cache``: also return each layer's (k, v), (B,KH,S',hd).
     ``last_only``: logits for the final position only (prefill path —
-    avoids materializing the (B,S,V) tensor).
+    avoids materializing the (B,S',V) tensor).
     ``remat``: recompute each block's activations in the backward
     (``torch.utils.checkpoint``, non-reentrant) instead of keeping them."""
-    x = tsl.embed_lookup(params["embed"], tokens)
+    x = embed_inputs(tsl, params, tokens, cfg, vision_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     kvs = []
     for bp in unstack_layers(params["blocks"], cfg.n_layers):
@@ -116,11 +153,12 @@ def state_page_axes(state):
     return {k: 3 for k in state}
 
 
-def lm_prefill(tsl, params, tokens, cfg, *, max_len: int):
-    """Full-sequence prefill; returns (last_logits (B,V), decode state)."""
-    logits, kvs = lm_forward(tsl, params, tokens, cfg, collect_cache=True,
-                             last_only=True)
-    b, s = tokens.shape
+def lm_prefill(tsl, params, tokens, cfg, *, max_len: int, vision_embeds=None):
+    """Full-sequence prefill; returns (last_logits (B,V), decode state), the
+    cache filled to the vision prefix + S rows."""
+    logits, kvs = lm_forward(tsl, params, tokens, cfg, vision_embeds=vision_embeds,
+                             collect_cache=True, last_only=True)
+    b, s = tokens.shape[0], kvs[0][0].shape[2]
     state = init_decode_state(cfg, b, max_len, params["embed"].dtype,
                               params["embed"].device)
     for i, (k, v) in enumerate(kvs):
@@ -129,7 +167,7 @@ def lm_prefill(tsl, params, tokens, cfg, *, max_len: int):
     return logits[:, -1], state
 
 
-def lm_prefill_chunk(tsl, params, state, tokens, pos, cfg):
+def lm_prefill_chunk(tsl, params, state, tokens, pos, cfg, *, vision_embeds=None):
     """Continuation prefill of one chunk into a live decode state (in place).
 
     tokens (B,C): the next chunk of the prompt; ``pos`` is the cache fill
@@ -137,17 +175,17 @@ def lm_prefill_chunk(tsl, params, state, tokens, pos, cfg):
     step passes it) — the chunk's K/V land at rows [pos, pos+C) and its
     queries attend causally to everything up to themselves. Trailing padding
     rows in the chunk need no masking (see attention_prefill_chunk); the
-    caller reads logits at its last real row.
+    caller reads logits at its last real row. ``vision_embeds`` (vlm, first
+    chunk only, (B, prefix, D)) puts the projected vision prefix rows ahead
+    of the chunk's: C' = prefix + C rows land at [pos, pos+C').
 
-    Returns (logits (B, C, V), state)."""
-    x = tsl.embed_lookup(params["embed"], tokens)
+    Returns (logits (B, C', V), state)."""
+    x = embed_inputs(tsl, params, tokens, cfg, vision_embeds)
     for i, bp in enumerate(unstack_layers(params["blocks"], cfg.n_layers)):
         h, _, _ = attention_prefill_chunk(
             tsl, bp["attn"], apply_norm_params(tsl, cfg, bp["attn_norm"], x),
             state["k"][i], state["v"][i], pos, cfg)
-        x = x + h
-        x = x + mlp_forward(tsl, bp["mlp"],
-                            apply_norm_params(tsl, cfg, bp["mlp_norm"], x), cfg)
+        x = _ffn_residual(tsl, bp, x + h, cfg)
     x = apply_norm_params(tsl, cfg, params["final_norm"], x)
     return lm_head(tsl, params, x, cfg), state
 
@@ -161,9 +199,7 @@ def lm_decode_step(tsl, params, state, tokens_t, pos, cfg):
         h, _, _ = attention_decode(
             tsl, bp["attn"], apply_norm_params(tsl, cfg, bp["attn_norm"], x),
             state["k"][i], state["v"][i], pos, cfg)
-        x = x + h
-        x = x + mlp_forward(tsl, bp["mlp"],
-                            apply_norm_params(tsl, cfg, bp["mlp_norm"], x), cfg)
+        x = _ffn_residual(tsl, bp, x + h, cfg)
     x = apply_norm_params(tsl, cfg, params["final_norm"], x)
     return lm_head(tsl, params, x, cfg)[:, 0], state
 
@@ -182,9 +218,7 @@ def lm_verify_step(tsl, params, state, tokens, pos, cfg):
         h, _, _ = attention_verify(
             tsl, bp["attn"], apply_norm_params(tsl, cfg, bp["attn_norm"], x),
             state["k"][i], state["v"][i], pos, cfg)
-        x = x + h
-        x = x + mlp_forward(tsl, bp["mlp"],
-                            apply_norm_params(tsl, cfg, bp["mlp_norm"], x), cfg)
+        x = _ffn_residual(tsl, bp, x + h, cfg)
     x = apply_norm_params(tsl, cfg, params["final_norm"], x)
     return lm_head(tsl, params, x, cfg), state
 
@@ -207,9 +241,7 @@ def _lm_paged_span(tsl, params, pools, tables, tokens, pos, cfg, span_op):
             tsl, bp["attn"], apply_norm_params(tsl, cfg, bp["attn_norm"], x),
             pools["k"][i, 0], pools["v"][i, 0], tables, pos, cfg, span_op,
             kv_len=kv_len, **scales)
-        x = x + h
-        x = x + mlp_forward(tsl, bp["mlp"],
-                            apply_norm_params(tsl, cfg, bp["mlp_norm"], x), cfg)
+        x = _ffn_residual(tsl, bp, x + h, cfg)
     x = apply_norm_params(tsl, cfg, params["final_norm"], x)
     return lm_head(tsl, params, x, cfg), pools
 

@@ -1,8 +1,9 @@
-"""Model facade (mirrors ``repro/nn/model.py``) for the dense ``lm`` family,
-the rwkv (``ssm``) family, the zamba (``hybrid``) family and the whisper
-(``audio``) family.
+"""Model facade (mirrors ``repro/nn/model.py``) for every family of the
+reference: the ``lm`` backbone's dense, ``moe`` (grok, arctic) and ``vlm``
+(internvl2) families, the rwkv (``ssm``) family, the zamba (``hybrid``)
+family and the whisper (``audio``) family.
 
-``build_model(cfg, device=...)`` returns a :class:`Model` (dense), a
+``build_model(cfg, device=...)`` returns a :class:`Model` (dense, moe, vlm), a
 :class:`RwkvModel`, a :class:`ZambaModel` or an :class:`EncDecModel` bound
 to the generated library for its device (``h100``
 kernels on the card, ``torch_cpu`` plain versions on the host; ``target=``
@@ -10,23 +11,30 @@ overrides), with one surface:
 
     init(seed) -> params                 (seeded torch.Generator on the device)
     forward_logits(params, batch) -> logits (B,S,V)
+        (vlm: ``batch["vision_embeds"]`` (B, vision_prefix, D), when given,
+         goes ahead of the tokens: S + vision_prefix rows of logits)
     loss(params, batch, *, remat=True) -> (scalar, {"ce", "aux"})
         (mean next-token cross-entropy of ``batch["labels"]`` plus 0.01·aux,
          aux 0 for the dense family; differentiable: a train step makes the
          params leaves that require grad, serving keeps inference mode)
     prefill(params, batch, max_len) -> (last_logits (B,V), state)
-        (audio: ``batch["audio_embeds"]`` (B, enc_len, D) too)
+        (audio: ``batch["audio_embeds"]`` (B, enc_len, D) too; vlm:
+         ``batch["vision_embeds"]``, the cache then filled to prefix + S)
     prefill_chunk(params, state, tokens, pos, n_real=None[, embeds=None])
         -> (logits (B,C,V), state)
         (continuation prefill of one chunk at cache fill ``pos``, an int or
          a (B,) device tensor; ``n_real`` (int or device tensor) counts the
-         chunk's real rows, the rest trailing padding. The dense and audio
-         families ignore it: their padding rows need no masking
-         (nn/attention.py). rwkv and zamba skip their recurrent updates
-         exactly; rwkv ignores ``pos``. ``embeds``, the audio family's
-         only: the request's (B, enc_len, D) frames, which ride the FIRST
-         chunk (the encoder runs there and seeds the cross K/V), as the
-         reference's do. The reference's ``kv_len`` has no counterpart)
+         chunk's real rows, the rest trailing padding. The lm backbone's
+         and the audio family ignore it: their padding rows need no masking
+         (nn/attention.py; moe padding rows are routed like real ones, as
+         in the reference). rwkv and zamba skip their recurrent updates
+         exactly; rwkv ignores ``pos``. ``embeds``, the audio and vlm
+         families' only, rides the FIRST chunk, as the reference's does:
+         audio, the request's (B, enc_len, D) frames (the encoder runs
+         there and seeds the cross K/V); vlm, its (B, vision_prefix, D)
+         patch embeddings, whose projected rows go ahead of the chunk's
+         (logits (B, prefix + C, V)). The reference's ``kv_len`` has no
+         counterpart)
     decode_step(params, state, tokens_t, pos) -> (logits (B,V), state)
         (pos: int, or a (B,) tensor of per-slot positions)
     verify_step(params, state, tokens, pos) -> (logits (B,SV,V), state)
@@ -67,7 +75,7 @@ Unlike the reference, state is updated IN PLACE by prefill_chunk,
 decode_step, the dense verify_step, the recurrent families' verify_commit,
 insert_slot and reset_slot (each still returns it), and the page pools by
 decode_step_paged, verify_step_paged and zamba's verify_commit_paged. rwkv
-zamba and whisper are served, not trained: their ``loss`` raises.
+zamba, whisper, vlm and moe are served, not trained: their ``loss`` raises.
 
 ``load_jax_params(np_tree, cfg, device)`` turns the reference's params
 (``build_model(cfg).init(PRNGKey(s))``, ``np.asarray`` per leaf) into this
@@ -89,17 +97,20 @@ from repro_torch.device import resolve_device
 from . import encdec, lm, rwkv_lm, zamba
 from .common import init_leaf
 
-# where the families that are not ported yet, and rwkv's, zamba's and
-# whisper's training, stand
-FAMILIES_TODO = "ROADMAP.md, queue 1, item 6"
+# where rwkv's, zamba's, whisper's, internvl2's and the moe family's
+# training stand
 RWKV_TRAIN_TODO = "training the ssm (rwkv) family is not ported yet " \
                   "(ROADMAP.md, queue 1, item 11)"
 HYBRID_TRAIN_TODO = "training the hybrid (zamba) family is not ported yet " \
                     "(ROADMAP.md, queue 1, item 12)"
 AUDIO_TRAIN_TODO = "training the audio (whisper) family is not ported yet " \
                    "(ROADMAP.md, queue 1, item 13)"
+VLM_TRAIN_TODO = "training the vlm (internvl2) family is not ported yet " \
+                 "(ROADMAP.md, queue 1, item 14)"
+MOE_TRAIN_TODO = "training the moe (grok, arctic) family is not ported yet " \
+                 "(ROADMAP.md, queue 1, item 15)"
 TRAIN_TODO = {"ssm": RWKV_TRAIN_TODO, "hybrid": HYBRID_TRAIN_TODO,
-              "audio": AUDIO_TRAIN_TODO}
+              "audio": AUDIO_TRAIN_TODO, "vlm": VLM_TRAIN_TODO, "moe": MOE_TRAIN_TODO}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -131,10 +142,13 @@ class Model:
         return lm.lm_params(self.cfg, _init_make(self, seed))
 
     def forward_logits(self, params, batch):
-        logits, _ = lm.lm_forward(self.tsl, params, batch["tokens"], self.cfg)
+        logits, _ = lm.lm_forward(self.tsl, params, batch["tokens"], self.cfg,
+                                  vision_embeds=batch.get("vision_embeds"))
         return logits
 
     def loss(self, params, batch, *, remat: bool = True):
+        if self.cfg.family in TRAIN_TODO:
+            raise NotImplementedError(TRAIN_TODO[self.cfg.family])
         logits, _ = lm.lm_forward(self.tsl, params, batch["tokens"], self.cfg,
                                   remat=remat)
         ce = self.tsl.cross_entropy(logits, batch["labels"]).mean()
@@ -143,10 +157,11 @@ class Model:
 
     def prefill(self, params, batch, max_len: int):
         return lm.lm_prefill(self.tsl, params, batch["tokens"], self.cfg,
-                             max_len=max_len)
+                             max_len=max_len, vision_embeds=batch.get("vision_embeds"))
 
-    def prefill_chunk(self, params, state, tokens, pos, n_real=None):
-        return lm.lm_prefill_chunk(self.tsl, params, state, tokens, pos, self.cfg)
+    def prefill_chunk(self, params, state, tokens, pos, n_real=None, embeds=None):
+        return lm.lm_prefill_chunk(self.tsl, params, state, tokens, pos, self.cfg,
+                                   vision_embeds=embeds)
 
     def decode_step(self, params, state, tokens_t, pos):
         return lm.lm_decode_step(self.tsl, params, state, tokens_t, pos, self.cfg)
@@ -355,18 +370,32 @@ class EncDecModel(Model):
                                                tokens, pos, self.cfg)
 
 
-_FAMILIES = {"dense": (Model, lm.lm_params), "ssm": (RwkvModel, rwkv_lm.rwkv_params),
+_FAMILIES = {"dense": (Model, lm.lm_params), "moe": (Model, lm.lm_params),
+             "vlm": (Model, lm.lm_params), "ssm": (RwkvModel, rwkv_lm.rwkv_params),
              "hybrid": (ZambaModel, zamba.zamba_params),
              "audio": (EncDecModel, encdec.encdec_params)}
 
 
 def _family(cfg: ArchConfig):
-    if cfg.family not in _FAMILIES or (
-            cfg.family == "dense" and (cfg.act, cfg.norm) != ("swiglu", "rmsnorm")):
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported "
+                                  f"(the families are {sorted(_FAMILIES)})")
+    if cfg.family in ("dense", "moe", "vlm") and (cfg.act, cfg.norm) != ("swiglu",
+                                                                         "rmsnorm"):
+        # the lm backbone's configs are all swiglu / rmsnorm, as are the
+        # reference's: another pair is a config no family here describes
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} ({cfg.act}, {cfg.norm}) is not "
-            f"ported yet (this port has the dense swiglu/rmsnorm lm family, rwkv, "
-            f"zamba and whisper; {FAMILIES_TODO})")
+            f"{cfg.name}: an lm-backbone config with ({cfg.act}, {cfg.norm}) is not "
+            f"ported: the dense, moe and vlm families are swiglu / rmsnorm")
+    if cfg.family == "moe" and not (0 < cfg.experts_per_token <= cfg.n_experts):
+        raise NotImplementedError(
+            f"{cfg.name}: a moe config with n_experts={cfg.n_experts} and "
+            f"experts_per_token={cfg.experts_per_token} is not ported: the moe family "
+            f"routes each token to 0 < experts_per_token <= n_experts experts")
+    if cfg.family == "vlm" and cfg.vision_prefix <= 0:
+        raise NotImplementedError(
+            f"{cfg.name}: a vlm config with vision_prefix={cfg.vision_prefix} is not "
+            f"ported: the vlm family reads vision_prefix > 0 patch rows")
     if cfg.family == "hybrid" and (cfg.attn_every <= 0 or cfg.ssm_state <= 0):
         # zamba's layout divides the layers by attn_every, and its SSD has
         # ssm_state channels: a config without either is no zamba
@@ -395,7 +424,9 @@ def load_jax_params(np_tree: dict, cfg: ArchConfig,
     """The reference's params as this port's params: the same nested dict
     and the same stacked (L, ...) leaves (zamba's grouped (G, k, ...) and
     remainder (rem, ...) ones; whisper's ``enc_blocks`` and ``dec_blocks``,
-    its layernorms' ``b`` leaves among them), copied 1:1 (no transposes), each in its own
+    its layernorms' ``b`` leaves among them; the moe blocks' ``moe`` subtree
+    with its (L, E, ...) experts and arctic's ``dense``; internvl2's
+    ``vision_proj``), copied 1:1 (no transposes), each in its own
     dtype (rwkv's ``w_base``, zamba's ``A_log``, ``dt_bias`` and ``D_skip``
     are float32 in a bf16 model). Raises on a missing, extra or misshaped
     leaf."""

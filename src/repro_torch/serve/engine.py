@@ -103,6 +103,19 @@ cross K/V (a captured step of its own). The cross K/V are tails: fused paged
 mode keeps them in the slot table beside the self-attention pages, and the
 prefix key hashes the frames, so requests with equal tokens and other
 frames never share.
+
+The vlm family (internvl2): a request's (vision_prefix, D) patch embeddings
+(``Request.embeds``, zeros when it carries none) ride its FIRST prefill
+chunk, whose projected rows go into the cache AHEAD of the prompt's (a
+captured step of its own, C + vision_prefix rows): every fill, bucket fit,
+page count and overrun guard counts those ``cfg.decode_prefix`` rows, the
+first chunk's logits are read past them, and a shared prefix's boundary is
+page-aligned in rows (prefix + tokens), its key hashing the embeddings as
+the audio family's does its frames (``repro/serve/engine.py:147-160``,
+``:385-387``, ``:577-586``, ``:969``). The moe family (grok, arctic) needs
+nothing of its own here: its steps route every row of the step together,
+so like the reference's its outputs depend on the step schedule, padding
+rows and idle slots included.
 """
 
 from __future__ import annotations
@@ -190,15 +203,18 @@ class ServeEngine:
         self.model = build_model(cfg, device=device, target=target)
         self.device = self.model.device
         self.params = params if params is not None else self.model.init(seed)
+        # the slot cache is filled to decode_prefix (the vlm family's vision
+        # rows) + prompt_len, and decode writes after it
+        self._prefix = cfg.decode_prefix
         # chunk size + admissible padded prompt lengths are UPD data; buckets
-        # that cannot fit the slot table (bucket + 1 gen token) are dropped,
-        # and an engine with none left falls back to the largest chunk
-        # multiple that fits
+        # that cannot fit the slot table (prefix + bucket + 1 gen token) are
+        # dropped, and an engine with none left falls back to the largest
+        # chunk multiple that fits
         base = BucketPolicy.from_upd(chunk=prefill_chunk, buckets=buckets)
         chunk = base.chunk
-        fit = tuple(b for b in base.buckets if b + 1 <= max_len)
+        fit = tuple(b for b in base.buckets if self._prefix + b + 1 <= max_len)
         if not fit:
-            largest = ((max_len - 1) // chunk) * chunk
+            largest = ((max_len - self._prefix - 1) // chunk) * chunk
             if largest < chunk:
                 raise ValueError(
                     f"max_len={max_len} leaves no room for a single "
@@ -320,28 +336,36 @@ class ServeEngine:
     def _chunk(self, task: _PrefillTask, seg: np.ndarray, n_real: int):
         """One continuation-prefill chunk into the task's donor; returns a
         copy of the logits row at the chunk's last REAL token, (1, V) (the
-        step's logits are overwritten by the next step). The audio family's
-        first chunk carries the request's frames."""
+        step's logits are overwritten by the next step). The audio and vlm
+        families' first chunk carries the request's media; the vlm one's
+        logits have the vision prefix rows first, and are read past them."""
         embeds = self._first_chunk_embeds(task.req) if task.chunk_idx == 0 else None
         logits = run_prefill_chunk(self._graphs, self.model, self.params, task.donor, seg,
                                    task.fill, n_real, embeds=embeds)
-        return logits[:, max(n_real, 1) - 1].clone()
+        prefix = logits.shape[1] - seg.shape[1]
+        return logits[:, prefix + max(n_real, 1) - 1].clone()
 
     def _first_chunk_embeds(self, req: Request) -> torch.Tensor | None:
-        """The audio family's media for a FIRST chunk (``repro/serve/
-        engine.py:547-559``): the request's (1, enc_len, D) frames in the
-        model's dtype on its device, zeros when it carries none; None for
-        the other families."""
-        if self.cfg.family != "audio":
+        """The media for a request's FIRST chunk (``repro/serve/engine.py:
+        547-559``), in the model's dtype on its device, zeros when it
+        carries none: the audio family's (1, enc_len, D) frames, the vlm
+        family's (1, vision_prefix, D) patch embeddings; None for the other
+        families. Media of another shape raise."""
+        if self.cfg.family == "audio":
+            rows, kind, what = self.enc_len, "frames", f"enc_len {self.enc_len}"
+        elif self.cfg.family == "vlm":
+            rows, kind = self.cfg.vision_prefix, "patch embeddings"
+            what = f"vision_prefix {rows}"
+        else:
             return None
-        shape = (1, self.enc_len, self.cfg.d_model)
+        shape = (1, rows, self.cfg.d_model)
         if req.embeds is None:
             return torch.zeros(shape, dtype=self.model.dtype, device=self.device)
-        frames = torch.as_tensor(np.asarray(req.embeds, np.float32))[None]
-        if tuple(frames.shape) != shape:
-            raise ValueError(f"request {req.rid!r}: frames {tuple(frames.shape[1:])} are "
-                             f"not (enc_len {self.enc_len}, d_model {self.cfg.d_model})")
-        return frames.to(device=self.device, dtype=self.model.dtype)
+        media = torch.as_tensor(np.asarray(req.embeds, np.float32))[None]
+        if tuple(media.shape) != shape:
+            raise ValueError(f"request {req.rid!r}: {kind} {tuple(media.shape[1:])} are "
+                             f"not ({what}, d_model {self.cfg.d_model})")
+        return media.to(device=self.device, dtype=self.model.dtype)
 
     def _step_kinds(self) -> tuple:
         """The compiled step kinds this engine reports (``jit_cache``)."""
@@ -397,7 +421,8 @@ class ServeEngine:
         or (None, 0). The boundary is the largest chunk-aligned token count
         <= the caller's shared_prefix_len hint (default: the whole prompt
         minus its last token — the first token's logits must come from a
-        re-run chunk) that is page-aligned: only whole pages are shared."""
+        re-run chunk) whose ROW count (the vlm vision prefix + tokens) is
+        page-aligned: only whole pages are shared."""
         if self._store is None or not self.paged.prefix_sharing:
             return None, 0
         cap = req.prompt_len - 1 if req.shared_prefix_len is None \
@@ -405,14 +430,14 @@ class ServeEngine:
         chunk = self.policy.chunk
         t = (cap // chunk) * chunk
         if self._store.paged:
-            while t >= chunk and t % self._store.page:
+            while t >= chunk and (self._prefix + t) % self._store.page:
                 t -= chunk
         if t < chunk:
             return None, 0
         key = prefix_key(arch=self.cfg.name, page_size=self._store.page,
-                         int8=self._store.int8, seed=self._seed,
+                         int8=self._store.int8, seed=self._seed, prefix_rows=self._prefix,
                          tokens=np.asarray(req.tokens, np.int64)[:t], embeds=req.embeds)
-        return key, t
+        return key, self._prefix + t
 
     def _reserve_paged(self, sched: Scheduler, tasks: list, now, step: int) -> None:
         """Paged reservation: admit up to max_inflight concurrent prefills,
@@ -435,7 +460,7 @@ class ServeEngine:
                 bucket = BucketPolicy.round_up(req.prompt_len, chunk)
             req.bucket = bucket
             try:
-                shared = self._store.attach(req.rid, prompt_rows=req.prompt_len,
+                shared = self._store.attach(req.rid, prompt_rows=self._prefix + req.prompt_len,
                                             share_key=share_key)
             except PagesExhausted:
                 # admission saw enough pages, the attach lost the race:
@@ -452,7 +477,7 @@ class ServeEngine:
                 # the chunks they cover — shared rows are never prefilled
                 task.donor = self._store.load_donor(req.rid, task.donor)
                 task.fill = shared
-                task.chunk_idx = shared // chunk
+                task.chunk_idx = (shared - self._prefix) // chunk
             elif share_key is not None:
                 task.publish = True
                 self._inflight_keys[share_key] = req.rid
@@ -726,7 +751,8 @@ class ServeEngine:
                 c0 = task.chunk_idx * chunk
                 seg = task.padded[:, c0:c0 + chunk]
                 n_real = max(0, min(task.req.prompt_len - c0, chunk))
-                if task.fill + chunk > self.max_len:
+                writes = chunk + (self._prefix if task.chunk_idx == 0 else 0)
+                if task.fill + writes > self.max_len:
                     raise RuntimeError(
                         f"prefill chunk for {task.req.rid!r} would overrun "
                         f"max_len={self.max_len} (admission off?)")
@@ -738,6 +764,8 @@ class ServeEngine:
                                            n_real)
                 task.chunk_idx += 1
                 ran.append(task)
+                if task.chunk_idx == 1:
+                    task.fill += self._prefix       # the vlm vision rows
                 if n_real:
                     task.fill += n_real
                     task.first_logits = last

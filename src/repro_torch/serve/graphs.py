@@ -97,11 +97,14 @@ def run_prefill_chunk(graphs: StepGraphs, model, params, donor: dict,
     real and the rest padding, into the batch-1 ``donor`` at cache fill
     ``fill``, the donor updated in place (staged through the step's own
     donor). ``fill`` and ``n_real`` are staged (1,) device tensors, so one
-    captured chunk serves every fill and padding amount. ``embeds``, the
-    audio family's first chunk's (1, enc_len, D) frames on the device, runs
-    the encoder too: other shapes and other work, so a step of its own,
-    keyed apart, as the reference's jitted chunk compiles a second entry
-    for it. Returns the static (1, C, V) logits."""
+    captured chunk serves every fill and padding amount. ``embeds``, a
+    first chunk's media on the device (the audio family's (1, enc_len, D)
+    frames, whose chunk runs the encoder too; the vlm family's (1,
+    vision_prefix, D) patch embeddings, whose chunk runs prefix + C rows),
+    makes other shapes and other work, so a step of its own, keyed apart,
+    as the reference's jitted chunk compiles a second entry for it. Returns
+    the static (1, C, V) logits ((1, prefix + C, V) for a vlm first
+    chunk)."""
     args = {"tokens": tokens, "fill": np.asarray([fill], np.int64),
             "n_real": np.asarray([n_real], np.int64), **donor}
     key = tokens.shape[1]

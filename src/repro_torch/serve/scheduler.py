@@ -119,8 +119,9 @@ class Request:
     system prompt; None lets the engine share the whole prompt minus its
     last token), and ``resume_token`` is set on a PREEMPTED continuation —
     the emitted but unconsumed token to resume with instead of sampling a
-    first one. ``embeds``: the audio family's (enc_len, D) encoder frames
-    (None: zeros), which ride the first prefill chunk."""
+    first one. ``embeds``: the request's media, which ride its first
+    prefill chunk: the audio family's (enc_len, D) encoder frames or the vlm
+    family's (vision_prefix, D) patch embeddings (None: zeros)."""
 
     rid: str
     tokens: object                  # prompt token array (1-D, int)
@@ -131,7 +132,7 @@ class Request:
     temperature: float | None = None
     shared_prefix_len: int | None = None
     resume_token: int | None = None
-    embeds: object | None = None    # per-request media: audio (enc_len, D) frames
+    embeds: object | None = None    # per-request media: audio frames, vlm patches
 
     @property
     def prompt_len(self) -> int:
@@ -171,10 +172,12 @@ class Refusal:
     reason: str
 
 
-# attention layers a decode step reads a cache in, per family priced: zamba
-# applies its one shared block after every attn_every Mamba2 layers; a
-# whisper decoder layer reads two, its self-attention cache and the cross K/V
-_ATTN_LAYERS = {"dense": lambda cfg: cfg.n_layers, "ssm": lambda cfg: 0,
+# attention layers a decode step reads a cache in, per family priced: the lm
+# backbone's (dense, moe, vlm) one a layer; zamba applies its one shared
+# block after every attn_every Mamba2 layers; a whisper decoder layer reads
+# two, its self-attention cache and the cross K/V
+_ATTN_LAYERS = {"dense": lambda cfg: cfg.n_layers, "moe": lambda cfg: cfg.n_layers,
+                "vlm": lambda cfg: cfg.n_layers, "ssm": lambda cfg: 0,
                 "hybrid": lambda cfg: cfg.n_layers // max(cfg.attn_every, 1),
                 "audio": lambda cfg: 2 * cfg.n_layers}
 # families whose speculative commit replays the accepted prefix
@@ -193,7 +196,8 @@ class CostModelAdmission:
     zamba (hybrid: 13 shared-block applications for zamba2-7b), and two a
     decoder layer for whisper (audio: the self-attention cache at the fill,
     the cross K/V at the fixed ``enc_len``, default the fill, as
-    ``repro/serve/scheduler.py:327-331`` prices them). The
+    ``repro/serve/scheduler.py:327-331`` prices them), and n_layers for the
+    moe and vlm families. The
     reference adds each family's recurrent-state term (``ssd_scan`` /
     ``wkv6_scan``) only to the collective bytes of a tensor-parallel mesh
     (``comms_bytes_per_step``), which vanish at one shard, so neither
@@ -210,7 +214,15 @@ class CostModelAdmission:
 
     ``param_bytes`` is the reference's ``cfg.param_count()``, which for
     rwkv omits a few leaves of the real tree (7.00 B against 7.53 B for
-    rwkv6-7b): admission prices as the reference does.
+    rwkv6-7b): admission prices as the reference does; for the moe family
+    it counts the ACTIVE parameters (``active_only``: the routed
+    experts_per_token experts of each layer), as the reference does.
+
+    The vlm family's vision prefix (``cfg.decode_prefix`` rows ahead of the
+    prompt) takes slot-table rows like prompt tokens: it is added to the
+    rows a request needs, to the cache fill its attention reads are charged
+    at, and to every prefill chunk's fill (``repro/serve/scheduler.py:
+    464``, ``:508-511``).
 
     All are deliberately idealized (roofline = best case), so a request
     whose deadline fails even the best case is hopeless and refusing it is
@@ -221,15 +233,16 @@ class CostModelAdmission:
     def __init__(self, cfg, batch: int, max_len: int, *, lib,
                  policy: BucketPolicy | None = None, enc_len: int | None = None):
         if cfg.family not in _ATTN_LAYERS:
-            raise NotImplementedError(f"admission prices the dense, ssm, hybrid and "
-                                      f"audio families only, not {cfg.family!r}")
+            raise NotImplementedError(f"admission prices the families "
+                                      f"{sorted(_ATTN_LAYERS)} only, not {cfg.family!r}")
         self.cfg = cfg
         self.batch = batch
         self.max_len = max_len
         self.enc_len = enc_len          # audio: the fixed cross K/V length
         self.lib = lib
         self.policy = policy            # None -> exact-length admission
-        self.param_bytes = cfg.param_count() * self._dtype_bytes()
+        self.prefix = cfg.decode_prefix  # vlm: the vision rows ahead of the prompt
+        self.param_bytes = self._params() * self._dtype_bytes()
         self._attn_layers = _ATTN_LAYERS[cfg.family](cfg)
         self.hbm_bw = float(lib.TARGET.hbm_bw)
         self.peak_flops = float(lib.TARGET.peak_flops_bf16)
@@ -241,6 +254,10 @@ class CostModelAdmission:
 
     def _dtype_bytes(self) -> int:
         return 2 if "16" in self.cfg.dtype else 4
+
+    def _params(self) -> int:
+        """The parameters a token streams: the moe family's active ones."""
+        return self.cfg.param_count(active_only=(self.cfg.family == "moe"))
 
     def _attn_bytes(self, prim: str, s: int, **shape) -> float:
         """Every attention layer's bytes of one step over the slot table
@@ -303,13 +320,13 @@ class CostModelAdmission:
         flops + the attention_prefill_chunk cost term summed over the chunk
         schedule (each chunk priced at its own growing cache fill)."""
         cfg = self.cfg
-        flops = 2.0 * cfg.param_count() * padded_len
+        flops = 2.0 * self._params() * padded_len
         chunk = self.policy.chunk if self.policy else padded_len
         fills = range(chunk, padded_len + 1, chunk) if self._attn_layers else ()
         for fill in fills:
             flops += self._attn_layers * self.lib.cost(
                 "attention_prefill_chunk", "flops", B=1, H=cfg.n_heads,
-                KH=cfg.n_kv_heads, C=chunk, S=fill, D=cfg.hd)
+                KH=cfg.n_kv_heads, C=chunk, S=self.prefix + fill, D=cfg.hd)
         return flops / self.peak_flops
 
     def admit(self, req: Request, now_s: float) -> tuple[bool, str]:
@@ -320,14 +337,15 @@ class CostModelAdmission:
                                f"largest bucket {self.policy.buckets[-1]}")
         else:
             bucket = req.prompt_len
-        if bucket + req.gen_len > self.max_len:
+        if self.prefix + bucket + req.gen_len > self.max_len:
             return False, (f"over_budget: bucket {bucket} (prompt "
                            f"{req.prompt_len}) + gen {req.gen_len}"
-                           f" > max_len {self.max_len}")
+                           + (f" + vision prefix {self.prefix}" if self.prefix else "")
+                           + f" > max_len {self.max_len}")
         if req.sla_s is not None:
             waited = max(0.0, now_s - req.arrival_s)
             # charge attention reads at THIS request's maximal cache fill
-            s_req = bucket + req.gen_len
+            s_req = self.prefix + bucket + req.gen_len
             projected = (waited + self.prefill_seconds(bucket)
                          + req.gen_len * self.emit_seconds_per_token(s_req))
             if projected > req.sla_s:
@@ -368,7 +386,7 @@ class PagedAdmission(CostModelAdmission):
             chunk = self.policy.chunk if self.policy else 1
             bucket = (self.policy.assign(req.prompt_len) if self.policy else None) \
                 or BucketPolicy.round_up(req.prompt_len, chunk)
-            if bucket + 1 > self.max_len:
+            if self.prefix + bucket + 1 > self.max_len:
                 return False, (f"over_budget: continuation prompt {req.prompt_len} "
                                f"cannot re-prefill within max_len {self.max_len}")
             req.bucket = bucket
@@ -376,7 +394,7 @@ class PagedAdmission(CostModelAdmission):
             ok, reason = super().admit(req, now_s)
             if not ok:
                 return ok, reason
-        need = self.budget.pages_for_rows(req.prompt_len)
+        need = self.budget.pages_for_rows(self.prefix + req.prompt_len)
         free = self.budget.pages_free()
         if need > free:
             return False, (f"defer: needs {need} pages for its prompt, "

@@ -39,7 +39,9 @@ SLICE_PRIMITIVES = ("load", "set1", "embed_lookup", "cache_update", "matmul", "r
                     # the zamba family
                     "causal_conv1d", "ssd_scan", "ssd_chunked", "ssd_decode",
                     # the whisper family
-                    "gelu")
+                    "gelu",
+                    # the moe family
+                    "topk_gating", "moe_dispatch", "moe_combine", "expert_ffn")
 KERNEL_MODULES = {"rmsnorm": "repro_torch.kernels.rmsnorm.ops",
                   "swiglu": "repro_torch.kernels.swiglu.ops",
                   "flash_attention": "repro_torch.kernels.flash_attention.ops",
@@ -232,6 +234,20 @@ def _args(prim, rng):
         return (r, k, v, w, _rand(rng, 3, 8, lo=-1, hi=1), *extra), {}
     if prim == "causal_conv1d":
         return (_rand(rng, 2, 9, 6), _rand(rng, 4, 6, lo=-1, hi=1)), {}
+    if prim == "topk_gating":
+        return (_rand(rng, 12, 8, lo=-3, hi=3),), {"k": 2}
+    if prim == "moe_dispatch":
+        idx = rng.integers(0, 4, (12, 2)).astype(np.int32)
+        return (_rand(rng, 12, 6), idx, _rand(rng, 12, 2, lo=0, hi=1)), \
+            {"n_experts": 4, "capacity": 5}
+    if prim == "moe_combine":
+        flat_e = rng.integers(0, 4, 24).astype(np.int32)
+        slot = rng.integers(0, 5, 24).astype(np.int32)
+        info = (flat_e, slot, rng.random(24) > 0.3, _rand(rng, 24, lo=0, hi=1), 12)
+        return (_rand(rng, 4, 5, 6), info), {}
+    if prim == "expert_ffn":
+        return (_rand(rng, 3, 5, 6, lo=-1, hi=1), _rand(rng, 3, 6, 7, lo=-1, hi=1),
+                _rand(rng, 3, 6, 7, lo=-1, hi=1), _rand(rng, 3, 7, 6, lo=-1, hi=1)), {}
     if prim in ("ssd_scan", "ssd_chunked", "ssd_decode"):
         lead = (2,) if prim == "ssd_decode" else (2, 9)
         x = _rand(rng, *lead, 3, 4, lo=-1, hi=1)
@@ -243,20 +259,34 @@ def _args(prim, rng):
     raise KeyError(prim)
 
 
+def _leaves(x):
+    """The arrays of a result, nested tuples flattened (moe_dispatch's info),
+    in order; a Python int (the info's token count) as an array."""
+    if isinstance(x, tuple):
+        return [leaf for item in x for leaf in _leaves(item)]
+    return [x]
+
+
+def _convert(a, fn):
+    """numpy arrays through ``fn``, nested tuples (moe_combine's info) too."""
+    if isinstance(a, tuple):
+        return tuple(_convert(x, fn) for x in a)
+    return fn(a) if isinstance(a, np.ndarray) else a
+
+
 @pytest.mark.parametrize("prim", SLICE_PRIMITIVES)
 def test_torch_cpu_library_matches_cpu_xla(prim, libs):
     port, ref = libs
     args, kwargs = _args(prim, np.random.default_rng(7))
-    want = getattr(ref, prim)(*[jnp.asarray(a) if isinstance(a, np.ndarray) else a
+    want = getattr(ref, prim)(*[_convert(a, jnp.asarray) for a in args], **kwargs)
+    got = getattr(port, prim)(*[_convert(a, lambda x: torch.from_numpy(x.copy()))
                                 for a in args], **kwargs)
-    got = getattr(port, prim)(*[torch.from_numpy(a.copy()) if isinstance(a, np.ndarray)
-                                else a for a in args], **kwargs)
-    if isinstance(want, tuple):                 # flash_attention_bwd, wkv6_*, ssd_*: tuples
-        assert isinstance(got, tuple) and len(got) == len(want)
-    else:
-        got, want = (got,), (want,)
+    # flash_attention_bwd, wkv6_*, ssd_*, topk_gating, moe_dispatch: tuples
+    got, want = _leaves(got), _leaves(want)
+    assert len(got) == len(want)
     for g, w in zip(got, want):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL, rtol=RTOL)
+        g = g.numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+        np.testing.assert_allclose(g, np.asarray(w), atol=ATOL, rtol=RTOL)
 
 
 @pytest.mark.parametrize("prim,term,shapes", [

@@ -168,17 +168,26 @@ def test_every_registered_arch_matches_the_reference(arch):
         frames = np.random.default_rng(4).standard_normal((2, 12, cfg.d_model))
         jbatch["audio_embeds"] = jnp.asarray(frames, jnp.float32)
         batch["audio_embeds"] = torch.from_numpy(frames.astype(np.float32))
+    if cfg.family == "vlm":
+        # seeded patch embeddings ahead of the tokens (the ViT is a stub in both)
+        vision = np.random.default_rng(4).standard_normal((2, cfg.vision_prefix, cfg.d_model))
+        jbatch["vision_embeds"] = jnp.asarray(vision, jnp.float32)
+        batch["vision_embeds"] = torch.from_numpy(vision.astype(np.float32))
     want = jmodel.forward_logits(jparams, jbatch)
     got = model.forward_logits(params, batch)
     _close(got, want)
 
 
 @pytest.mark.parametrize("change", [{"family": "moe"},
-                                    {"family": "moe", "n_experts": 4, "experts_per_token": 2},
+                                    {"family": "moe", "n_experts": 4, "experts_per_token": 5},
                                     {"family": "hybrid"}, {"family": "vlm"},
                                     {"family": "audio", "act": "gelu",
                                      "norm": "layernorm"}])
 def test_build_model_refuses_families_not_ported(change):
+    """Every family is ported; what is refused is a config no family
+    describes: moe without experts or with more choices than experts, a
+    hybrid without its layout, a vlm without vision rows, an audio config
+    without an encoder."""
     cfg = get_config(ARCH).reduced().replace(**change)
     with pytest.raises(NotImplementedError, match="not ported"):
         build_model(cfg, device="cpu")

@@ -366,16 +366,14 @@ def _port_cfg(jcfg) -> ArchConfig:
 @pytest.mark.parametrize("arch", ["whisper-tiny", "arctic-480b", "grok-1-314b",
                                   "internvl2-2b"])
 def test_other_families_still_raise(arch):
-    """The families not ported raise at ``build_model`` (queue 1 item 6);
-    whisper, ported for serving, raises at its training (item 13)."""
+    """The other families, ported for serving, build from the reference's
+    own configs and raise at their training: whisper (queue 1 item 13),
+    internvl2 (item 14), the moe family (item 15)."""
     cfg = _port_cfg(jax_get_config(arch).reduced())
-    if cfg.family == "audio":
-        model = build_model(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 13"):
-            make_train_step(model, OptConfig())
-        return
-    with pytest.raises(NotImplementedError, match="item 6"):
-        build_model(cfg, device="cpu")
+    model = build_model(cfg, device="cpu")
+    item = {"audio": "item 13", "vlm": "item 14", "moe": "item 15"}[cfg.family]
+    with pytest.raises(NotImplementedError, match=item):
+        make_train_step(model, OptConfig())
 
 
 def test_training_refuses_rwkv(pair):
