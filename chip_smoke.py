@@ -89,11 +89,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (information only: bf16 kernels may flip a near-tied argmax).
 3e. Speculative paged serve. ServeEngine(paged=..., speculation=...) at 3b's
    shape with phase 2's params, greedy: (i) depth SPEC_K on 3b's 16
-   requests; (ii) the cost-priced depth with the n-gram drafter on 8
+   requests; (ii) the cost-priced depth with the n-gram drafter on 4
    prompts that repeat a seeded 16-token pattern to 256 tokens, beside the
    same requests without speculation (a pair of its own: the two graphs
    runs give what speculation buys end to end); (iii) the draft-model drafter
-   (qwen1.5-0.5b with the target's weights) at depth SPEC_K on 8 of them.
+   (qwen1.5-0.5b with the target's weights) at depth SPEC_K on 4 of them.
    Each fails unless decode ran fused (no lane activation), nothing was
    refused, every request got 64 tokens and the paged kernel launched 24
    times per decode or verify step; (i) and (ii) unless verify steps ran,
@@ -239,7 +239,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    7c paged (PagedConfig(), phase 3b's requests: nothing pages, so fused is
    false, requests activate through lanes, the system prompt is shared as
    the tail state at its 128-row boundary; tokens equal a lane-mode run's),
-   7d the n-gram drafter at depth SPEC_K on 8 of 3e(ii)'s prompts (verify steps
+   7d the n-gram drafter at depth SPEC_K on 4 of 3e(ii)'s prompts (verify steps
    each followed by their commit, jit_cache "commit"; the share of requests
    equal to a non-speculative serve's is information only). Each a
    paired_serve (captured vs eager: equal outputs, counters, launches; 7b's
@@ -274,11 +274,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    prefill apart by 9.5e-3 at 81 layers, 1.1e-4 at 13, from the SSD's
    summation order and the kernels' roundings), and in bf16 one ulp moves a head's bf16-rounded decay (a decode
    step from a shared state apart by rel L2 0.42, parting at layer 4).
-8b. The serve CLI (--arch zamba2-7b) at phase 3's shapes, lane mode; 8c
+8b. The serve CLI (--arch zamba2-7b) at phase 3's shapes (32 tokens
+   generated, ZAMBA_CLI_GEN), lane mode; 8c
    fused paged mode on phase 3b's requests (one prefix miss, 15 hits plus
    one a preemption, the tails in the slot table, the KV in the pools; the
    share of the first wave's tokens equal to a lane-mode run's printed); 8d
-   the n-gram drafter at depth SPEC_K on 8 of 3e(ii)'s prompts,
+   the n-gram drafter at depth SPEC_K on 4 of 3e(ii)'s prompts,
    fused paged (the graphs run must capture the paged commit). Each a
    paired_serve under zamba_launch_check: rmsnorm 2 n_layers + applications
    + 1 a pass (a decode step or chunk; two a verify step, its commit
@@ -308,17 +309,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and the paged and flash kernels in a fused paged decode and verify step,
    bf16 and float32 (TOLERANCE), the whole steps kernel vs plain; the
    float32 model at full depth on both libraries within WHISPER_F32_REL_L2.
-9b. Lane serve: 16 requests of 64 tokens over their own frames, 192
-   generated, 8 slots, chunk 64; 9c fused paged (page and chunk 32): 32
+9b. Lane serve: 8 requests of 64 tokens over their own frames, 192
+   generated, 8 slots, chunk 64; 9c fused paged (page and chunk 32): 16
    requests in groups of a clip, the clip again, a twin of other frames and
-   that twin again: 16 prefix hits (plus the preemptions') and 16 misses
+   that twin again: 8 prefix hits (plus the preemptions') and 8 misses
    exactly, every first token equal to a lane run's; 9d n-gram depth
-   SPEC_K on 8 of 3e(ii)'s prompts over seeded frames, fused paged. Each a
+   SPEC_K on 4 of 3e(ii)'s prompts over seeded frames, fused paged. Each a
    paired_serve under whisper_launch_check: the flash kernel 4 times a
    request's first chunk (the encoder) and 4 times a chunk, decode and
    verify step (the cross-attention), the paged kernel 4 times a fused
    decode or verify step, rmsnorm and swiglu never. Phase 4's whisper rows:
    the lane and the fused paged decode step, captured vs eager.
+9e. Training at full width (embed_train_phase) from 9's weights, 8 x
+   (1500 seeded frames + 448 tokens): the loss and every gradient leaf
+   through the h100 library against the torch_cpu library on the card
+   (LOSS_REL; every leaf non-zero, full_width_bf16); EMBED_TRAIN_STEPS
+   AdamW steps of make_train_step (counted: the flash lse forward 24, dq
+   12 and dk/dv 12 a step, non-causal over the frames in the encoder and at
+   448 against 1500 keys in the cross-attention; every other kernel never),
+   every loss finite and the last below the first, host wall and device
+   busy share a step, peak memory; compile_train_step against the eager
+   step for EMBED_GRAPH_STEPS steps (compare_compiled: bit-equal, the same
+   launches, one entry).
 10. internvl2-2b (the vlm family) at full width (24 layers, d 2048, 16
    heads of 128 over 8 KV heads, d_ff 8192, vocab 92553 padded to 92672,
    bf16), seeded weights from the port's init on the card, VLM_PREFIX (256)
@@ -337,13 +349,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    plain version, bf16 and float32 (TOLERANCE), the whole steps kernel vs
    plain; the float32 model at full depth on both libraries within
    VLM_F32_REL_L2.
-10b. Lane serve: 16 requests of 128 tokens behind their own images, 64
+10b. Lane serve: 8 requests of 128 tokens behind their own images, 64
    generated, 8 slots, chunk 64 (the first chunk, with the vision rows, a
-   captured step of its own); 10c fused paged (page and chunk 64): 32
+   captured step of its own); 10c fused paged (page and chunk 64): 16
    requests in groups over one 128-token head, an image, the image again,
-   another image and it again: 16 prefix hits (plus the preemptions') and
-   16 misses exactly (the key covers the image), every first token equal to
-   a lane run's; 10d n-gram depth SPEC_K on 8 of 3e(ii)'s prompts behind
+   another image and it again: 8 prefix hits (plus the preemptions') and
+   8 misses exactly (the key covers the image), every first token equal to
+   a lane run's; 10d n-gram depth SPEC_K on 4 of 3e(ii)'s prompts behind
    seeded images, fused paged. Each a paired_serve under lm_launch_check:
    rmsnorm 2 n_layers + 1 and swiglu n_layers a prefill chunk, decode or
    verify step, the paged kernel n_layers a fused decode or verify step,
@@ -351,6 +363,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    internvl2 rows: the lane and the fused paged decode step at position
    VLM_PROFILE_FILL, captured vs eager, beside their bound
    (lm_decode_bound_ms).
+10e. Training at full width from 10's weights, 8 x (256 seeded vision rows
+   + 512 tokens), float32 AdamW moments, as 9e: the flash lse forward 48,
+   dq 24 and dk/dv 24 a step (causal, GQA 16/8 at D 128), rmsnorm 97 and
+   swiglu 48; every gradient leaf, vision_proj's among them, against the
+   torch_cpu library's.
 11. The moe family at full width with a stated cut of layers: no card
    holds a whole grok-1-314b (628 GB in bf16) or arctic-480b (958 GB).
    Their path runs rmsnorm, the flash forward (GQA 48/8, 56/8), the paged
@@ -414,7 +431,9 @@ likewise around phase 9a's main path and each of 9b, 9c and 9d (row 3:
 launches_phase9a-9d; row 7: launches_phase9c, 9d), around phase 10a's, 11a's
 and 11c's main paths and each of 10b, 10c, 10d and 11b's two serves (rows 1
 and 2: launches_phase10a-11c; row 3: 10a, 11a, 11c; row 7: 10c, 10d,
-11b-paged).
+11b-paged), and just before phase 9e's and 10e's AdamW steps and read just
+after them (rows 4-6: launches_phase9e and launches_phase10e; rows 1 and 2:
+launches_phase10e).
 Launches made to compare a kernel with its plain version, and those of
 phases 4 and 4b (measurements), are not counted.
 
@@ -484,9 +503,10 @@ PAGED_BATCH, PAGED_MAX_LEN, PAGED_CHUNK, PAGE = 8, 320, 64, 64
 # phase 3e: speculative paged serving at 3b's shapes; the draft depth of
 # 3e(i) and (iii) (attention_verify's k_max); (ii)'s prompts repeat a seeded
 # pattern of SPEC_PATTERN tokens up to SPEC_PROMPT tokens, SPEC_REQUESTS of
-# them
+# them; (iii), 7d, 8d, 9d and 10d serve SPEC_DRAFT_REQUESTS of them (both 8
+# before PR 33, halved for the script's time: no gate needs more)
 SPEC_K = 4
-SPEC_REQUESTS, SPEC_PROMPT, SPEC_PATTERN, SPEC_DRAFT_REQUESTS = 8, 256, 16, 8
+SPEC_REQUESTS, SPEC_PROMPT, SPEC_PATTERN, SPEC_DRAFT_REQUESTS = 4, 256, 16, 4
 # phase 4: the serve phase's slot table (8 slots of 256 + 64 rows), decode at
 # the first generated position, a chunk that ends there; 10 traced steps
 PROFILE_BATCH, PROFILE_FILL, PROFILE_CHUNK, PROFILE_GEN = 8, 256, 64, 64
@@ -534,7 +554,10 @@ SSD_REL_TOL = 1e-5
 ZAMBA_F32_REL_L2 = 1e-4         # 8a's float32 model, h100 vs torch_cpu: phase 5b's bound
 ZAMBA_SHARED = 13               # applications of zamba2-7b's shared attention block
 ZAMBA_GATED_WIDTH = 7168        # zamba2-7b's d_inner, the gated rmsnorm's row (phase 1)
-ZAMBA_SERVE_ARGS = ["--arch", ZAMBA_ARCH] + SERVE_ARGS[2:]
+# 8b's CLI at phase 3's shapes, ZAMBA_CLI_GEN tokens generated (64 before PR
+# 33; the script's time: argparse takes the last --gen-len)
+ZAMBA_CLI_GEN = 32
+ZAMBA_SERVE_ARGS = ["--arch", ZAMBA_ARCH] + SERVE_ARGS[2:] + ["--gen-len", str(ZAMBA_CLI_GEN)]
 ZAMBA_SPEC_GEN = 32             # 8d's tokens a request (the script's time)
 # 8c, 8d and phase 4's zamba rows run ZAMBA_SERVE_LAYERS of its 81 layers,
 # its widths kept (two groups of 6 and two applications of the shared
@@ -561,9 +584,10 @@ WHISPER_ENC_LEN = 1500
 WHISPER_PREFILL = (8, 64)
 WHISPER_DECODE_STEPS = 16
 WHISPER_F32_REL_L2 = 1e-4       # 9a's float32 model, h100 vs torch_cpu: phase 5b's bound
-WHISPER_REQUESTS, WHISPER_PROMPT, WHISPER_GEN = 16, 64, 192
+# (9b's 16 and 9c's 32 requests before PR 33, halved for the script's time)
+WHISPER_REQUESTS, WHISPER_PROMPT, WHISPER_GEN = 8, 64, 192
 WHISPER_BATCH, WHISPER_CHUNK, WHISPER_FILL = 8, 64, 128
-WHISPER_PAGED_REQUESTS, WHISPER_PAGE, WHISPER_PAGED_CHUNK, WHISPER_SHARED = 32, 32, 32, 32
+WHISPER_PAGED_REQUESTS, WHISPER_PAGE, WHISPER_PAGED_CHUNK, WHISPER_SHARED = 16, 32, 32, 32
 # phase 10: internvl2-2b at full width, VLM_PREFIX seeded vision rows (one
 # ViT tile of patch embeddings: the frontend is a stub, as in the reference)
 # ahead of every prompt. 10a: Model.prefill of VLM_PREFILL tokens and
@@ -579,9 +603,22 @@ VLM_PREFIX = 256
 VLM_PREFILL = (4, 256)
 VLM_DECODE_STEPS = 8
 VLM_F32_REL_L2 = 1e-4           # 10a's float32 model, h100 vs torch_cpu: phase 5b's bound
-VLM_REQUESTS, VLM_PROMPT, VLM_GEN, VLM_BATCH, VLM_CHUNK = 16, 128, 64, 8, 64
-VLM_PAGED_REQUESTS, VLM_SHARED, VLM_OWN, VLM_PAGED_GEN = 32, 128, 64, 32
+# (10b's 16 and 10c's 32 requests before PR 33, halved for the script's time)
+VLM_REQUESTS, VLM_PROMPT, VLM_GEN, VLM_BATCH, VLM_CHUNK = 8, 128, 64, 8, 64
+VLM_PAGED_REQUESTS, VLM_SHARED, VLM_OWN, VLM_PAGED_GEN = 16, 128, 64, 32
 VLM_PROFILE_FILL = VLM_PREFIX + VLM_PROMPT + VLM_GEN // 2
+# phases 9e and 10e: the family's training at full width from the weights
+# phase 9 or 10 holds. whisper-tiny: WHISPER_TRAIN_BATCH x WHISPER_ENC_LEN
+# seeded frames against WHISPER_TRAIN_SEQ tokens (Whisper's 30-second window
+# and its 448-token decoder context, arXiv:2212.04356); internvl2-2b:
+# VLM_TRAIN_BATCH x (VLM_PREFIX seeded vision rows + VLM_TRAIN_SEQ tokens),
+# float32 AdamW moments. EMBED_TRAIN_STEPS AdamW steps of make_train_step
+# on one batch (TRAIN_OPT: the loss must fall), then EMBED_GRAPH_STEPS
+# compiled against eager on as many batches (GRAPH_TRAIN_OPT: lr changes
+# every step)
+WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ = 8, 448
+VLM_TRAIN_BATCH, VLM_TRAIN_SEQ = 8, 512
+EMBED_TRAIN_STEPS, EMBED_GRAPH_STEPS = 5, 3
 # phase 11: the moe family at full width with a stated cut of layers (a
 # whole grok-1-314b is 628 GB in bf16, arctic-480b 958 GB: no 80 GB card
 # holds either). 11a: grok at MOE_LAYERS of its 64 layers (42.6 GB),
@@ -1036,6 +1073,13 @@ def kernel_phase(dev) -> list[dict]:
 
     rows_list = (4, 8, 64, 1024, 4096)   # 8: decode batch, 64: chunk, 1024: B*S
     results = []
+    # seconds of command time per kernel's cases (printed: where phase 1 goes)
+    family_s: dict[str, float] = {}
+    t_family = [time.perf_counter()]
+
+    def mark(name: str) -> None:
+        family_s[name] = round(time.perf_counter() - t_family[0], 1)
+        t_family[0] = time.perf_counter()
 
     cases = []
     # (rows, width): qwen1.5's norms, and zamba2-7b's gated norm (d_inner 7168)
@@ -1052,6 +1096,7 @@ def kernel_phase(dev) -> list[dict]:
         cases.append(c)
     results.append(("rmsnorm", "triton", "src/repro_torch/kernels/rmsnorm/kernel.py",
                     "src/repro/kernels/rmsnorm/kernel.py:31", [1024, 1024], cases))
+    mark("rmsnorm")
 
     cases = []
     for rows in rows_list:
@@ -1067,6 +1112,7 @@ def kernel_phase(dev) -> list[dict]:
         cases.append(c)
     results.append(("swiglu", "triton", "src/repro_torch/kernels/swiglu/kernel.py",
                     "src/repro/kernels/swiglu/kernel.py:22", [1024, 2816], cases))
+    mark("swiglu")
 
     # (B, H, KH, Sq, Sk, D, dtype, causal, kv_len)
     fa_cases = [
@@ -1123,22 +1169,28 @@ def kernel_phase(dev) -> list[dict]:
                     "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                     "src/repro/kernels/flash_attention/kernel.py:185",
                     [2, 16, 16, 512, 512, 64], cases))
+    mark("flash_attention")
     results.append(("paged_attention", "cuda",
                     "src/repro_torch/kernels/paged/csrc/paged_attention.cu",
                     "src/repro/kernels/paged/kernel.py:88", None,
                     paged_cases(dev, pa)))
+    mark("paged_attention")
     results.append(("range_count", "cuda",
                     "src/repro_torch/kernels/range_count/csrc/range_count.cu",
                     "src/repro/kernels/range_count/kernel.py:52", None,
                     range_count_cases(dev)))
+    mark("range_count")
     results.append(("hadd", "cuda", "src/repro_torch/kernels/hadd/csrc/hadd.cu",
                     "src/repro/kernels/hadd/kernel.py:46", None, hadd_cases(dev)))
+    mark("hadd")
     results.append(("to_integral", "cuda",
                     "src/repro_torch/kernels/to_integral/csrc/to_integral.cu",
                     "src/repro/kernels/to_integral/kernel.py:31", None,
                     to_integral_cases(dev)))
+    mark("to_integral")
     results.append(("softmax", "cuda", "src/repro_torch/kernels/softmax/csrc/softmax.cu",
                     "src/repro/kernels/softmax/kernel.py:24", None, softmax_cases(dev)))
+    mark("softmax")
 
     rows = []
     for name, route, source, replaces, main_shape, cs in results:
@@ -1168,6 +1220,7 @@ def kernel_phase(dev) -> list[dict]:
                   + f"; device times by {c['timing']}"
                   + (f" (plain version: {c['plain_timing']})" if "plain_timing" in c else "")
                   + f"; host enqueue us {json.dumps(c['host_us'])}", flush=True)
+    print(f"[phase1] seconds per kernel's cases: {json.dumps(family_s)}", flush=True)
     return rows
 
 
@@ -1664,6 +1717,7 @@ def paired_serve(tag: str, name: str, gpu: str, run, check, graphs_first: bool |
         ("graphs", "eager") if graphs_first else ("eager", "graphs")
     for side in order:
         before = read_counts()
+        t_side = time.perf_counter()
         with contextlib.nullcontext() if side == "graphs" else disable_graphs():
             if side in trace:
                 report, record = traced(run)
@@ -1677,6 +1731,7 @@ def paired_serve(tag: str, name: str, gpu: str, run, check, graphs_first: bool |
         problems = check(report, launched)
         if problems:
             raise AssertionError(f"{tag} {name} ({side}): " + "; ".join(problems))
+        record["seconds"] = time.perf_counter() - t_side      # the trace's reading included
         sides[side] = {"report": report, "launched": launched, "trace": record}
     g = sides["graphs"]
     jc_g = g["report"]["jit_cache"]
@@ -1723,7 +1778,8 @@ def paired_serve(tag: str, name: str, gpu: str, run, check, graphs_first: bool |
                       f"{out[side]['host_wall_s']:.3f}, idle share "
                       f"{_fmt(out[side]['device_idle_share'])}, jit_cache "
                       f"{out[side]['jit_cache']}, device records "
-                      f"{out[side]['device_records']}" for side in ("graphs", "eager"))
+                      f"{out[side]['device_records']}, {out[side]['seconds']:.1f} s with the "
+                      f"trace's reading" for side in ("graphs", "eager"))
           + f"; tokens/s graphs / eager {out['tokens_per_s_ratio']:.3f}", flush=True)
     return {**out, "report": g["report"]}
 
@@ -2826,6 +2882,18 @@ TRAIN_FA_CASES = [
     (2, 16, 16, 64, 320, 64, "bfloat16", True, 300, False),      # kv_len < Sk
     (1, 8, 4, 200, 72, 64, "bfloat16", True, None, False),       # Sq > Sk: rows see no key
     (2, 16, 16, 512, 512, 64, "float32", True, None, False),
+    # phase 9e's: whisper-tiny's encoder self-attention and its decoder's
+    # cross-attention (448 tokens against 1500 frames), both non-causal
+    (8, 6, 6, WHISPER_ENC_LEN, WHISPER_ENC_LEN, 64, "bfloat16", False, None, False),
+    (8, 6, 6, WHISPER_TRAIN_SEQ, WHISPER_ENC_LEN, 64, "bfloat16", False, None, False),
+    # non-causal with kv_len < Sk (keys past 1500 of a 1536-row cache), and
+    # the float32 kernels non-causal at Sq != Sk
+    (2, 6, 6, WHISPER_TRAIN_SEQ, 1536, 64, "bfloat16", False, WHISPER_ENC_LEN, False),
+    (2, 6, 6, WHISPER_TRAIN_SEQ, WHISPER_ENC_LEN, 64, "float32", False, None, False),
+    # phase 10e's: internvl2-2b's 16 heads of 128 over 8, causal over the
+    # 256 vision rows + 512 tokens
+    (8, 16, 8, VLM_PREFIX + VLM_TRAIN_SEQ, VLM_PREFIX + VLM_TRAIN_SEQ, 128, "bfloat16", True,
+     None, False),
 ]
 
 
@@ -2869,8 +2937,11 @@ def train_kernel_cases(dev) -> dict[str, list[dict]]:
              "lse_worst_of_limit": lse_over, "rows_without_key": int(no_key.sum()),
              "max_abs_err": max((o.float() - o_r.float()).abs().max().item(),
                                 (lse - lse_r).abs().max().item())}
+        # SDPA aligns causality at the top left: a yardstick where that is
+        # this function (Sq = Sk, or non-causal), without kv_len
+        same_mask = kv_len is None and (sq == sk or not causal)
         library = None
-        if sq == sk and kv_len is None and dt == torch.bfloat16:
+        if same_mask and dt == torch.bfloat16:
             ke, ve = (t.repeat_interleave(h // kh, 1) for t in (k, v))
             library = lambda: torch.ops.aten._scaled_dot_product_flash_attention(  # noqa: E731
                 q, ke, ve, 0.0, causal)
@@ -2899,7 +2970,7 @@ def train_kernel_cases(dev) -> dict[str, list[dict]]:
               "max_abs_err": max((dk - dk_r).abs().max().item(),
                                  (dv - dv_r).abs().max().item())}
         library = None
-        if kv_len is None and sq == sk:
+        if same_mask:
             qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
             with torch.cuda.stream(capture_stream()):   # its backward is captured there
                 o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
@@ -3002,6 +3073,25 @@ def _step_profile(fn) -> tuple[object, dict]:
     return result, {"wall_ms_profiled": wall_ms, "device_busy_ms": busy,
                     "device_busy_share": busy / wall_ms, "launches": len(kernels),
                     "by_kernel_ms": by_name}     # busy 0: the profiler saw no device
+
+
+def kernel_split(by_kernel_ms: dict) -> tuple[dict, dict]:
+    """A traced train step's device ms by kernel name, summed into the three
+    flash training kernels and the GEMMs, and which names each key took. The
+    flash keys match both paths' kernel names (the bf16 *_mma_kernel and the
+    float32 *_kernel)."""
+    share = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0, "gemm": 0.0}
+    matched: dict[str, list] = {k: [] for k in share}
+    for name, ms in by_kernel_ms.items():
+        low = name.lower()
+        key = next((k for k in share if k + "_" in name), None)
+        if key is None and any(t in low for t in ("gemm", "cutlass", "xmma", "cublas",
+                                                  "nvjet")):
+            key = "gemm"
+        if key is not None:
+            share[key] += ms
+            matched[key].append(name[:100])
+    return share, matched
 
 
 def train_phase(dev, gpu: str) -> dict:
@@ -3135,19 +3225,7 @@ def train_phase(dev, gpu: str) -> dict:
     # where the profiled step's device time goes
     prof = steps[-1]
     by = prof.pop("by_kernel_ms")
-    # the flash keys match both paths' kernel names (the bf16 *_mma_kernel and
-    # the float32 *_kernel); which names each key took is kept beside it
-    share = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0, "gemm": 0.0}
-    matched: dict[str, list] = {k: [] for k in share}
-    for name, ms in by.items():
-        low = name.lower()
-        key = next((k for k in share if k + "_" in name), None)
-        if key is None and any(t in low for t in ("gemm", "cutlass", "xmma", "cublas",
-                                                  "nvjet")):
-            key = "gemm"
-        if key is not None:
-            share[key] += ms
-            matched[key].append(name[:100])
+    share, matched = kernel_split(by)
     busy = prof["device_busy_ms"]
     if busy > 0 and not all(share[k] > 0 for k in ("flash_fwd", "flash_bwd_dq",
                                                    "flash_bwd_dkv")):
@@ -3240,6 +3318,114 @@ def _tensor_leaves(state: dict) -> list:
                        "v": state["opt"]["v"]})
 
 
+def compare_compiled(dev, step, eager_state: dict, compiled_state, eager_batches: list,
+                     compiled_batches: list, want: dict, *,
+                     lean: bool = False) -> tuple[dict, list]:
+    """compile_train_step(step) against the eager step, over the same
+    batches (card tensors for the eager step, ``compiled_batches`` as the
+    compiled step stages them): the eager run first from ``eager_state``,
+    then the compiled run from ``compiled_state()`` (donated, updated in
+    place). The eager step is the functional one under disable_graphs()
+    (one state and the next live at a time); with ``lean`` it is the
+    compiled step's own core on the donated ``eager_state``, op by op (a
+    compiled step without a graph runner), and its final leaves wait on the
+    host during the compiled run: a 1.9 B-parameter model's two float32
+    AdamW states and its step do not fit beside each other in what the
+    earlier phases leave of the card. Returns the record (steps, losses,
+    lr, each run's _run_steps record with host wall, traced step and
+    launches a step) and what differs: a metric at a step or a param or
+    moment leaf at the end not bit-equal, launches a step unequal or not
+    ``want``, lr not changing every step, a loss not finite, not one
+    compiled entry replayed n - 1 times."""
+    import torch
+
+    from repro_torch.graphs import disable_graphs
+    from repro_torch.train import compile_train_step
+
+    def functional(s, b):
+        with disable_graphs():
+            return step(s, b)
+
+    eager = functional
+    if lean:
+        eager = compile_train_step(step)
+        eager.runner = None            # the core run eagerly on the donated state
+    n = len(eager_batches)
+    e_state, e_run = _run_steps(dev, eager, eager_state, eager_batches)
+    del eager_state, eager
+    e_leaves = _tensor_leaves(e_state)
+    if lean:
+        e_leaves = [(path, t.cpu()) for path, t in e_leaves]
+        del e_state
+        gc.collect()
+        torch.cuda.empty_cache()
+    compiled = compile_train_step(step)
+    t0 = time.perf_counter()
+    c_state, c_run = _run_steps(dev, compiled, compiled_state(), compiled_batches)
+    c_run["first_call_s"] = c_run["steps"][0]["host_wall_s"]
+    c_run["capture_s"] = compiled.step.capture_s
+    c_run["entries"] = compiled.entries
+    c_run["run_s"] = time.perf_counter() - t0
+    differ = []
+    for run, tag in ((c_run, "captured"), (e_run, "eager")):
+        got = {k: run["launches"][k] / n for k in want}
+        run["launches_per_step"] = got
+        if got != want:
+            differ.append(f"{tag}: launches per step {got}, want {want}")
+        untimed = run["steps"][1:-1] if tag == "captured" else run["steps"][:-1]
+        run["host_wall_ms"] = [x["host_wall_s"] * 1e3 for x in untimed]
+        last = run["steps"][-1]
+        run["traced_step"] = {"host_wall_ms": last["host_wall_s"] * 1e3,
+                              "device_busy_ms": last["device_busy_s"] * 1e3,
+                              "device_idle_share": last["device_idle_share"],
+                              "device_records": last["device_records"]}
+    differ += [f"step {i + 1} {k}: captured {c[k]!r} eager {e[k]!r}"
+               for i, (c, e) in enumerate(zip(c_run["steps"], e_run["steps"]))
+               for k in e if k not in ("host_wall_s", "device_busy_s",
+                                       "device_idle_share", "device_records")
+               and c[k] != e[k]]
+    leaves = list(zip(_tensor_leaves(c_state), e_leaves))
+    differ += [f"leaf {p}: max |captured - eager| "
+               f"{(a.double() - b.to(a.device).double()).abs().max().item()!r}"
+               for (p, a), (_, b) in leaves if not torch.equal(a, b.to(a.device))]
+    lrs = [x["lr"] for x in e_run["steps"]]
+    if len(set(lrs)) != n:
+        differ.append(f"lr does not change every step: {lrs}")
+    if not all(math.isfinite(x["loss"]) for x in e_run["steps"]):
+        differ.append("a loss is not finite")
+    if compiled.entries != 1 or compiled.step.replays != n - 1:
+        differ.append(f"entries {compiled.entries}, replays {compiled.step.replays}")
+    rec = {"steps": n, "bit_equal": not differ, "leaves_compared": len(leaves),
+           "differences": differ[:20], "losses": [x["loss"] for x in e_run["steps"]],
+           "lr": lrs, "eager_step": "the core, donated, op by op" if lean else "functional",
+           "captured": c_run, "eager": e_run}
+    return rec, differ
+
+
+def compiled_line(rec: dict) -> str:
+    """One printed line of a compare_compiled record: captured vs eager."""
+    c, e = rec["captured"], rec["eager"]
+    return (f"host wall {json.dumps(c['host_wall_ms'])} vs "
+            f"{json.dumps(e['host_wall_ms'])} ms a step; traced step host wall "
+            f"{c['traced_step']['host_wall_ms']:.2f} vs {e['traced_step']['host_wall_ms']:.2f}"
+            f" ms, device busy {c['traced_step']['device_busy_ms']:.2f} vs "
+            f"{e['traced_step']['device_busy_ms']:.2f} ms, idle share "
+            f"{c['traced_step']['device_idle_share']:.4f} vs "
+            f"{e['traced_step']['device_idle_share']:.4f}, device records "
+            f"{c['traced_step']['device_records']} vs {e['traced_step']['device_records']}; "
+            f"kernels per step {json.dumps(c['launches_per_step'])} vs "
+            f"{json.dumps(e['launches_per_step'])}; first call {c['first_call_s']:.3f} s "
+            f"(capture {c['capture_s']:.3f} s); peak allocated "
+            f"{c['peak_allocated_gib']:.2f} vs {e['peak_allocated_gib']:.2f} GiB "
+            f"({c['peak_allocated_above_start_gib']:.2f} vs "
+            f"{e['peak_allocated_above_start_gib']:.2f} above the run's start), reserved "
+            f"{c['peak_reserved_gib']:.2f} vs {e['peak_reserved_gib']:.2f} GiB "
+            f"({c['peak_reserved_above_start_gib']:.2f} vs "
+            f"{e['peak_reserved_above_start_gib']:.2f}); losses "
+            f"{rec['losses']}; bit-equal {rec['bit_equal']} ({rec['leaves_compared']} leaves)"
+            + (f"; differences {rec['differences']}" if rec["differences"] else ""))
+
+
 def compiled_train_phase(dev, gpu: str) -> dict:
     """Phase 5d: compile_train_step (one CUDA graph over the donated state)
     against the eager step under disable_graphs(), from clones of one state
@@ -3253,10 +3439,8 @@ def compiled_train_phase(dev, gpu: str) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticTokens
-    from repro_torch.graphs import disable_graphs
     from repro_torch.nn.model import build_model
-    from repro_torch.train import (OptConfig, compile_train_step, init_train_state,
-                                   make_train_step)
+    from repro_torch.train import OptConfig, init_train_state, make_train_step
 
     t_phase = time.perf_counter()
     cfg = get_config(ARCH)
@@ -3270,75 +3454,14 @@ def compiled_train_phase(dev, gpu: str) -> dict:
         init = init_train_state(model, opt_cfg, seed=0)
         host = [source.batch_at(i) for i in range(n)]
         on_card = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()} for b in host]
-
-        def eager(s, b):
-            with disable_graphs():
-                return step(s, b)
-
-        e_state, e_run = _run_steps(dev, eager, init, on_card)
-        compiled = compile_train_step(step)
-        t0 = time.perf_counter()
-        c_state, c_run = _run_steps(dev, compiled, _clone_state(init), host)
-        c_run["first_call_s"] = c_run["steps"][0]["host_wall_s"]
-        c_run["capture_s"] = compiled.step.capture_s
-        c_run["entries"] = compiled.entries
-        c_run["run_s"] = time.perf_counter() - t0
-        want = train_launches_want(cfg, step_kw.get("microbatches", 1))
-        for run, tag in ((c_run, "captured"), (e_run, "eager")):
-            got = {k: run["launches"][k] / n for k in want}
-            run["launches_per_step"] = got
-            if got != want:
-                failures.append(f"{name} {tag}: launches per step {got}, want {want}")
-            untimed = run["steps"][1:-1] if tag == "captured" else run["steps"][:-1]
-            run["host_wall_ms"] = [x["host_wall_s"] * 1e3 for x in untimed]
-            last = run["steps"][-1]
-            run["traced_step"] = {"host_wall_ms": last["host_wall_s"] * 1e3,
-                                  "device_busy_ms": last["device_busy_s"] * 1e3,
-                                  "device_idle_share": last["device_idle_share"],
-                                  "device_records": last["device_records"]}
-        differ = [f"step {i + 1} {k}: captured {c[k]!r} eager {e[k]!r}"
-                  for i, (c, e) in enumerate(zip(c_run["steps"], e_run["steps"]))
-                  for k in e if k not in ("host_wall_s", "device_busy_s",
-                                          "device_idle_share", "device_records")
-                  and c[k] != e[k]]
-        leaves = list(zip(_tensor_leaves(c_state), _tensor_leaves(e_state)))
-        differ += [f"leaf {p}: max |captured - eager| "
-                   f"{(a.double() - b.double()).abs().max().item()!r}"
-                   for (p, a), (_, b) in leaves if not torch.equal(a, b)]
-        lrs = [x["lr"] for x in e_run["steps"]]
-        if len(set(lrs)) != n:
-            differ.append(f"lr does not change every step: {lrs}")
-        if not all(math.isfinite(x["loss"]) for x in e_run["steps"]):
-            differ.append("a loss is not finite")
-        if compiled.entries != 1 or compiled.step.replays != n - 1:
-            differ.append(f"entries {compiled.entries}, replays {compiled.step.replays}")
+        rec, differ = compare_compiled(
+            dev, step, init, lambda: _clone_state(init), on_card, host,
+            train_launches_want(cfg, step_kw.get("microbatches", 1)))
         failures += [f"{name}: {d}" for d in differ]
-        rec = {"steps": n, "bit_equal": not differ, "leaves_compared": len(leaves),
-               "differences": differ[:20], "losses": [x["loss"] for x in e_run["steps"]],
-               "lr": lrs, "captured": c_run, "eager": e_run}
         out["cases"][name] = rec
-        c, e = c_run, e_run
         print(f"[phase5d] {name} ({n} steps, {TRAIN_BATCH}x{TRAIN_SEQ}) on {gpu}, captured vs "
-              f"eager: host wall {json.dumps(c['host_wall_ms'])} vs "
-              f"{json.dumps(e['host_wall_ms'])} ms a step; traced step host wall "
-              f"{c['traced_step']['host_wall_ms']:.2f} vs {e['traced_step']['host_wall_ms']:.2f}"
-              f" ms, device busy {c['traced_step']['device_busy_ms']:.2f} vs "
-              f"{e['traced_step']['device_busy_ms']:.2f} ms, idle share "
-              f"{c['traced_step']['device_idle_share']:.4f} vs "
-              f"{e['traced_step']['device_idle_share']:.4f}, device records "
-              f"{c['traced_step']['device_records']} vs {e['traced_step']['device_records']}; "
-              f"kernels per step {json.dumps(c['launches_per_step'])} vs "
-              f"{json.dumps(e['launches_per_step'])}; first call {c['first_call_s']:.3f} s "
-              f"(capture {c['capture_s']:.3f} s); peak allocated "
-              f"{c['peak_allocated_gib']:.2f} vs {e['peak_allocated_gib']:.2f} GiB "
-              f"({c['peak_allocated_above_start_gib']:.2f} vs "
-              f"{e['peak_allocated_above_start_gib']:.2f} above the run's start), reserved "
-              f"{c['peak_reserved_gib']:.2f} vs {e['peak_reserved_gib']:.2f} GiB "
-              f"({c['peak_reserved_above_start_gib']:.2f} vs "
-              f"{e['peak_reserved_above_start_gib']:.2f}); losses "
-              f"{rec['losses']}; bit-equal {rec['bit_equal']} ({len(leaves)} leaves)"
-              + (f"; differences {differ[:20]}" if differ else ""), flush=True)
-        del compiled, c_state, e_state, init, on_card, step
+              f"eager: {compiled_line(rec)}", flush=True)
+        del init, on_card, step, rec
         gc.collect()
         torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
@@ -3720,7 +3843,7 @@ def rwkv_serve_phase(dev, params, gpu: str) -> dict:
        system prompt is shared as the tail state at its 128-row boundary;
        tokens equal a lane-mode run's of the same requests.
     7d the n-gram drafter at fixed depth SPEC_K on SPEC_DRAFT_REQUESTS of
-       phase 3e(ii)'s pattern prompts (one wave of the 8 slots), lane mode: verify steps run and each is followed by its
+       phase 3e(ii)'s pattern prompts (4 of the 8 slots), lane mode: verify steps run and each is followed by its
        commit (jit_cache "commit"); the share of requests equal to a
        non-speculative serve's is information only (the verify span runs
        the chunked scan, decode the step form)."""
@@ -4316,7 +4439,8 @@ def zamba_serve_phase(dev, params, gpu: str) -> dict:
 
     out["8b"] = serve("phase8b", f"serve CLI --arch {ZAMBA_ARCH}",
                       lambda: serve_cli.main(ZAMBA_SERVE_ARGS)["report"],
-                      check(RWKV_SERVE_REQUESTS, fused=False, cfg=full), True)
+                      check(RWKV_SERVE_REQUESTS, fused=False, gen=ZAMBA_CLI_GEN, cfg=full),
+                      True)
     steps = out["8b"]["report"]["step_log"]
     print(f"[phase8b] lane serve {ZAMBA_ARCH} on {gpu}: decode steps "
           f"{sum(e['decoded'] > 0 for e in steps)}, prefill chunks "
@@ -5027,6 +5151,166 @@ def whisper_profile_phase(dev, model, params, gpu: str) -> dict:
     return out
 
 
+def embed_train_launches_want(cfg) -> dict:
+    """Kernel launches of one train step of a whole family (remat: every
+    forward twice); every other counter 0: whisper-tiny's attention is its
+    encoder's self-attention and its decoder's self- and cross-attention,
+    its norms layernorms and its MLP gelu (no kernel); internvl2-2b's is
+    the dense backbone's."""
+    if cfg.family == "audio":
+        n = cfg.n_enc_layers + 2 * cfg.n_layers
+        want = {"flash_attention_fwd_lse": 2 * n, "flash_attention_bwd_dq": n,
+                "flash_attention_bwd_dkv": n}
+    else:
+        want = train_launches_want(cfg)
+    return {name: want.get(name, 0) for name in counters()}
+
+
+def embed_train_batch(dev, cfg, batch: int, seq: int, seed: int) -> dict:
+    """A seeded train batch on the card: tokens and next-token labels
+    (batch, seq), and the family's rows in the model's dtype: whisper's
+    (batch, WHISPER_ENC_LEN, d) frames, internvl2's (batch, VLM_PREFIX, d)
+    patch embeddings."""
+    import torch
+
+    from repro_torch.nn.model import torch_dtype
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab, (batch, seq + 1), generator=g, device=dev)
+    name, rows = (("audio_embeds", WHISPER_ENC_LEN) if cfg.family == "audio" else
+                  ("vision_embeds", VLM_PREFIX))
+    embeds = torch.randn((batch, rows, cfg.d_model), generator=g, device=dev)
+    return {"tokens": ids[:, :-1].contiguous(), "labels": ids[:, 1:].contiguous(),
+            name: embeds.to(torch_dtype(cfg.dtype))}
+
+
+def embed_train_phase(tag: str, dev, model, params, batch_shape: tuple, gpu: str) -> dict:
+    """Phases 9e and 10e: ``model``'s family trained at full width from
+    ``params`` (its phase's bf16 weights) on seeded batches of
+    ``batch_shape`` (batch, tokens) with their embedding rows.
+    (1) The loss and every gradient leaf through the h100 library against
+        the torch_cpu library (the plain versions) on the card, on one
+        batch: losses within LOSS_REL, every leaf non-zero on both sides
+        and within full_width_bf16.
+    (2) EMBED_TRAIN_STEPS AdamW steps of make_train_step on that batch
+        (float32 moments; the counters set to 0 just before and read just
+        after: the path's launches): every loss finite and the last below
+        the first, exactly embed_train_launches_want a step, host wall a
+        step, the last step traced (device busy share), peak memory.
+    (3) compile_train_step against the eager step for EMBED_GRAPH_STEPS
+        steps on as many batches (compare_compiled): every metric and every
+        leaf bit-equal, the same launches a step, one compiled entry.
+    Fails unless every part holds."""
+    import gc
+
+    import torch
+
+    from repro_torch import gates
+    from repro_torch.nn.model import build_model
+    from repro_torch.train import OptConfig, init_opt_state, loss_and_grads, make_train_step
+    from repro_torch.train.optimizer import tree_items, tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    plain = build_model(cfg, device=dev, target="torch_cpu")
+    assert model.lib.TARGET_NAME == "h100" and plain.lib.TARGET_NAME == "torch_cpu"
+    b, seq = batch_shape
+    batch = embed_train_batch(dev, cfg, b, seq, seed=70)
+    rows = {k: list(v.shape) for k, v in batch.items()}
+    out = {"batch": rows, "params": sum(t.numel() for t in tree_leaves(params))}
+
+    # (1) the loss and every leaf, kernels vs plain
+    loss_k, _, grads_k = loss_and_grads(model, params, batch)
+    loss_p, _, grads_p = loss_and_grads(plain, params, batch)
+    grads = {"loss_kernels": loss_k.item(), "loss_plain": loss_p.item(), "leaves": {}}
+    if abs(grads["loss_kernels"] - grads["loss_plain"]) > gates.LOSS_REL * grads["loss_plain"]:
+        raise AssertionError(f"{tag}: loss kernels {grads['loss_kernels']} vs plain "
+                             f"{grads['loss_plain']}")
+    plain_grads = dict(tree_items(grads_p))
+    for name, gk in tree_items(grads_k):
+        gp = plain_grads[name]
+        if not bool((gk != 0).any()) or not bool((gp != 0).any()):
+            raise AssertionError(f"{tag}: grad {name} all zeros (kernels "
+                                 f"{bool((gk != 0).any())}, plain {bool((gp != 0).any())})")
+        grads["leaves"][name] = gates.check(gk, gp, "full_width_bf16",
+                                            f"{tag} grad {name}")["rel"]
+    del grads_k, grads_p, plain_grads, plain
+    out["grads"] = grads
+    worst = max(grads["leaves"], key=grads["leaves"].get)
+    print(f"[{tag.replace(' ', '')}] {cfg.name} {rows} on {gpu}: loss kernels "
+          f"{grads['loss_kernels']:.6f} plain {grads['loss_plain']:.6f}; grad rel L2 per "
+          f"leaf, kernels vs plain (gate 5e-2; {len(grads['leaves'])} leaves): "
+          f"{json.dumps(grads['leaves'])}; worst {worst} {grads['leaves'][worst]:.3g}",
+          flush=True)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (2) AdamW steps through the kernels: the path's launches
+    want = embed_train_launches_want(cfg)
+    opt_cfg = OptConfig(**TRAIN_OPT)
+    step = make_train_step(model, opt_cfg)
+    s, run = _run_steps(dev, step, {"params": params, "opt": init_opt_state(opt_cfg, params)},
+                        [batch] * EMBED_TRAIN_STEPS)
+    # where a step's device time goes: one more step under device tracing
+    # (a measurement: its launches are not the path's)
+    (s, _), prof = _step_profile(lambda: step(s, batch))
+    del s
+    by = prof.pop("by_kernel_ms")
+    split, _ = kernel_split(by)
+    where = {"busy_ms": prof["device_busy_ms"], "wall_ms": prof["wall_ms_profiled"],
+             "ms": split, "rest_ms": prof["device_busy_ms"] - sum(split.values()),
+             "top_kernels_ms": dict(sorted(by.items(), key=lambda kv: -kv[1])[:8])}
+    per_step = {k: n / EMBED_TRAIN_STEPS for k, n in run["launches"].items()}
+    losses = [x["loss"] for x in run["steps"]]
+    last = run["steps"][-1]
+    train = {"losses": losses, "grad_norms": [x["grad_norm"] for x in run["steps"]],
+             "wall_ms": [x["host_wall_s"] * 1e3 for x in run["steps"][:-1]],
+             "traced_step": {"host_wall_ms": last["host_wall_s"] * 1e3,
+                             "device_busy_ms": last["device_busy_s"] * 1e3,
+                             "device_busy_share": last["device_busy_s"] / last["host_wall_s"],
+                             "device_records": last["device_records"]},
+             "launches": run["launches"], "launches_per_step": per_step,
+             "peak_allocated_gib": run["peak_allocated_gib"],
+             "peak_reserved_gib": run["peak_reserved_gib"], "where": where}
+    out["train"] = train
+    print(f"[{tag.replace(' ', '')}] {EMBED_TRAIN_STEPS} AdamW steps {TRAIN_OPT} (float32 "
+          f"moments) on {gpu}: losses {losses}; wall ms a step {json.dumps(train['wall_ms'])} "
+          f"(the first builds); traced step {json.dumps(train['traced_step'])}; peak "
+          f"allocated {train['peak_allocated_gib']:.2f} GiB, reserved "
+          f"{train['peak_reserved_gib']:.2f} GiB; launches a step {json.dumps(per_step)}; "
+          f"where a profiled step's device time goes {json.dumps(where)}", flush=True)
+    if per_step != {k: float(n) for k, n in want.items()}:
+        raise AssertionError(f"{tag}: launches per train step {per_step}, want {want}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag}: train losses {losses}: not finite, or not falling")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (3) the compiled step against the eager one
+    graph_cfg = OptConfig(**GRAPH_TRAIN_OPT)
+    step = make_train_step(model, graph_cfg)
+    batches = [embed_train_batch(dev, cfg, b, seq, seed=71 + i)
+               for i in range(EMBED_GRAPH_STEPS)]
+
+    def compiled_state():
+        p = tree_map(torch.clone, params)
+        return {"params": p, "opt": init_opt_state(graph_cfg, p)}
+
+    rec, differ = compare_compiled(dev, step, compiled_state(), compiled_state, batches,
+                                   batches, want, lean=True)
+    out["compiled"] = rec
+    print(f"[{tag.replace(' ', '')}] compiled train step vs eager, {EMBED_GRAPH_STEPS} steps "
+          f"{GRAPH_TRAIN_OPT} on {gpu}: {compiled_line(rec)}", flush=True)
+    if differ:
+        raise AssertionError(f"{tag}, compiled vs eager: {differ}")
+    del batches, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def whisper_phase(dev, gpu: str) -> dict:
     """Phase 9: whisper-tiny at full width (4 encoder and 4 decoder layers,
     d 384, 6 heads of 64, d_ff 1536, vocab 51865 padded to 51968,
@@ -5070,11 +5354,13 @@ def whisper_phase(dev, gpu: str) -> dict:
     for name, fn in counters().items():
         fn.launches = saved[name]
     out["phase4"]["seconds"] = time.perf_counter() - t0
+    out["9e"] = embed_train_phase("phase 9e", dev, model, params,
+                                  (WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ), gpu)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[phase9] {WHISPER_ARCH} done on {gpu}: phase {out['seconds']:.1f} s (9a "
           f"{out['9a']['seconds']:.1f}, 9b {out['9b']['seconds']:.1f}, 9c "
           f"{out['9c']['seconds']:.1f}, 9d {out['9d']['seconds']:.1f}, phase 4's rows "
-          f"{out['phase4']['seconds']:.1f})", flush=True)
+          f"{out['phase4']['seconds']:.1f}, 9e {out['9e']['seconds']:.1f})", flush=True)
     return out
 
 
@@ -5747,11 +6033,14 @@ def vlm_phase(dev, gpu: str) -> dict:
     out["phase4"] = lm_profile_rows("phase 10", dev, model, params, gpu, VLM_PROFILE_FILL,
                                     ("lane", "fused"))
     out["phase4"]["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    out["10e"] = embed_train_phase("phase 10e", dev, model, params,
+                                   (VLM_TRAIN_BATCH, VLM_TRAIN_SEQ), gpu)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[phase10] {VLM_ARCH} done on {gpu}: phase {out['seconds']:.1f} s (10a "
           f"{r['seconds']:.1f}, 10b {out['10b']['seconds']:.1f}, 10c "
           f"{out['10c']['seconds']:.1f}, 10d {out['10d']['seconds']:.1f}, phase 4's rows "
-          f"{out['phase4']['seconds']:.1f})", flush=True)
+          f"{out['phase4']['seconds']:.1f}, 10e {out['10e']['seconds']:.1f})", flush=True)
     return out
 
 
@@ -6148,13 +6437,17 @@ def main() -> int:
              **{part: whisper[part]["launches"] for part in ("9b", "9c", "9d")},
              "10a": vlm["10a"]["launches"],
              **{part: vlm[part]["launches"] for part in ("10b", "10c", "10d")},
+             "9e": whisper["9e"]["train"]["launches"], "10e": vlm["10e"]["train"]["launches"],
              **{part: moe[part]["launches"] for part in ("11a", "11b-lane", "11b-paged",
                                                          "11c")}}
     lm_paths = ("10a", "10b", "10c", "10d", "11a", "11b-lane", "11b-paged", "11c")
-    want = {"rmsnorm": ("8a", "8b", "8c", "8d") + lm_paths,
-            "swiglu": lm_paths,
+    train_paths = ("9e", "10e")
+    want = {"rmsnorm": ("8a", "8b", "8c", "8d") + lm_paths + ("10e",),
+            "swiglu": lm_paths + ("10e",),
             "flash_attention": ("8a", "9a", "9b", "9c", "9d", "10a", "11a", "11c"),
-            "paged_attention": ("8c", "8d", "9c", "9d", "10c", "10d", "11b-paged")}
+            "paged_attention": ("8c", "8d", "9c", "9d", "10c", "10d", "11b-paged"),
+            "flash_attention_fwd_lse": train_paths, "flash_attention_bwd_dq": train_paths,
+            "flash_attention_bwd_dkv": train_paths}
     for row in kernels:
         for part in want.get(row["name"], ()):
             row[f"launches_phase{part}"] = paths[part][row["name"]]
@@ -6186,7 +6479,10 @@ def main() -> int:
           f"{ {p: whisper[p]['launches'] for p in ('9a', '9b', '9c', '9d')} } "
           f"({whisper['seconds']:.1f} s), {VLM_ARCH} launches "
           f"{ {p: vlm[p]['launches'] for p in ('10a', '10b', '10c', '10d')} } "
-          f"({vlm['seconds']:.1f} s), moe launches "
+          f"({vlm['seconds']:.1f} s), training launches (5 AdamW steps) {WHISPER_ARCH} "
+          f"{whisper['9e']['train']['launches']} losses {whisper['9e']['train']['losses']}, "
+          f"{VLM_ARCH} {vlm['10e']['train']['launches']} losses "
+          f"{vlm['10e']['train']['losses']}, moe launches "
           f"{ {p: moe[p]['launches'] for p in ('11a', '11b-lane', '11b-paged', '11c')} } "
           f"({moe['seconds']:.1f} s) on {gpu}; seconds per phase "
           f"{json.dumps(phase_s)}; total {time.perf_counter() - t_start:.1f} s",

@@ -24,7 +24,9 @@ staged through the step (pinned, ``non_blocking``). Under
 ``repro_torch.graphs.disable_graphs()`` the loop runs the eager step, op by
 op. Unlike the reference, the initial params are the port's own seeded init
 (``init_train_state``), and ``--dp`` / ``--tp`` other than 1 raise: the
-sharded engine is not ported yet (ROADMAP.md, queue 1, item 9). The
+sharded engine is not ported yet (ROADMAP.md, queue 1, item 9). The vlm
+and audio families are refused before anything is built: their batches need
+vision or audio rows, which ``SyntheticTokens`` does not make. The
 watchdog flags steps slower than ``factor`` x the running median; here it
 logs and counts.
 """
@@ -45,6 +47,9 @@ from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.step import init_train_state, make_train_step
 
 SHARDED_TODO = "the sharded engine is not ported yet (ROADMAP.md, queue 1, item 9)"
+# the train batch's embedding rows per family; SyntheticTokens yields tokens
+# and labels only, and the reference's CLI fails on both families too
+EMBEDS = {"vlm": "vision_embeds", "audio": "audio_embeds"}
 
 
 class StepWatchdog:
@@ -95,6 +100,11 @@ def main(argv=None) -> dict:
         raise NotImplementedError(f"--dp {args.dp} --tp {args.tp}: {SHARDED_TODO}")
 
     cfg = get_config(args.arch)
+    if cfg.family in EMBEDS:
+        raise ValueError(f"--arch {args.arch}: a {cfg.family} train batch needs "
+                         f"{EMBEDS[cfg.family]!r} rows, and SyntheticTokens carries no "
+                         f"vision or audio rows (tokens and labels only): train this "
+                         f"family through make_train_step with batches that hold them")
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg, device=args.device)

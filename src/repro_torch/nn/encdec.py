@@ -11,7 +11,9 @@ deviation from Whisper's learned positions).
 
 Layer params stay stacked, ``enc_blocks`` (n_enc_layers, ...) and
 ``dec_blocks`` (n_layers, ...), the reference's layout, so its params load
-1:1; Python loops replace its ``lax.scan``. The decode state holds the
+1:1; Python loops replace its ``lax.scan``. For training,
+``encdec_forward(..., remat=True)`` checkpoints each encoder block and each
+decoder block, the cross K/V projection inside it. The decode state holds the
 decoder's self-attention caches ``k`` / ``v`` (L, B, KH, S, hd), which grow
 one row a token and page in paged serving, and the cross K/V ``cross_k`` /
 ``cross_v`` (L, B, KH, enc_len, hd), fixed per request: tails, never paged.
@@ -29,7 +31,7 @@ from .attention import (attention_decode, attention_forward, attention_prefill_c
                         attention_span_paged, attention_verify, cross_attention_forward,
                         init_attention, project_kv)
 from .common import apply_norm_params, init_norm
-from .lm import unstack_layers
+from .lm import run_block, unstack_layers
 from .mlp import init_mlp, mlp_forward
 
 _SINUSOID: dict = {}
@@ -84,18 +86,23 @@ def _head(tsl, params, cfg, x):
     return tsl.matmul(apply_norm_params(tsl, cfg, params["final_norm"], x), params["head"])
 
 
-def encode(tsl, params, audio_embeds, cfg):
-    """audio_embeds (B, S, D) -> the encoder's output (B, S, D)."""
+def _enc_block(tsl, bp, x, cfg, positions):
+    h, _ = attention_forward(tsl, bp["attn"],
+                             apply_norm_params(tsl, cfg, bp["attn_norm"], x), cfg,
+                             causal=False, positions=positions)
+    x = x + h
+    return x + mlp_forward(tsl, bp["mlp"], apply_norm_params(tsl, cfg, bp["mlp_norm"], x),
+                           cfg)
+
+
+def encode(tsl, params, audio_embeds, cfg, *, remat: bool = False):
+    """audio_embeds (B, S, D) -> the encoder's output (B, S, D). ``remat``:
+    each block under one checkpoint (``nn/lm.run_block``)."""
     s, d = audio_embeds.shape[1], audio_embeds.shape[2]
     x = audio_embeds + _sinusoid(s, d, audio_embeds.device).to(audio_embeds.dtype)
     positions = torch.arange(s, device=x.device)
     for bp in unstack_layers(params["enc_blocks"], cfg.n_enc_layers):
-        h, _ = attention_forward(tsl, bp["attn"],
-                                 apply_norm_params(tsl, cfg, bp["attn_norm"], x), cfg,
-                                 causal=False, positions=positions)
-        x = x + h
-        x = x + mlp_forward(tsl, bp["mlp"], apply_norm_params(tsl, cfg, bp["mlp_norm"], x),
-                            cfg)
+        x = run_block(_enc_block, tsl, bp, x, cfg, positions, remat=remat)
     return apply_norm_params(tsl, cfg, params["enc_norm"], x)
 
 
@@ -108,28 +115,37 @@ def _cross(tsl, bp, x, ck, cv, cfg):
                            cfg)
 
 
-def _forward(tsl, params, tokens, enc, cfg):
+def _dec_block(tsl, bp, x, enc, cfg, positions):
+    """One decoder block: causal self-attention, the cross K/V projected
+    from ``enc`` (inside the block, as the reference's scan body does, so a
+    checkpointed block recomputes it) and the cross-attention + MLP.
+    Returns (x, (k, v), (ck, cv))."""
+    h, kv = attention_forward(tsl, bp["self_attn"],
+                              apply_norm_params(tsl, cfg, bp["self_norm"], x), cfg,
+                              causal=True, positions=positions)
+    ck, cv = project_kv(tsl, bp["cross_attn"], enc, cfg)
+    return _cross(tsl, bp, x + h, ck, cv, cfg), kv, (ck, cv)
+
+
+def _forward(tsl, params, tokens, enc, cfg, *, remat: bool = False):
     """The decoder over the whole token sequence (teacher forcing) against
     ``enc``: (hidden (B,S,D), [(k, v)] self-attention caches, [(ck, cv)]
-    cross K/V), per layer."""
+    cross K/V), per layer. ``remat``: each block under one checkpoint."""
     x = tsl.embed_lookup(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
     kvs, cross = [], []
     for bp in _dec_layers(params, cfg):
-        h, kv = attention_forward(tsl, bp["self_attn"],
-                                  apply_norm_params(tsl, cfg, bp["self_norm"], x), cfg,
-                                  causal=True, positions=positions)
-        ck, cv = project_kv(tsl, bp["cross_attn"], enc, cfg)
-        x = _cross(tsl, bp, x + h, ck, cv, cfg)
+        x, kv, ckv = run_block(_dec_block, tsl, bp, x, enc, cfg, positions, remat=remat)
         kvs.append(kv)
-        cross.append((ck, cv))
+        cross.append(ckv)
     return x, kvs, cross
 
 
-def encdec_forward(tsl, params, tokens, cfg, *, audio_embeds):
-    """Teacher-forced logits (B, S, V) of ``tokens`` over ``audio_embeds``."""
-    enc = encode(tsl, params, audio_embeds, cfg)
-    x, _, _ = _forward(tsl, params, tokens, enc, cfg)
+def encdec_forward(tsl, params, tokens, cfg, *, audio_embeds, remat: bool = False):
+    """Teacher-forced logits (B, S, V) of ``tokens`` over ``audio_embeds``;
+    ``remat`` checkpoints every encoder and decoder block (training)."""
+    enc = encode(tsl, params, audio_embeds, cfg, remat=remat)
+    x, _, _ = _forward(tsl, params, tokens, enc, cfg, remat=remat)
     return _head(tsl, params, cfg, x)
 
 

@@ -17,7 +17,9 @@ family projects a request's (B, vision_prefix, D) patch embeddings through
 ``vision_proj`` and reads them AHEAD of the first prompt token
 (``embed_inputs``): ``lm_forward`` and ``lm_prefill`` take them, and so does
 ``lm_prefill_chunk`` on a request's first chunk, whose logits then have
-prefix + C rows. The decode, verify and paged steps are unchanged.
+prefix + C rows; under ``remat`` the projected rows get their gradient
+through the checkpointed blocks (``Model.loss`` drops their logit rows).
+The decode, verify and paged steps are unchanged.
 """
 
 from __future__ import annotations
@@ -66,6 +68,17 @@ def unstack_layers(blocks: dict, n: int) -> list[dict]:
     return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
+def run_block(fn, *args, remat: bool):
+    """``fn(*args)``; with ``remat`` through a non-reentrant
+    ``torch.utils.checkpoint``, so the block's activations are recomputed in
+    the backward (the reference's ``jax.checkpoint`` of its scan body)."""
+    if not remat:
+        return fn(*args)
+    # no op of a block draws random numbers, so not saving and restoring the
+    # RNG state (a host-side step inside a CUDA graph capture) changes no result
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 def _block_forward(tsl, bp, x, cfg, positions):
     h, kv = attention_forward(tsl, bp["attn"],
                               apply_norm_params(tsl, cfg, bp["attn_norm"], x),
@@ -108,14 +121,7 @@ def lm_forward(tsl, params, tokens, cfg, *, vision_embeds=None,
     positions = torch.arange(x.shape[1], device=x.device)
     kvs = []
     for bp in unstack_layers(params["blocks"], cfg.n_layers):
-        if remat:
-            # no op of a block draws random numbers, so not saving and
-            # restoring the RNG state (a host-side step inside a CUDA graph
-            # capture) changes no result
-            x, kv = checkpoint(_block_forward, tsl, bp, x, cfg, positions,
-                               use_reentrant=False, preserve_rng_state=False)
-        else:
-            x, kv = _block_forward(tsl, bp, x, cfg, positions)
+        x, kv = run_block(_block_forward, tsl, bp, x, cfg, positions, remat=remat)
         if collect_cache:
             kvs.append(kv)
     x = apply_norm_params(tsl, cfg, params["final_norm"], x)

@@ -15,8 +15,11 @@ overrides), with one surface:
          goes ahead of the tokens: S + vision_prefix rows of logits)
     loss(params, batch, *, remat=True) -> (scalar, {"ce", "aux"})
         (mean next-token cross-entropy of ``batch["labels"]`` plus 0.01·aux,
-         aux 0 for the dense family; differentiable: a train step makes the
-         params leaves that require grad, serving keeps inference mode)
+         aux 0 for the dense, vlm and audio families; vlm: the logit rows of
+         ``batch["vision_embeds"]`` dropped first; audio: over
+         ``batch["audio_embeds"]``; a batch without its family's key raises
+         ValueError. Differentiable: a train step makes the params leaves
+         that require grad, serving keeps inference mode)
     prefill(params, batch, max_len) -> (last_logits (B,V), state)
         (audio: ``batch["audio_embeds"]`` (B, enc_len, D) too; vlm:
          ``batch["vision_embeds"]``, the cache then filled to prefix + S)
@@ -74,8 +77,8 @@ overrides), with one surface:
 Unlike the reference, state is updated IN PLACE by prefill_chunk,
 decode_step, the dense verify_step, the recurrent families' verify_commit,
 insert_slot and reset_slot (each still returns it), and the page pools by
-decode_step_paged, verify_step_paged and zamba's verify_commit_paged. rwkv
-zamba, whisper, vlm and moe are served, not trained: their ``loss`` raises.
+decode_step_paged, verify_step_paged and zamba's verify_commit_paged. rwkv,
+zamba and moe are served, not trained: their ``loss`` raises.
 
 ``load_jax_params(np_tree, cfg, device)`` turns the reference's params
 (``build_model(cfg).init(PRNGKey(s))``, ``np.asarray`` per leaf) into this
@@ -97,25 +100,37 @@ from repro_torch.device import resolve_device
 from . import encdec, lm, rwkv_lm, zamba
 from .common import init_leaf
 
-# where rwkv's, zamba's, whisper's, internvl2's and the moe family's
-# training stand
+# where rwkv's, zamba's and the moe family's training stand
 RWKV_TRAIN_TODO = "training the ssm (rwkv) family is not ported yet " \
                   "(ROADMAP.md, queue 1, item 11)"
 HYBRID_TRAIN_TODO = "training the hybrid (zamba) family is not ported yet " \
                     "(ROADMAP.md, queue 1, item 12)"
-AUDIO_TRAIN_TODO = "training the audio (whisper) family is not ported yet " \
-                   "(ROADMAP.md, queue 1, item 13)"
-VLM_TRAIN_TODO = "training the vlm (internvl2) family is not ported yet " \
-                 "(ROADMAP.md, queue 1, item 14)"
 MOE_TRAIN_TODO = "training the moe (grok, arctic) family is not ported yet " \
                  "(ROADMAP.md, queue 1, item 15)"
-TRAIN_TODO = {"ssm": RWKV_TRAIN_TODO, "hybrid": HYBRID_TRAIN_TODO,
-              "audio": AUDIO_TRAIN_TODO, "vlm": VLM_TRAIN_TODO, "moe": MOE_TRAIN_TODO}
+TRAIN_TODO = {"ssm": RWKV_TRAIN_TODO, "hybrid": HYBRID_TRAIN_TODO, "moe": MOE_TRAIN_TODO}
 
 
 def torch_dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16,
             "float16": torch.float16}[name]
+
+
+def _batch_rows(cfg: ArchConfig, batch: dict, key: str) -> torch.Tensor:
+    """``batch[key]``, the embedding rows the family's loss reads; a batch
+    without them raises (the reference fails on it too, less clearly)."""
+    if key not in batch:
+        raise ValueError(f"{cfg.name}: a {cfg.family} train batch needs {key!r} beside "
+                         f"the tokens and labels; got keys {sorted(batch)}")
+    return batch[key]
+
+
+def _xent_loss(tsl, logits, labels, n_prefix: int = 0):
+    """(ce + 0.01 aux, {"ce", "aux"}), aux 0: the mean cross-entropy of
+    ``labels`` over the logit rows past the first ``n_prefix``
+    (``repro/nn/model.py:67-71``, ``:128-133``)."""
+    ce = tsl.cross_entropy(logits[:, n_prefix:], labels).mean()
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def _init_make(model: "Model", seed: int):
@@ -149,11 +164,12 @@ class Model:
     def loss(self, params, batch, *, remat: bool = True):
         if self.cfg.family in TRAIN_TODO:
             raise NotImplementedError(TRAIN_TODO[self.cfg.family])
+        vlm = self.cfg.family == "vlm"
+        vision = _batch_rows(self.cfg, batch, "vision_embeds") if vlm else None
         logits, _ = lm.lm_forward(self.tsl, params, batch["tokens"], self.cfg,
-                                  remat=remat)
-        ce = self.tsl.cross_entropy(logits, batch["labels"]).mean()
-        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
-        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+                                  vision_embeds=vision, remat=remat)
+        return _xent_loss(self.tsl, logits, batch["labels"],
+                          self.cfg.vision_prefix if vlm else 0)
 
     def prefill(self, params, batch, max_len: int):
         return lm.lm_prefill(self.tsl, params, batch["tokens"], self.cfg,
@@ -334,7 +350,10 @@ class EncDecModel(Model):
                                      audio_embeds=batch["audio_embeds"])
 
     def loss(self, params, batch, *, remat: bool = True):
-        raise NotImplementedError(AUDIO_TRAIN_TODO)
+        logits = encdec.encdec_forward(
+            self.tsl, params, batch["tokens"], self.cfg,
+            audio_embeds=_batch_rows(self.cfg, batch, "audio_embeds"), remat=remat)
+        return _xent_loss(self.tsl, logits, batch["labels"])
 
     def prefill(self, params, batch, max_len: int):
         return encdec.encdec_prefill(self.tsl, params, batch["tokens"], self.cfg,

@@ -32,9 +32,11 @@ def make_train_step(model, opt_cfg: OptConfig, *, microbatches: int = 1,
     """Returns train_step(train_state, batch) -> (train_state, metrics).
 
     train_state = {"params", "opt"}; batch = {"tokens", "labels"} (B,S)
-    token ids on the model's device. metrics: loss, ce, aux, grad_norm (0-d
-    tensors on the device), lr (a float) and, with ``compress_grads``,
-    compress_err (0-d float32).
+    token ids on the model's device, plus the family's embedding rows: vlm
+    ``vision_embeds`` (B, vision_prefix, D), audio ``audio_embeds`` (B,
+    enc_len, D). metrics: loss, ce, aux, grad_norm (0-d tensors on the
+    device), lr (a float) and, with ``compress_grads``, compress_err (0-d
+    float32).
 
     With ``microbatches`` k > 1 the batch's leading axis is split into k
     parts (B must divide), each part's grads are summed into float32 zeros
@@ -44,9 +46,9 @@ def make_train_step(model, opt_cfg: OptConfig, *, microbatches: int = 1,
     the reference."""
     if microbatches < 1:
         raise ValueError(f"microbatches={microbatches}: want >= 1")
-    if model.cfg.family != "dense":
-        from repro_torch.nn.model import TRAIN_TODO    # nn imports train
+    from repro_torch.nn.model import TRAIN_TODO    # nn imports train
 
+    if model.cfg.family in TRAIN_TODO:
         raise NotImplementedError(f"{model.cfg.name}: {TRAIN_TODO[model.cfg.family]}")
     if mesh is not None:
         raise NotImplementedError("mesh: sharded training is not ported yet "

@@ -49,7 +49,8 @@ from repro_torch.train import (OptConfig, apply_updates, init_opt_state,
                                loss_and_grads, make_train_step)
 from repro_torch.train.optimizer import tree_leaves, tree_map
 
-# the seven shapes of tests/test_flash_attention_grad.py:30-39
+# the seven shapes of tests/test_flash_attention_grad.py:30-39, and whisper's
+# cross-attention form (non-causal, Sq < Sk, no kv_len)
 FA_CASES = [
     (1, 2, 2, 64, 64, 32, True, None),     # block-multiple causal
     (2, 4, 2, 96, 160, 32, True, None),    # GQA + Sq, Sk no multiple of a tile
@@ -58,6 +59,7 @@ FA_CASES = [
     (1, 2, 2, 40, 64, 16, False, 48),      # kv_len-masked cache tail
     (1, 4, 2, 1, 64, 32, True, 40),        # decode shape: Sq 1, kv_len < Sk
     (1, 2, 2, 16, 64, 16, True, 40),       # prefill continuation
+    (2, 4, 4, 24, 40, 16, False, None),    # cross-attention: non-causal, Sq < Sk
 ]
 GATE = {"float32": "host_f32", "bfloat16": "host_bf16"}
 
@@ -162,15 +164,27 @@ class _FunctionAttention:
 
 
 def function_model(model: Model, flash_attention=fa.flash_attention) -> Model:
-    """``model`` with its attention through :class:`FlashAttention`."""
+    """``model`` (of any family's class) with its attention through
+    :class:`FlashAttention`."""
     lib = type("Lib", (), {"ops": _FunctionAttention(model.lib.ops, flash_attention)})
-    return Model(cfg=model.cfg, device=model.device, lib=lib)
+    return type(model)(cfg=model.cfg, device=model.device, lib=lib)
+
+
+ENC_LEN = 24      # the audio family's encoder frames against s = 16 tokens: Sq != Sk
 
 
 def _batch(cfg, seed=0, b=2, s=16):
+    """Seeded tokens and labels (b, s), and the family's float32 embedding
+    rows: vlm ``vision_embeds`` (b, vision_prefix, d), audio
+    ``audio_embeds`` (b, ENC_LEN, d)."""
     rng = np.random.default_rng(seed)
-    return {k: rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
-            for k in ("tokens", "labels")}
+    batch = {k: rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    rows = {"vlm": ("vision_embeds", cfg.vision_prefix),
+            "audio": ("audio_embeds", ENC_LEN)}.get(cfg.family)
+    if rows is not None:
+        batch[rows[0]] = rng.normal(0, 1, (b, rows[1], cfg.d_model)).astype(np.float32)
+    return batch
 
 
 _JAX = {}
@@ -346,7 +360,7 @@ def test_generated_torch_cpu_training_blocks_pass(name):
 
 # -- planted faults: each gate must fail on each fault it can see -------------
 #
-# Each fault is a one-line edit of the plain versions (ref.py, which the
+# Each fault is a small edit of the plain versions (ref.py, which the
 # kernels mirror) or of the autograd glue (ops.py), applied to a copy of the
 # module's source in memory: nothing faulted is written anywhere.
 # ``python tests/test_torch_train.py`` prints the whole fault x gate matrix.
@@ -363,11 +377,29 @@ FAULTS = {
         "lse = (m + torch.log(l.clamp_min(1e-30)))[..., 0]"),
     "causal_diagonal_off_by_one": ("ref", "seen & (kj <= torch.arange(sq",
                                    "seen & (kj < torch.arange(sq"),
+    # the plain mask stays causal when causal=False (whisper's encoder and
+    # cross-attention)
+    "causal_when_not_causal": ("ref", "    if causal:\n        seen = seen & (kj <=",
+                               "    if True:\n        seen = seen & (kj <="),
+    # kv_len defaults to Sq instead of Sk: keys past Sq are masked where
+    # Sq < Sk (the cross-attention), rows see keys past Sk where Sq > Sk
+    "kv_len_defaults_to_sq": ("ref", "end = sk if kv_len is None else kv_len",
+                              "end = sq if kv_len is None else kv_len"),
+    # dk/dv summed only over the first Sq key rows (a k-tiled grid sized by
+    # Sq): the cross-attention's keys past Sq get no gradient
+    "dkv_keys_past_sq_dropped": ("ref", "    return dk, dv\n",
+                                 "    dk[:, :, q.shape[2]:] = 0.0\n"
+                                 "    dv[:, :, q.shape[2]:] = 0.0\n    return dk, dv\n"),
 }
-# (fault, gate) pairs a gate cannot see, and why: a reduced model's causal
-# self-attention (Sq = Sk) has no row without keys, and the plain versions
-# and kernels mask p explicitly, so that lse never enters a gradient.
+# (fault, gate) pairs a gate cannot see, and why: no reduced model's
+# attention has a row without keys (causal self-attention at Sq = Sk,
+# whisper's encoder and cross-attention non-causal over every key), and the
+# plain versions and kernels mask p explicitly, so that lse never enters a
+# gradient.
 BLIND = {("lse_not_zeroed_on_rows_without_keys", "model_f32")}
+# the reduced configs model_gate runs: MHA with QKV bias, GQA with q/k norm,
+# the vision prefix (GQA) and the encoder-decoder (non-causal, Sq != Sk)
+GATE_ARCHS = ("qwen1.5-0.5b", "qwen3-14b", "internvl2-2b", "whisper-tiny")
 
 
 def faulted_ops(fault: str):
@@ -430,9 +462,9 @@ def attention_gate(ops, dt, margins=None) -> list[str]:
 
 
 def model_gate(ops) -> list[str]:
-    """The model_f32 gate through FlashAttention on both reduced archs."""
+    """The model_f32 gate through FlashAttention on the GATE_ARCHS."""
     failed = []
-    for arch in ("qwen1.5-0.5b", "qwen3-14b"):
+    for arch in GATE_ARCHS:
         _, _, cfg, params = jax_pair(arch)
         want_loss, want_grads = jax_loss_and_grads(arch, True)
         model = function_model(build_model(cfg, device="cpu"), ops.flash_attention)

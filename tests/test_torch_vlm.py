@@ -27,7 +27,7 @@ from repro.configs import get_config as jax_get_config
 from repro.nn.model import build_model as jax_build_model
 from repro_torch.configs import get_config
 from repro_torch.nn.model import Model, build_model, load_jax_params
-from repro_torch.train import OptConfig, make_train_step
+from repro_torch.train import OptConfig, init_opt_state, make_train_step
 
 ARCH = "internvl2-2b"
 ATOL = RTOL = 1e-5
@@ -238,8 +238,8 @@ def test_paged_steps_match_the_reference(pair, kind):
 def test_contracts_refusals_and_training_refused(pair):
     """The lm backbone's KV contracts (the vision rows page like prompt
     rows); the decode prefix is the vision prefix; a vlm config without
-    vision rows is refused at ``build_model``; training raises, citing
-    queue 1 item 14, at the loss and at the train step."""
+    vision rows is refused at ``build_model``; a train batch without its
+    vision rows raises, naming them, at the loss and at the train step."""
     _, _, model, params = pair
     cfg = model.cfg
     assert cfg.decode_prefix == cfg.vision_prefix == 8
@@ -248,8 +248,10 @@ def test_contracts_refusals_and_training_refused(pair):
     assert model.verify_commit is None and model.verify_commit_paged is None
     with pytest.raises(NotImplementedError, match="vision_prefix=0 is not ported"):
         build_model(cfg.replace(vision_prefix=0), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        model.loss(params, {"tokens": torch.zeros((1, 4), dtype=torch.int64),
-                            "labels": torch.zeros((1, 4), dtype=torch.int64)})
-    with pytest.raises(NotImplementedError, match="item 14"):
-        make_train_step(model, OptConfig())
+    tokens_only = {"tokens": torch.zeros((1, 4), dtype=torch.int64),
+                   "labels": torch.zeros((1, 4), dtype=torch.int64)}
+    with pytest.raises(ValueError, match="'vision_embeds'"):
+        model.loss(params, tokens_only)
+    state = {"params": params, "opt": init_opt_state(OptConfig(), params)}
+    with pytest.raises(ValueError, match="'vision_embeds'"):
+        make_train_step(model, OptConfig())(state, tokens_only)

@@ -43,6 +43,7 @@ from repro_torch.nn import encdec
 from repro_torch.nn.lm import unstack_layers
 from repro_torch.nn.mlp import mlp_forward
 from repro_torch.nn.model import EncDecModel, build_model, load_jax_params
+from repro_torch.train import OptConfig, init_opt_state, make_train_step
 
 ARCH = "whisper-tiny"
 ATOL = RTOL = 1e-5
@@ -332,13 +333,18 @@ def test_paged_steps_match_the_reference(pair, kind, int8):
 def test_state_contracts_and_training_refused(pair):
     """The slot axis of every leaf is 1; the self-attention caches page on
     axis 3 and the cross K/V are tails; ``enc_len`` defaults to max_len as
-    in the reference; training raises, citing its queue item."""
+    in the reference; a train batch without its audio frames raises,
+    naming them, at the loss and at the train step."""
     _, _, model, params = pair
     st = model.init_decode_state(2, 10)
     assert st["cross_k"].shape[3] == 10
     assert model.state_batch_axes(st) == {k: 1 for k in st}
     assert model.state_page_axes(st) == {"k": 3, "v": 3, "cross_k": None, "cross_v": None}
     assert model.verify_commit is None and model.verify_commit_paged is None
-    with pytest.raises(NotImplementedError, match="item 13"):
-        model.loss(params, {"tokens": torch.zeros((1, 4), dtype=torch.int64),
-                            "labels": torch.zeros((1, 4), dtype=torch.int64)})
+    tokens_only = {"tokens": torch.zeros((1, 4), dtype=torch.int64),
+                   "labels": torch.zeros((1, 4), dtype=torch.int64)}
+    with pytest.raises(ValueError, match="'audio_embeds'"):
+        model.loss(params, tokens_only)
+    state = {"params": params, "opt": init_opt_state(OptConfig(), params)}
+    with pytest.raises(ValueError, match="'audio_embeds'"):
+        make_train_step(model, OptConfig())(state, tokens_only)
