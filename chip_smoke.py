@@ -24,8 +24,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    per instantiation of the flash forward and backward and the paged
    libraries, ptxas's registers and spills and the tensor-core (HMMA /
    HGMMA) instructions in its SASS (cuobjdump -sass), and fails if a bf16
-   one (forward, dq, dk/dv, paged at D 64 and 128; forward and paged at D
-   112 too) spills or has none, or a float32 one has any; per softmax instantiation its registers, shared
+   one (forward, dq, dk/dv, paged at D 64, 112 and 128) spills or has none,
+   or a float32 one has any; per softmax instantiation its registers, shared
    memory and spills (any spill fails). The paged cases (serving, the
    serving verify span of SPEC_K + 1 rows, edges, GQA span, a long context,
    batch-1 GQA, float32, and zamba2-7b's decode and verify shapes at D 112
@@ -66,19 +66,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    plain version on copies of the same pools: all 40 span rows under the
    same check; row 0 of the span against a fused decode step from the same
    pools (a verify span of one is the decode step).
-3. Serve. repro_torch.launch.serve.main at full width: 8 requests of 256
+3. Serve. repro_torch.launch.serve.main at full width: 4 requests of 256
    prompt tokens and 64 generated tokens over 8 slots, 64-token chunks.
    Every serve of phases 3, 3b and 3e but 3e(i) runs twice on the same
    requests (paired_serve; 3e(i)'s eager twin is dropped for time): with the engine's captured steps (CUDA graphs, the
    default) and under serve.disable_graphs(), the order alternating from
-   pair to pair, each under device tracing (torch.profiler, CUDA activity
-   only) with its launches read around it. A pair fails unless the greedy
-   outputs, every report counter (SERVE_COUNTED, report["paged"] and
-   report["spec"] in full, the per-request counts) and the launch counters
-   are equal, the graphs run captured its steps (report["jit_cache"]) and
-   the eager run none; it prints both ways' decode tokens/s, TTFT mean,
-   wall and the device's idle share over the serve (1 - busy / host wall,
-   busy the union of the device records).
+   pair to pair, the graphs run under device tracing (torch.profiler, CUDA
+   activity only; the eager twin untraced: reading its device records took
+   as long as its serve, and its idle share, 0.92-0.96 when it was traced,
+   is not measured), each with its launches read around it. A pair
+   fails unless the greedy outputs, every report counter (SERVE_COUNTED,
+   report["paged"] and report["spec"] in full, the per-request counts) and
+   the launch counters are equal, the graphs run captured its steps
+   (report["jit_cache"]) and the eager run none; it prints both ways'
+   decode tokens/s, TTFT mean, wall and the graphs run's device idle share
+   over the serve (1 - busy / host wall, busy the union of the device
+   records).
 3b. Paged serve. ServeEngine(paged=PagedConfig(page_size=64)) at full width
    with phase 2's params: 16 requests sharing a 128-token system prompt plus
    128 tokens each, 64 generated, 8 slots, max_len 320, 64-token chunks,
@@ -88,12 +91,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    requests whose tokens equal a lane-mode run's on the same requests
    (information only: bf16 kernels may flip a near-tied argmax).
 3e. Speculative paged serve. ServeEngine(paged=..., speculation=...) at 3b's
-   shape with phase 2's params, greedy: (i) depth SPEC_K on 3b's 16
-   requests; (ii) the cost-priced depth with the n-gram drafter on 4
+   shape with phase 2's params, greedy: (i) depth SPEC_K on 8 of 3b's
+   requests (PAGED_SUBSET); (ii) the cost-priced depth with the n-gram drafter on 2
    prompts that repeat a seeded 16-token pattern to 256 tokens, beside the
    same requests without speculation (a pair of its own: the two graphs
    runs give what speculation buys end to end); (iii) the draft-model drafter
-   (qwen1.5-0.5b with the target's weights) at depth SPEC_K on 4 of them.
+   (qwen1.5-0.5b with the target's weights) at depth SPEC_K on 2 of them.
    Each fails unless decode ran fused (no lane activation), nothing was
    refused, every request got 64 tokens and the paged kernel launched 24
    times per decode or verify step; (i) and (ii) unless verify steps ran,
@@ -101,7 +104,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the mean accepted span, slot steps per emitted token and the mean
    depth, and the share of (i)'s requests whose tokens equal 3b's
    (information only).
-3f. int8 paged serve. 3b's requests and engine shape under
+3f. int8 paged serve. 8 of 3b's requests (PAGED_SUBSET) and its engine shape under
    PagedConfig(int8=True), the page budget the bytes of 3b's default bf16
    pool, paired (graphs first; both sides untraced: reading a side's ~1.7
    million device records took longer than the serve; a captured int8
@@ -163,11 +166,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    plain versions at the train shape (8, 16, 512, 64) causal bf16, the GQA
    case (2, 40 over 8 KV heads, 512, 128), a kv_len < Sk and an Sq > Sk case
    (rows that see no key: lse and dq exactly 0) and float32, under the
-   scale-relative gates of repro_torch.gates; each timed by device time
-   only beside its plain version, its bound and its library yardstick (the
-   forward: aten._scaled_dot_product_flash_attention, which returns a logsumexp;
-   dq + dk/dv: the backward of F.scaled_dot_product_attention through
-   autograd, one number for the three gradients).
+   scale-relative gates of repro_torch.gates; also at D 112
+   (zamba2-7b's (8, 32, 512, 512, 112) causal, kv_len 400 of 512 keys, and
+   float32); each timed by device time only beside its plain version, its
+   bound and its library yardstick (the forward:
+   aten._scaled_dot_product_flash_attention in bf16 and
+   aten._scaled_dot_product_efficient_attention in float32, both with a
+   logsumexp; dq + dk/dv: the backward of F.scaled_dot_product_attention
+   through autograd, one number for the three gradients), on the keys sliced
+   to kv_len where that is the same function (non-causal, or Sq = kv_len).
 5b. The loss and every parameter's gradient on one batch, through the h100
    library (the kernels) and through the plain versions bound on the card
    (torch_cpu library): losses within 5e-3 relative, every leaf's gradient
@@ -200,19 +207,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    directory removed at the end; each run's launch counters are set to 0
    just before it and read just after. The CLI runs the compiled step
    (a restart restores into a fresh compiled step).
-6a. int8 optimizer moments and two microbatches: 6 steps with a checkpoint
-   every 3, a restart at --steps 9 that restores step 6, and the same 9
-   steps uninterrupted. Fails unless step_3, step_6 and step_9 are
-   committed, step_9's data state is 9, every loss is finite, the restarted
-   steps 7-9 are within LOSS_REL of the uninterrupted run's (the largest
+6a. int8 optimizer moments and two microbatches: 4 steps with a checkpoint
+   every 2, a restart at --steps 6 that restores step 4, and the same 6
+   steps uninterrupted. Fails unless step_2, step_4 and step_6 are
+   committed, step_6's data state is 6, every loss is finite, the restarted
+   steps 5-6 are within LOSS_REL of the uninterrupted run's (the largest
    difference is printed), every run launches exactly twice phase 5c's
    kernels per step, and the int8 moments (q + scale, from the manifest)
-   take at most INT8_STATE_SHARE of float32 moments' bytes. The same 9
+   take at most INT8_STATE_SHARE of float32 moments' bytes. The same 6
    steps again under disable_graphs() (the eager twin): every logged loss,
    the first and the final loss equal to the compiled run's, the same
    launches. Prints tokens/s of each run, peak memory and the loop's
    seconds in checkpoint saves.
-6b. --compress-grads against none, 5 steps each: every loss finite and
+6b. --compress-grads against none, 3 steps each: every loss finite and
    within LOSS_REL; compress_err of make_train_step on the first batch in
    (0, max|g| (1/254 + 2^-8)]: the wire format's amax/254 plus one bf16
    rounding of the cast back.
@@ -239,7 +246,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    7c paged (PagedConfig(), phase 3b's requests: nothing pages, so fused is
    false, requests activate through lanes, the system prompt is shared as
    the tail state at its 128-row boundary; tokens equal a lane-mode run's),
-   7d the n-gram drafter at depth SPEC_K on 4 of 3e(ii)'s prompts (verify steps
+   7d the n-gram drafter at depth SPEC_K on 2 of 3e(ii)'s prompts (verify steps
    each followed by their commit, jit_cache "commit"; the share of requests
    equal to a non-speculative serve's is information only). Each a
    paired_serve (captured vs eager: equal outputs, counters, launches; 7b's
@@ -274,12 +281,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    prefill apart by 9.5e-3 at 81 layers, 1.1e-4 at 13, from the SSD's
    summation order and the kernels' roundings), and in bf16 one ulp moves a head's bf16-rounded decay (a decode
    step from a shared state apart by rel L2 0.42, parting at layer 4).
-8b. The serve CLI (--arch zamba2-7b) at phase 3's shapes (32 tokens
+8b. The serve CLI (--arch zamba2-7b) at phase 3's shapes (16 tokens
    generated, ZAMBA_CLI_GEN), lane mode; 8c
    fused paged mode on phase 3b's requests (one prefix miss, 15 hits plus
    one a preemption, the tails in the slot table, the KV in the pools; the
    share of the first wave's tokens equal to a lane-mode run's printed); 8d
-   the n-gram drafter at depth SPEC_K on 4 of 3e(ii)'s prompts,
+   the n-gram drafter at depth SPEC_K on 2 of 3e(ii)'s prompts,
    fused paged (the graphs run must capture the paged commit). Each a
    paired_serve under zamba_launch_check: rmsnorm 2 n_layers + applications
    + 1 a pass (a decode step or chunk; two a verify step, its commit
@@ -290,6 +297,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    phase 4's zamba rows run ZAMBA_SERVE_LAYERS (12) of its 81 layers, its
    widths kept (two groups, two applications of the shared block), for
    phase 9's room in the script's time; 8a and 8b keep all 81.
+8e. Training at full width with a stated cut to ZAMBA_TRAIN_LAYERS (15) of
+   its 81 layers (zamba_train_phase; two groups of 6, each followed by the
+   shared block, then the remainder of 3: 1.45 B of its 6.60 B parameters;
+   the whole model's bf16 params and grads with float32 moments, ~79 GB,
+   do not fit the card): at ZAMBA_F32_LAYERS in float32, 2 x 512, every
+   flash training-kernel call against its plain version in the model
+   (card_f32), the loss through the h100 library against the torch_cpu
+   library on the card within LOSS_REL_F32 and every gradient leaf within
+   ZAMBA_F32_LEAF_REL, which the same path with its SSD in bf16 (the
+   control) must fail; at the cut in bf16, 2 x 512, every flash
+   training-kernel
+   call of the loss and its gradient (the lse forward 4, dq 2, dk/dv 2)
+   against its plain version in the model under card_bf16
+   (flash_training_vs_plain), the whole model's leaves printed as
+   information; 5 AdamW steps at 8 x 512 with float32 moments (counted:
+   the lse forward 4, dq 2, dk/dv 2, rmsnorm 65 a step, no other kernel;
+   losses finite and falling, host wall a step, the last step traced, peak
+   memory), the compiled step bit-equal to eager over 3 steps
+   (compare_compiled, lean).
 9. whisper-tiny at full width (4 encoder and 4 decoder layers, d 384, 6
    heads of 64, d_ff 1536, vocab 51865 padded to 51968, layernorm, gelu,
    bf16), seeded weights from the port's init on the card, the encoder
@@ -314,7 +340,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    requests in groups of a clip, the clip again, a twin of other frames and
    that twin again: 8 prefix hits (plus the preemptions') and 8 misses
    exactly, every first token equal to a lane run's; 9d n-gram depth
-   SPEC_K on 4 of 3e(ii)'s prompts over seeded frames, fused paged. Each a
+   SPEC_K on 2 of 3e(ii)'s prompts over seeded frames, fused paged. Each a
    paired_serve under whisper_launch_check: the flash kernel 4 times a
    request's first chunk (the encoder) and 4 times a chunk, decode and
    verify step (the cross-attention), the paged kernel 4 times a fused
@@ -355,7 +381,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    requests in groups over one 128-token head, an image, the image again,
    another image and it again: 8 prefix hits (plus the preemptions') and
    8 misses exactly (the key covers the image), every first token equal to
-   a lane run's; 10d n-gram depth SPEC_K on 4 of 3e(ii)'s prompts behind
+   a lane run's; 10d n-gram depth SPEC_K on 2 of 3e(ii)'s prompts behind
    seeded images, fused paged. Each a paired_serve under lm_launch_check:
    rmsnorm 2 n_layers + 1 and swiglu n_layers a prefill chunk, decode or
    verify step, the paged kernel n_layers a fused decode or verify step,
@@ -421,7 +447,7 @@ swiglu 2L per step), around each run of phase 5d (the same per step), and
 around each train CLI run of phase 6 (twice those per step: two
 microbatches). The training kernels' rows carry the three paths' counts
 (launches_phase5c; launches_phase5d: the compiled float32 run's 6 steps;
-launches_phase6: the 9 uninterrupted steps). They are set to 0 again just
+launches_phase6: the 6 uninterrupted steps). They are set to 0 again just
 before each of phase 7b, 7c and 7d and read just after it (rmsnorm's row:
 launches_phase7b, launches_phase7c, launches_phase7d). They are set to 0
 just before phase 8a's main path and read just after it (rows 1 and 3:
@@ -431,8 +457,9 @@ likewise around phase 9a's main path and each of 9b, 9c and 9d (row 3:
 launches_phase9a-9d; row 7: launches_phase9c, 9d), around phase 10a's, 11a's
 and 11c's main paths and each of 10b, 10c, 10d and 11b's two serves (rows 1
 and 2: launches_phase10a-11c; row 3: 10a, 11a, 11c; row 7: 10c, 10d,
-11b-paged), and just before phase 9e's and 10e's AdamW steps and read just
-after them (rows 4-6: launches_phase9e and launches_phase10e; rows 1 and 2:
+11b-paged), and just before phase 8e's, 9e's and 10e's AdamW steps and read
+just after them (rows 4-6: launches_phase8e, launches_phase9e and
+launches_phase10e; rmsnorm: launches_phase8e; rows 1 and 2:
 launches_phase10e).
 Launches made to compare a kernel with its plain version, and those of
 phases 4 and 4b (measurements), are not counted.
@@ -492,25 +519,29 @@ LOGITS_REL_L2 = 3e-2
 # ulp at |x| is at most 2^-7 |x|, so tau <= 2^-7 max|logit|, inside the
 # LOGITS_REL_L2 max|logit| the prefill check allowed before.
 TIE_ULPS = 1
-# phase 3: the serve CLI, one wave of 8 slots (the script's time; no gate
-# needs more)
+# phase 3: the serve CLI, SERVE_REQUESTS requests in 8 slots (cut from 16
+# for the script's time: no gate needs more); 8b's CLI serves as many
+SERVE_REQUESTS = 4
 SERVE_ARGS = ["--arch", ARCH, "--batch", "8", "--prompt-len", "256", "--gen-len", "64",
-              "--requests", "8", "--prefill-chunk", "64", "--device", "cuda"]
+              "--requests", str(SERVE_REQUESTS), "--prefill-chunk", "64", "--device", "cuda"]
 # phase 3b: paged serving with a shared system prompt, twice the slots in
-# requests (3e(i), 3f, 7c and 8c serve the same requests)
+# requests (7c and 8c serve the same requests; 3e(i) and 3f the first
+# PAGED_SUBSET of them, for the script's time)
 PAGED_REQUESTS, PAGED_SYSTEM, PAGED_UNIQUE, PAGED_GEN = 16, 128, 128, 64
+PAGED_SUBSET = 8
 PAGED_BATCH, PAGED_MAX_LEN, PAGED_CHUNK, PAGE = 8, 320, 64, 64
 # phase 3e: speculative paged serving at 3b's shapes; the draft depth of
 # 3e(i) and (iii) (attention_verify's k_max); (ii)'s prompts repeat a seeded
 # pattern of SPEC_PATTERN tokens up to SPEC_PROMPT tokens, SPEC_REQUESTS of
-# them; (iii), 7d, 8d, 9d and 10d serve SPEC_DRAFT_REQUESTS of them (both 8
-# before PR 33, halved for the script's time: no gate needs more)
+# them; (iii), 7d, 8d, 9d and 10d serve SPEC_DRAFT_REQUESTS of them (both
+# cut from 8 for the script's time: no gate needs more)
 SPEC_K = 4
-SPEC_REQUESTS, SPEC_PROMPT, SPEC_PATTERN, SPEC_DRAFT_REQUESTS = 4, 256, 16, 4
+SPEC_REQUESTS, SPEC_PROMPT, SPEC_PATTERN, SPEC_DRAFT_REQUESTS = 2, 256, 16, 2
 # phase 4: the serve phase's slot table (8 slots of 256 + 64 rows), decode at
-# the first generated position, a chunk that ends there; 10 traced steps
+# the first generated position, a chunk that ends there; PROFILE_STEPS timed
+# and as many traced steps a row (cut from 10 for the script's time)
 PROFILE_BATCH, PROFILE_FILL, PROFILE_CHUNK, PROFILE_GEN = 8, 256, 64, 64
-PROFILE_STEPS = 10
+PROFILE_STEPS = 5
 # phase 4b: one fused paged decode step at batch 1 over MULTI_SPLIT_FILL
 # prefilled rows, where kernel.plan splits the keys of each KV head
 MULTI_SPLIT_FILL = 4096
@@ -554,9 +585,10 @@ SSD_REL_TOL = 1e-5
 ZAMBA_F32_REL_L2 = 1e-4         # 8a's float32 model, h100 vs torch_cpu: phase 5b's bound
 ZAMBA_SHARED = 13               # applications of zamba2-7b's shared attention block
 ZAMBA_GATED_WIDTH = 7168        # zamba2-7b's d_inner, the gated rmsnorm's row (phase 1)
-# 8b's CLI at phase 3's shapes, ZAMBA_CLI_GEN tokens generated (64 before PR
-# 33; the script's time: argparse takes the last --gen-len)
-ZAMBA_CLI_GEN = 32
+# 8b's CLI at phase 3's shapes, ZAMBA_CLI_GEN tokens generated (cut for the
+# script's time: its eager twin decodes ~10 tokens/s through the 81 layers;
+# argparse takes the last --gen-len)
+ZAMBA_CLI_GEN = 16
 ZAMBA_SERVE_ARGS = ["--arch", ZAMBA_ARCH] + SERVE_ARGS[2:] + ["--gen-len", str(ZAMBA_CLI_GEN)]
 ZAMBA_SPEC_GEN = 32             # 8d's tokens a request (the script's time)
 # 8c, 8d and phase 4's zamba rows run ZAMBA_SERVE_LAYERS of its 81 layers,
@@ -570,6 +602,25 @@ ZAMBA_SERVE_LAYERS = 12
 # chunked-vs-scan SSD, 8e-7 in a layer, reaches 9.5e-3 of the float32
 # prefill's logits at 81 layers and 1.1e-4 at 13)
 ZAMBA_F32_LAYERS = 7
+# phase 8e: zamba2-7b trained at ZAMBA_TRAIN_LAYERS of its 81 layers, widths
+# kept (zamba_cut: two groups of 6, each followed by the shared block, then
+# the remainder of 3: every kind of block, the shared block applied twice).
+# The whole model is 6.60 B parameters: bf16 params and grads and float32
+# AdamW moments take ~79 GB before any activation, the cut's 1.45 B ~17 GB.
+# Its comparisons run at ZAMBA_TRAIN_CHECK (under autograd the torch_cpu
+# library's time-step ssd_scan saves every state: ~1.9 GB a layer at batch
+# 2, 7.5 GB at 8); its AdamW steps at TRAIN_BATCH x TRAIN_SEQ
+ZAMBA_TRAIN_LAYERS = 15
+ZAMBA_TRAIN_CHECK = (2, 512)
+# 8e's float32 leaves, h100 vs torch_cpu at ZAMBA_F32_LAYERS, rel L2 per
+# leaf. Seeded zamba's backward amplifies a rounding-level difference of any
+# one op to ~1e-4 at 7 layers, past phase 5b's full_width_f32 (1e-4): on an
+# NVIDIA H100 80GB HBM3 the worst leaf read 1.15e-4 (the h100 path), 1.32e-4
+# (the torch_cpu path with its SSD in the chunked form) and 1.44e-4 (the
+# kernels with the time-step SSD). The limit is twice the worst of these;
+# the h100 path with its SSD in bf16 (zamba_ssd_bf16, the control) must
+# exceed it, or the gate could not see a drop in the SSD's precision
+ZAMBA_F32_LEAF_REL = 3e-4
 # phase 9: whisper-tiny at full width over WHISPER_ENC_LEN frames (Whisper's
 # 30-second window after its conv frontend, which is a stub: the frames are
 # seeded embeddings). 9a: Model.prefill of WHISPER_PREFILL decoder tokens and
@@ -660,12 +711,13 @@ APP_CHECK_N = 1 << 20       # prefix also counted on the host (torch_cpu)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 5
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=0)
 # phase 6: the train CLI at phase 5's batch, on SyntheticTokens; 6a restarts
-# a 6-step run at 9 steps (the schedule is (total 10, warmup 2) for both),
-# 6b runs 5 steps with and without compression, 6c 3 steps both ways
+# a 4-step run at 6 steps, a checkpoint every 2 (the schedule is (total 10,
+# warmup 2) for both), 6b runs 3 steps with and without compression, 6c 3
+# steps both ways (cut from 6, 9, 3 and 5 for the script's time)
 CLI_ARGS = ["--arch", ARCH, "--device", "cuda", "--batch", str(TRAIN_BATCH),
             "--seq", str(TRAIN_SEQ), "--log-every", "1"]
 CLI_INT8 = ["--microbatches", "2", "--moment-dtype", "int8"]
-CLI_STEPS, CLI_RESTART_STEPS, CLI_CKPT_EVERY, CLI_COMPRESS_STEPS = 6, 9, 3, 5
+CLI_STEPS, CLI_RESTART_STEPS, CLI_CKPT_EVERY, CLI_COMPRESS_STEPS = 4, 6, 2, 3
 # phase 5d: the compiled train step against eager at phase 5's batch, on
 # SyntheticTokens batches; warmup over every step, so lr and both bias
 # corrections change each step (a scalar baked into the graph would show as
@@ -759,17 +811,18 @@ def graph_ms(fn, iters: int, replays: int = 5) -> float:
 
 
 def _timed_device(case: dict, kernel_fn, plain_fn, library_fn, iters: int,
-                  plain_in_graph: bool = True) -> dict:
+                  plain_in_graph: bool = True, plain_iters: int | None = None) -> dict:
     """The one timer of every kernel row: kernel, plain version and
     yardstick by device time (``ms``, ``plain_ms``, ``library_ms``;
     DEVICE_TIMING), with the events time of each and the kernel's host
     enqueue beside them. The plain version (the flash ones hold the (Sq, Sk)
     scores) is captured 3 calls at a time; ``plain_in_graph=False`` times a
     plain version that reads device data on the host, which a graph cannot
-    capture, by events only (``plain_timing`` says so)."""
+    capture, by events only (``plain_timing`` says so), over ``plain_iters``
+    calls (default ``iters``)."""
     case["ms"], case["events_ms"] = graph_ms(kernel_fn, iters), cuda_ms(kernel_fn, iters)
     case["host_us"] = host_us(kernel_fn, 50)
-    case["plain_events_ms"] = cuda_ms(plain_fn, iters)
+    case["plain_events_ms"] = cuda_ms(plain_fn, plain_iters or iters)
     case["plain_ms"] = graph_ms(plain_fn, 3) if plain_in_graph else case["plain_events_ms"]
     case["library_ms"] = case["library_events_ms"] = None
     if library_fn is not None:
@@ -825,14 +878,16 @@ MMA_KERNELS = {"flash": ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
                "paged": ("paged_mma_kernel",)}
 
 
-# the serving kernels built at D 112 too (zamba2-7b's shared attention)
-MMA_KERNELS_D112 = {"flash_fwd_mma_kernel", "paged_mma_kernel"}
+# the kernels built at D 112 too (zamba2-7b's shared attention, served and
+# trained)
+MMA_KERNELS_D112 = {"flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+                    "flash_bwd_dkv_mma_kernel", "paged_mma_kernel"}
 
 
 def tensor_core_gate(counts: dict, family: str = "flash") -> None:
     """Raise unless every bf16 kernel of ``family`` (MMA_KERNELS) has an
-    instantiation at D 64 and at D 128 (the serving forward and the paged
-    kernel at D 112 too, MMA_KERNELS_D112) and each has tensor-core
+    instantiation at D 64 and at D 128 (and at D 112, MMA_KERNELS_D112:
+    every one of them) and each has tensor-core
     instructions, and no float32 instantiation has any (``counts``: HMMA /
     HGMMA per kernel_label, all libraries of the family)."""
     bf16 = {k: n for k, n in counts.items() if "_mma_" in k}
@@ -1326,12 +1381,13 @@ def paged_cases(dev, pa) -> list[dict]:
         qpos = kv_len.long()[:, None] - sq + torch.arange(sq, device=dev)[None, :]
         mask = (torch.arange(width * page, device=dev)[None, None, :]
                 <= qpos[:, :, None])[:, None]                    # (B, 1, SQ, S)
-        # the plain version reads the tables on the host: not graph-captured
+        # the plain version reads the tables on the host: not graph-captured,
+        # and 4-60 ms a call: timed over 5 calls
         _timed_device(c, lambda: pa.paged_attention(q, k, v, tables, kv_len),
                       lambda: pa.ref.paged_attention_ref(q, k, v, tables, kv_len),
                       lambda: F.scaled_dot_product_attention(
                           q, lanes_k, lanes_v, attn_mask=mask, enable_gqa=h != kh), 50,
-                      plain_in_graph=False)
+                      plain_in_graph=False, plain_iters=5)
         if sq == SPEC_K + 1:
             c["note"] += "; the serving verify span (phase 3e)"
         if main or sq == SPEC_K + 1:
@@ -1696,7 +1752,7 @@ def _fmt(x) -> str:
 
 
 def paired_serve(tag: str, name: str, gpu: str, run, check, graphs_first: bool | None,
-                 trace: tuple = ("graphs", "eager")) -> dict:
+                 trace: tuple = ("graphs",)) -> dict:
     """One serve twice on the same requests: with the captured steps (the
     default) and under disable_graphs(), in the order ``graphs_first`` says
     (None: the graphs run alone, without its eager twin), each side named
@@ -2186,9 +2242,9 @@ def spec_serve_phase(dev, params, gpu: str, paged_outputs: dict) -> dict:
     twin dropped to keep the script's time) under paged_check: the paged kernel
     launches n_layers times per decode or verify step, no run activates a
     lane or refuses a request, every request gets PAGED_GEN tokens.
-    (i) fixed depth SPEC_K on 3b's requests: verify steps must run; the
-        share of requests whose tokens equal 3b's is information only (bf16
-        may flip a near-tied argmax).
+    (i) fixed depth SPEC_K on PAGED_SUBSET of 3b's requests: verify steps
+        must run; the share of requests whose tokens equal 3b's is
+        information only (bf16 may flip a near-tied argmax).
     (ii) the cost-priced depth with the n-gram drafter on SPEC_REQUESTS
         pattern prompts, beside the same requests without speculation (its
         own pair): verify steps must run. The two graphs runs, in one call,
@@ -2233,12 +2289,12 @@ def spec_serve_phase(dev, params, gpu: str, paged_outputs: dict) -> dict:
         return r, report["outputs"]
 
     out = {}
-    out["i"], outputs = serve("(i) fixed depth, 3b's requests",
-                              lambda: paged_requests(cfg.vocab, Request),
-                              SpeculationConfig(fixed_k=SPEC_K), PAGED_REQUESTS, None)
+    out["i"], outputs = serve("(i) fixed depth, 3b's first requests",
+                              lambda: paged_requests(cfg.vocab, Request)[:PAGED_SUBSET],
+                              SpeculationConfig(fixed_k=SPEC_K), PAGED_SUBSET, None)
     same = sum(outputs[r] == paged_outputs[r] for r in outputs)
-    out["i"]["share_equal_to_3b"] = same / PAGED_REQUESTS
-    print(f"[phase3e] (i) requests with tokens equal to 3b's: {same}/{PAGED_REQUESTS} "
+    out["i"]["share_equal_to_3b"] = same / PAGED_SUBSET
+    print(f"[phase3e] (i) requests with tokens equal to 3b's: {same}/{PAGED_SUBSET} "
           f"(information only)", flush=True)
     out["ii"], _ = serve("(ii) cost-priced depth, n-gram drafter",
                          lambda: spec_requests(cfg.vocab, Request, SPEC_REQUESTS),
@@ -2365,7 +2421,8 @@ def int8_step_check(dev, model, params) -> dict:
 
 
 def int8_serve_phase(dev, model, params, gpu: str, paged_out: dict) -> dict:
-    """Phase 3f: 3b's requests and engine shape under PagedConfig(int8=True),
+    """Phase 3f: PAGED_SUBSET of 3b's requests and its engine shape under
+    PagedConfig(int8=True),
     the page budget set to the bytes of 3b's default bf16 pool: paired_serve
     (graphs first, both sides untraced) under paged_check(int8=True): the
     pages are int8, the
@@ -2385,10 +2442,11 @@ def int8_serve_phase(dev, model, params, gpu: str, paged_out: dict) -> dict:
     t_phase = time.perf_counter()
 
     def run():
-        return ServeEngine(cfg, paged=config, **kw).run(paged_requests(cfg.vocab, Request))
+        return ServeEngine(cfg, paged=config, **kw).run(
+            paged_requests(cfg.vocab, Request)[:PAGED_SUBSET])
 
     pair = paired_serve("phase3f", f"int8 paged serve {ARCH}", gpu, run,
-                        paged_check(cfg, PAGED_REQUESTS, int8=True), graphs_first=True,
+                        paged_check(cfg, PAGED_SUBSET, int8=True), graphs_first=True,
                         trace=())
     report = pair.pop("report")
     paged = report["paged"]
@@ -2404,7 +2462,7 @@ def int8_serve_phase(dev, model, params, gpu: str, paged_out: dict) -> dict:
            "page_bytes": paged["page_bytes"], "page_bytes_3b": paged_out["paged"]["page_bytes"],
            "pages_ratio": paged["n_pages"] / paged_out["paged"]["n_pages"],
            "hbm_budget_bytes": budget, "paged": paged, "launches": pair["launches"],
-           "share_equal_to_3b": same / PAGED_REQUESTS, "first_differing_token": first_diff,
+           "share_equal_to_3b": same / PAGED_SUBSET, "first_differing_token": first_diff,
            "pair": pair, "step": step, "seconds": time.perf_counter() - t_phase}
     g = pair["graphs"]
     print(f"[phase3f] int8 paged serve {ARCH} on {gpu}: {out['n_pages']} pages of "
@@ -2413,7 +2471,7 @@ def int8_serve_phase(dev, model, params, gpu: str, paged_out: dict) -> dict:
           f"{g['decode_tokens_per_s']:.2f}, ttft_s_mean {g['ttft_s_mean']:.4f} (both sides "
           f"untraced; a captured int8 decode step's idle share is phase 4's "
           f"decode_step_paged_int8 row); requests with tokens equal to 3b's {same}/"
-          f"{PAGED_REQUESTS}, first differing token of the others {first_diff} (information "
+          f"{PAGED_SUBSET}, first differing token of the others {first_diff} (information "
           f"only); one int8 step vs the kernel on the dequantized rows rel L2 "
           f"{step['vs_kernel_on_dequantized']['logits_rel_l2']:.3g}, captured vs eager "
           f"bit-equal, launches per replay {step['launches_per_replay']}; phase "
@@ -2484,7 +2542,7 @@ def long_context_phase(dev, params, gpu: str) -> dict:
           f"width {width}: plan {splits} splits x {pps} entries per decode step; "
           + "; ".join(f"{side}: decode_tokens_per_s {pair[side]['decode_tokens_per_s']:.2f}, "
                       f"ttft_s_mean {pair[side]['ttft_s_mean']:.4f}, idle share "
-                      f"{pair[side]['device_idle_share']:.3f}" for side in ("graphs", "eager"))
+                      f"{_fmt(pair[side]['device_idle_share'])}" for side in ("graphs", "eager"))
           + f"; launches of the pair {launched}, decode steps {paged['decode_steps']}, "
           f"pool {paged['n_pages']} pages of {paged['page_bytes']} B, prefix hits "
           f"{paged['prefix_hits']}; phase {out['seconds']:.1f} s", flush=True)
@@ -2894,6 +2952,13 @@ TRAIN_FA_CASES = [
     # 256 vision rows + 512 tokens
     (8, 16, 8, VLM_PREFIX + VLM_TRAIN_SEQ, VLM_PREFIX + VLM_TRAIN_SEQ, 128, "bfloat16", True,
      None, False),
+    # phase 8e's: zamba2-7b's shared attention block, 32 heads of 112, causal
+    # at its train step's shape; kv_len < Sk at D 112 (400 rows against the
+    # first 400 of 512 keys: a tile crossed by the kv_len edge, a ragged last
+    # q tile); the float32 kernels at D 112
+    (TRAIN_BATCH, 32, 32, TRAIN_SEQ, TRAIN_SEQ, 112, "bfloat16", True, None, False),
+    (2, 32, 32, 400, 512, 112, "bfloat16", True, 400, False),
+    (2, 32, 32, TRAIN_SEQ, TRAIN_SEQ, 112, "float32", True, None, False),
 ]
 
 
@@ -2927,7 +2992,11 @@ def train_kernel_cases(dev) -> dict[str, list[dict]]:
         shape = [b, h, kh, sq, sk, d]
         base = {"shape": shape, "dtype": dt_name, "kv_len": kv_len, "main": main}
         itemsize = q.element_size()
-        qbytes, kvbytes, rows = b * h * sq * d * itemsize, b * kh * sk * d * itemsize, b * h * sq
+        # the kernels never read a key row at or past kv_len: the bytes count
+        # K and V at the rows the function sees
+        kv_seen = sk if kv_len is None else min(sk, kv_len)
+        qbytes, kvbytes, rows = (b * h * sq * d * itemsize, b * kh * kv_seen * d * itemsize,
+                                 b * h * sq)
 
         o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
         o_r, lse_r = ref.attention_fwd_lse(q, k, v, **kw)
@@ -2937,14 +3006,20 @@ def train_kernel_cases(dev) -> dict[str, list[dict]]:
              "lse_worst_of_limit": lse_over, "rows_without_key": int(no_key.sum()),
              "max_abs_err": max((o.float() - o_r.float()).abs().max().item(),
                                 (lse - lse_r).abs().max().item())}
-        # SDPA aligns causality at the top left: a yardstick where that is
-        # this function (Sq = Sk, or non-causal), without kv_len
-        same_mask = kv_len is None and (sq == sk or not causal)
+        # SDPA takes no kv_len and aligns causality at the top left: a
+        # yardstick on the keys sliced to kv_len, where that is this function
+        # (non-causal, or causal with Sq = the keys it sees). bf16: the flash
+        # SDPA, float32: the memory-efficient one, each with its logsumexp
+        same_mask = not causal or sq == kv_seen
         library = None
-        if same_mask and dt == torch.bfloat16:
-            ke, ve = (t.repeat_interleave(h // kh, 1) for t in (k, v))
-            library = lambda: torch.ops.aten._scaled_dot_product_flash_attention(  # noqa: E731
-                q, ke, ve, 0.0, causal)
+        if same_mask:
+            ke, ve = (t[:, :, :kv_seen].repeat_interleave(h // kh, 1) for t in (k, v))
+            if dt == torch.bfloat16:
+                library = lambda: torch.ops.aten._scaled_dot_product_flash_attention(  # noqa: E731
+                    q, ke, ve, 0.0, causal)
+            else:
+                library = lambda: torch.ops.aten._scaled_dot_product_efficient_attention(  # noqa: E731
+                    q, ke, ve, None, True, 0.0, causal)
         _timed_device(c, lambda: fa.flash_attention_fwd_lse(q, k, v, **kw),
                       lambda: ref.attention_fwd_lse(q, k, v, **kw), library, 10)
         if main:   # the same kernel's serving instantiation, which stores no lse
@@ -2971,7 +3046,8 @@ def train_kernel_cases(dev) -> dict[str, list[dict]]:
                                  (dv - dv_r).abs().max().item())}
         library = None
         if same_mask:
-            qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+            qs, ks, vs = (t[:, :, :n].detach().clone().requires_grad_()
+                          for t, n in ((q, sq), (k, kv_seen), (v, kv_seen)))
             with torch.cuda.stream(capture_stream()):   # its backward is captured there
                 o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
                                                        enable_gqa=h != kh)
@@ -2987,9 +3063,10 @@ def train_kernel_cases(dev) -> dict[str, list[dict]]:
         if library is not None:
             c["note"] = c2["note"] = ("library: SDPA's whole backward (dq, dk and dv), "
                                       "beside dq + dk/dv")
-        # bytes: q, k, v, dO once, lse and delta; dq out (dq) / f32 dk, dv per
-        # query head out (dk/dv). ops: 2 flops per MAC of S = QK^T and
-        # dP = dO V^T, then dq = dS K (dq) / dv = P^T dO and dk = dS^T Q (dk/dv)
+        # bytes: q, k and v (to kv_len), dO once, lse and delta; dq out (dq) /
+        # f32 dk, dv per query head out at every key row (dk/dv). ops: 2
+        # flops per MAC of S = QK^T and dP = dO V^T, then dq = dS K (dq) /
+        # dv = P^T dO and dk = dS^T Q (dk/dv)
         c["bound_ms"], c["bound_by"] = bound(3 * qbytes + 2 * kvbytes + 8 * rows,
                                              6 * b * h * pairs * d, dt)
         c2["bound_ms"], c2["bound_by"] = bound(
@@ -3544,7 +3621,8 @@ def train_cli_phase(dev, gpu: str) -> dict:
                                  f"phase 5c's: two microbatches)")
         return got
 
-    # 6a: 6 steps with checkpoints every 3, a restart to 9, and 9 uninterrupted
+    # 6a: CLI_STEPS steps with a checkpoint every CLI_CKPT_EVERY, a restart to
+    # CLI_RESTART_STEPS, and as many uninterrupted
     out: dict = {"gpu": gpu}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3559,11 +3637,13 @@ def train_cli_phase(dev, gpu: str) -> dict:
         root = Path(tmp)
         committed = sorted(int(p.name.split("_")[1]) for p in root.glob("step_*")
                            if (p / "manifest.json").exists())
-        if committed != [3, 6, 9]:
-            raise AssertionError(f"committed checkpoints {committed}, want [3, 6, 9]")
-        manifest = json.loads((root / "step_9" / "manifest.json").read_text())
+        want_steps = list(range(CLI_CKPT_EVERY, CLI_RESTART_STEPS + 1, CLI_CKPT_EVERY))
+        if committed != want_steps:
+            raise AssertionError(f"committed checkpoints {committed}, want {want_steps}")
+        last = root / f"step_{CLI_RESTART_STEPS}"
+        manifest = json.loads((last / "manifest.json").read_text())
         if manifest["extra"]["data"]["step"] != CLI_RESTART_STEPS:
-            raise AssertionError(f"step_9's data state {manifest['extra']}")
+            raise AssertionError(f"{last.name}'s data state {manifest['extra']}")
         # the optimizer state's bytes, int8 (q + scale) against float32 moments
         size = {"int8": 1, "float32": 4, "bfloat16": 2, "int32": 4}
         nbytes = {"moments": 0, "param_elems": 0}
@@ -4439,7 +4519,7 @@ def zamba_serve_phase(dev, params, gpu: str) -> dict:
 
     out["8b"] = serve("phase8b", f"serve CLI --arch {ZAMBA_ARCH}",
                       lambda: serve_cli.main(ZAMBA_SERVE_ARGS)["report"],
-                      check(RWKV_SERVE_REQUESTS, fused=False, gen=ZAMBA_CLI_GEN, cfg=full),
+                      check(SERVE_REQUESTS, fused=False, gen=ZAMBA_CLI_GEN, cfg=full),
                       True)
     steps = out["8b"]["report"]["step_log"]
     print(f"[phase8b] lane serve {ZAMBA_ARCH} on {gpu}: decode steps "
@@ -4564,6 +4644,213 @@ def zamba_profile_phase(dev, model, params, gpu: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def flash_training_vs_plain(label: str):
+    """Within the block, every call of the flash lse forward, dq and dk/dv
+    wrappers (those FlashAttention's forward and backward call) also runs its
+    plain version on the same operands right after the kernel, and the
+    kernel's output is held to it under the card gate of its dtype
+    (card_bf16 / card_f32; the lse within gates.LSE_TOL, 0 on rows that see
+    no key): a training kernel in the model, on the activations and
+    cotangents the model gives it. Yields {wrapper name: [{"rel", "worst"}
+    a call]}; raises at the first call outside its gate. The stand-ins take
+    the wrappers' module names while the block runs, so the kernels' own
+    ``launches += 1`` lands on them: these launches are not counted."""
+    import torch
+
+    from repro_torch import gates
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    plain = {"flash_attention_fwd_lse": fa.ref.attention_fwd_lse,
+             "flash_attention_bwd_dq": fa.ref.attention_bwd_dq,
+             "flash_attention_bwd_dkv": fa.ref.attention_bwd_dkv}
+    real = {name: getattr(fa, name) for name in plain}
+    seen: dict[str, list] = {name: [] for name in plain}
+
+    def stand_in(name):
+        def call(q, k, *args, **kw):
+            got, want = real[name](q, k, *args, **kw), plain[name](q, k, *args, **kw)
+            gate = "card_bf16" if q.dtype == torch.bfloat16 else "card_f32"
+            tag = f"{label} {name} call {len(seen[name])}"
+            if name == "flash_attention_fwd_lse":
+                no_key = ~fa.ref.visible(q.shape[2], k.shape[2], device=q.device,
+                                         causal=kw["causal"], kv_len=kw["kv_len"]).any(-1)
+                gates.check_lse(got[1], want[1], no_key, f"{tag} lse")
+                pairs = [(got[0], want[0])]
+            else:
+                pairs = list(zip(got, want)) if name == "flash_attention_bwd_dkv" else \
+                    [(got, want)]
+            ms = [gates.check(a, b, gate, tag) for a, b in pairs]
+            seen[name].append({"rel": max(m["rel"] for m in ms),
+                               "worst": max(m["worst"] for m in ms)})
+            return got
+        call.launches = 0
+        return call
+
+    for name in plain:
+        setattr(fa, name, stand_in(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in real.items():
+            setattr(fa, name, fn)
+
+
+def zamba_ssd_bf16(x, a, b, c, *, h0=None):
+    """The h100 library's ssd_scan (the chunked form, chunk 64) with its
+    inputs, state and outputs rounded to bf16: phase 8e's control, one op
+    of the float32 path in bf16."""
+    from repro_torch.kernels.ssd.ops import ssd_chunked
+
+    y, h = ssd_chunked(*(t.bfloat16() for t in (x, a, b, c)),
+                       h0=None if h0 is None else h0.bfloat16(), chunk=64)
+    return y.float(), h.float()
+
+
+def flash_training_calls_want(cfg) -> dict:
+    """Calls of the flash training kernels in one loss and its gradient:
+    family_train_launches_want's flash counts."""
+    return {name: n for name, n in family_train_launches_want(cfg).items()
+            if name.startswith("flash_attention_")}
+
+
+def zamba_train_phase(dev, cfg, params, gpu: str) -> dict:
+    """Phase 8e: zamba2-7b trained at full width with a stated cut to
+    ZAMBA_TRAIN_LAYERS of its 81 layers (zamba_cut of ``params``, phase 8's
+    bf16 weights, or those of the cut alone; the shared block applied
+    twice).
+    (1) float32 at ZAMBA_F32_LAYERS (one group, the shared block, one
+        remainder layer), ZAMBA_TRAIN_CHECK rows: every flash training
+        kernel call against its plain version in the model (card_f32); the
+        loss through the h100 library (the kernels, the chunked SSD)
+        against the torch_cpu library (the plain versions, the time-step
+        scan) within LOSS_REL_F32, and every gradient leaf non-zero and
+        within ZAMBA_F32_LEAF_REL; the control, the h100 library with its
+        SSD in bf16 (zamba_ssd_bf16), must put a leaf past that limit.
+    (2) bf16 at the cut, ZAMBA_TRAIN_CHECK rows: every flash training
+        kernel call of the loss and its gradient against its plain version
+        in the model (flash_training_vs_plain, card_bf16): the lse forward
+        twice an application (remat), dq and dk/dv once. The whole model
+        against the torch_cpu library's is printed, not gated: seeded zamba
+        layers amplify a rounding layer after layer (zamba_layers_phase).
+    (3) train_steps_phase at the cut, TRAIN_BATCH x TRAIN_SEQ: AdamW steps
+        with exactly family_train_launches_want a step (lse forward 4, dq
+        2, dk/dv 2, rmsnorm 65), the compiled step bit-equal to eager."""
+    import gc
+
+    import torch
+
+    from repro_torch import gates
+    from repro_torch.nn.model import build_model
+    from repro_torch.train import loss_and_grads
+    from repro_torch.train.optimizer import tree_items, tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    b, seq = ZAMBA_TRAIN_CHECK
+    out = {"layers": ZAMBA_TRAIN_LAYERS, "check_batch": [b, seq]}
+
+    # (1) float32 at ZAMBA_F32_LAYERS: the kernels' calls vs plain in the
+    # model, and the whole model's leaves h100 vs torch_cpu
+    f32_cfg, f32_cut = zamba_cut(cfg.replace(dtype="float32"), params, ZAMBA_F32_LAYERS)
+    params32 = tree_map(lambda x: x.float(), f32_cut)
+    batch = family_train_batch(dev, f32_cfg, b, seq, seed=80)
+    model = build_model(f32_cfg, device=dev)
+    plain = build_model(f32_cfg, device=dev, target="torch_cpu")
+    control = type(model)(cfg=f32_cfg, device=dev, lib=type("Lib", (), {
+        "ops": _PlainOps(model.tsl, {"ssd_scan": zamba_ssd_bf16}), "TARGET_NAME": "h100"}))
+    with flash_training_vs_plain("phase 8e float32") as calls32:
+        loss_k, _, grads_k = loss_and_grads(model, params32, batch)
+    if {name: len(c) for name, c in calls32.items()} != flash_training_calls_want(f32_cfg):
+        raise AssertionError(f"phase 8e float32: flash training calls "
+                             f"{ {name: len(c) for name, c in calls32.items()} }")
+    loss_p, _, grads_p = loss_and_grads(plain, params32, batch)
+    _, _, grads_c = loss_and_grads(control, params32, batch)
+    plain_grads, control_grads = dict(tree_items(grads_p)), dict(tree_items(grads_c))
+    f32 = {"layers": ZAMBA_F32_LAYERS, "loss_kernels": loss_k.item(),
+           "loss_plain": loss_p.item(), "limit": ZAMBA_F32_LEAF_REL, "leaves": {},
+           "control_leaves": {},
+           "calls": {name: {"calls": len(c), "rel": max(x["rel"] for x in c),
+                            "worst_of_limit": max(x["worst"] for x in c)}
+                     for name, c in calls32.items()}}
+    for name, gk in tree_items(grads_k):
+        if not bool((gk != 0).any()):
+            raise AssertionError(f"phase 8e float32: grad {name} all zeros (kernels)")
+        f32["leaves"][name] = gates.measure(gk, plain_grads[name], "full_width_f32")["rel"]
+        f32["control_leaves"][name] = gates.measure(control_grads[name], plain_grads[name],
+                                                    "full_width_f32")["rel"]
+    out["float32"] = f32
+    over = {name: rel for name, rel in f32["leaves"].items() if not rel <= ZAMBA_F32_LEAF_REL}
+    worst = max(f32["leaves"], key=f32["leaves"].get)
+    worst_c = max(f32["control_leaves"], key=f32["control_leaves"].get)
+    print(f"[phase8e] {cfg.name} float32 at {ZAMBA_F32_LAYERS} layers, {b}x{seq} on {gpu}: "
+          f"each flash training kernel call vs plain in the model (card_f32): "
+          f"{json.dumps(f32['calls'])}; loss kernels {f32['loss_kernels']:.8f} plain "
+          f"{f32['loss_plain']:.8f}; grad rel L2 per leaf, kernels vs plain: "
+          f"{json.dumps(f32['leaves'])}; the control (the SSD in bf16) vs plain: "
+          f"{json.dumps(f32['control_leaves'])}; worst {worst} {f32['leaves'][worst]:.3g}, "
+          f"control's worst {worst_c} {f32['control_leaves'][worst_c]:.3g}, limit "
+          f"{ZAMBA_F32_LEAF_REL}", flush=True)
+    if abs(loss_k.item() - loss_p.item()) > gates.LOSS_REL_F32 * abs(loss_p.item()) or over:
+        raise AssertionError(f"phase 8e float32: loss kernels {loss_k.item()} vs plain "
+                             f"{loss_p.item()}; leaves over {ZAMBA_F32_LEAF_REL}: {over}")
+    if not f32["control_leaves"][worst_c] > ZAMBA_F32_LEAF_REL:
+        raise AssertionError(f"phase 8e float32: the control (the SSD in bf16) stays within "
+                             f"{ZAMBA_F32_LEAF_REL}: the leaf gate cannot see it")
+    del grads_k, grads_p, grads_c, plain_grads, control_grads, params32, f32_cut, batch, \
+        model, plain, control
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    part_s = {"float32": time.perf_counter() - t_phase}
+
+    # (2) bf16 at the cut: every flash training kernel call vs its plain version
+    cut_cfg, cut = zamba_cut(cfg, params, ZAMBA_TRAIN_LAYERS)
+    model = build_model(cut_cfg, device=dev)
+    plain = build_model(cut_cfg, device=dev, target="torch_cpu")
+    assert model.lib.TARGET_NAME == "h100" and plain.lib.TARGET_NAME == "torch_cpu"
+    batch = family_train_batch(dev, cut_cfg, b, seq, seed=81)
+    with flash_training_vs_plain("phase 8e bf16") as calls:
+        loss_k, _, grads_k = loss_and_grads(model, cut, batch)
+    want_calls = flash_training_calls_want(cut_cfg)
+    got_calls = {name: len(c) for name, c in calls.items()}
+    if got_calls != want_calls:
+        raise AssertionError(f"phase 8e: flash training calls {got_calls}, want {want_calls}")
+    loss_p, _, grads_p = loss_and_grads(plain, cut, batch)
+    plain_grads = dict(tree_items(grads_p))
+    bf16 = {"calls": {name: {"calls": len(c), "rel": max(x["rel"] for x in c),
+                             "worst_of_limit": max(x["worst"] for x in c)}
+                      for name, c in calls.items()},
+            "loss_kernels": loss_k.item(), "loss_plain": loss_p.item(),
+            "leaves_information": {name: gates.measure(gk, plain_grads[name],
+                                                       "full_width_bf16")["rel"]
+                                   for name, gk in tree_items(grads_k)}}
+    zero = [name for name, gk in tree_items(grads_k) if not bool((gk != 0).any())]
+    out["bf16"] = bf16
+    print(f"[phase8e] {cfg.name} bf16 at {ZAMBA_TRAIN_LAYERS} layers "
+          f"({sum(t.numel() for t in tree_leaves(cut)) / 1e9:.4f}B params), {b}x{seq} on {gpu}: "
+          f"each flash training kernel call vs plain in the model (card_bf16): "
+          f"{json.dumps(bf16['calls'])}; loss kernels {bf16['loss_kernels']:.6f} plain "
+          f"{bf16['loss_plain']:.6f}; grad rel L2 per leaf, kernels vs plain (information): "
+          f"{json.dumps(bf16['leaves_information'])}", flush=True)
+    if zero or not math.isfinite(loss_k.item()):
+        raise AssertionError(f"phase 8e bf16: loss {loss_k.item()}, all-zero grads {zero}")
+    del grads_k, grads_p, plain_grads, plain, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    part_s["bf16"] = time.perf_counter() - t_phase - part_s["float32"]
+
+    # (3) AdamW steps at the train shape, the compiled step against eager
+    out.update(train_steps_phase("phase 8e", dev, model, cut, (TRAIN_BATCH, TRAIN_SEQ), gpu))
+    out["params"] = sum(t.numel() for t in tree_leaves(cut))
+    out["seconds"] = time.perf_counter() - t_phase
+    part_s["steps"] = out["seconds"] - part_s["float32"] - part_s["bf16"]
+    out["seconds_by_part"] = part_s
+    print(f"[phase8e] seconds by part {json.dumps({k: round(v, 1) for k, v in part_s.items()})}",
+          flush=True)
+    return out
+
+
 def zamba_phase(dev, gpu: str) -> dict:
     """Phase 8: zamba2-7b at full width (81 layers: 13 groups of 6 Mamba2
     layers, each followed by the one shared attention block, then 3; d 3584,
@@ -4613,11 +4900,18 @@ def zamba_phase(dev, gpu: str) -> dict:
     for name, fn in counters().items():
         fn.launches = saved[name]
     out["phase4"]["seconds"] = time.perf_counter() - t0
+    # 8e holds the training state of its cut: the full model's weights go
+    # first, but for a copy of the cut's
+    cut = tree_map(torch.clone, zamba_cut(cfg, params, ZAMBA_TRAIN_LAYERS)[1])
+    del params, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["8e"] = zamba_train_phase(dev, cfg, cut, gpu)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[phase8] {ZAMBA_ARCH} done on {gpu}: phase {out['seconds']:.1f} s (8a "
           f"{out['8a']['seconds']:.1f}, 8b {out['8b']['seconds']:.1f}, 8c "
           f"{out['8c']['seconds']:.1f}, 8d {out['8d']['seconds']:.1f}, phase 4's rows "
-          f"{out['phase4']['seconds']:.1f})", flush=True)
+          f"{out['phase4']['seconds']:.1f}, 8e {out['8e']['seconds']:.1f})", flush=True)
     return out
 
 
@@ -5151,37 +5445,48 @@ def whisper_profile_phase(dev, model, params, gpu: str) -> dict:
     return out
 
 
-def embed_train_launches_want(cfg) -> dict:
+def family_train_launches_want(cfg) -> dict:
     """Kernel launches of one train step of a whole family (remat: every
     forward twice); every other counter 0: whisper-tiny's attention is its
     encoder's self-attention and its decoder's self- and cross-attention,
     its norms layernorms and its MLP gelu (no kernel); internvl2-2b's is
-    the dense backbone's."""
+    the dense backbone's; zamba2-7b's is its shared block's, once an
+    application, its norms rmsnorm (each Mamba2 layer's block norm and its
+    gated norm, the shared block's norm, inside the checkpoints; the final
+    norm once) and it has no MLP."""
     if cfg.family == "audio":
         n = cfg.n_enc_layers + 2 * cfg.n_layers
         want = {"flash_attention_fwd_lse": 2 * n, "flash_attention_bwd_dq": n,
                 "flash_attention_bwd_dkv": n}
+    elif cfg.family == "hybrid":
+        from repro_torch.nn.zamba import layout
+
+        g, _, _ = layout(cfg)
+        want = {"flash_attention_fwd_lse": 2 * g, "flash_attention_bwd_dq": g,
+                "flash_attention_bwd_dkv": g, "rmsnorm": 2 * (2 * cfg.n_layers + g) + 1}
     else:
         want = train_launches_want(cfg)
     return {name: want.get(name, 0) for name in counters()}
 
 
-def embed_train_batch(dev, cfg, batch: int, seq: int, seed: int) -> dict:
+def family_train_batch(dev, cfg, batch: int, seq: int, seed: int) -> dict:
     """A seeded train batch on the card: tokens and next-token labels
     (batch, seq), and the family's rows in the model's dtype: whisper's
     (batch, WHISPER_ENC_LEN, d) frames, internvl2's (batch, VLM_PREFIX, d)
-    patch embeddings."""
+    patch embeddings (zamba2-7b's batch has tokens and labels only)."""
     import torch
 
     from repro_torch.nn.model import torch_dtype
 
     g = torch.Generator(device=dev).manual_seed(seed)
     ids = torch.randint(0, cfg.vocab, (batch, seq + 1), generator=g, device=dev)
-    name, rows = (("audio_embeds", WHISPER_ENC_LEN) if cfg.family == "audio" else
-                  ("vision_embeds", VLM_PREFIX))
-    embeds = torch.randn((batch, rows, cfg.d_model), generator=g, device=dev)
-    return {"tokens": ids[:, :-1].contiguous(), "labels": ids[:, 1:].contiguous(),
-            name: embeds.to(torch_dtype(cfg.dtype))}
+    out = {"tokens": ids[:, :-1].contiguous(), "labels": ids[:, 1:].contiguous()}
+    rows = {"audio": ("audio_embeds", WHISPER_ENC_LEN),
+            "vlm": ("vision_embeds", VLM_PREFIX)}.get(cfg.family)
+    if rows is not None:
+        embeds = torch.randn((batch, rows[1], cfg.d_model), generator=g, device=dev)
+        out[rows[0]] = embeds.to(torch_dtype(cfg.dtype))
+    return out
 
 
 def embed_train_phase(tag: str, dev, model, params, batch_shape: tuple, gpu: str) -> dict:
@@ -5192,14 +5497,7 @@ def embed_train_phase(tag: str, dev, model, params, batch_shape: tuple, gpu: str
         the torch_cpu library (the plain versions) on the card, on one
         batch: losses within LOSS_REL, every leaf non-zero on both sides
         and within full_width_bf16.
-    (2) EMBED_TRAIN_STEPS AdamW steps of make_train_step on that batch
-        (float32 moments; the counters set to 0 just before and read just
-        after: the path's launches): every loss finite and the last below
-        the first, exactly embed_train_launches_want a step, host wall a
-        step, the last step traced (device busy share), peak memory.
-    (3) compile_train_step against the eager step for EMBED_GRAPH_STEPS
-        steps on as many batches (compare_compiled): every metric and every
-        leaf bit-equal, the same launches a step, one compiled entry.
+    (2), (3) train_steps_phase on that batch and shape.
     Fails unless every part holds."""
     import gc
 
@@ -5207,15 +5505,15 @@ def embed_train_phase(tag: str, dev, model, params, batch_shape: tuple, gpu: str
 
     from repro_torch import gates
     from repro_torch.nn.model import build_model
-    from repro_torch.train import OptConfig, init_opt_state, loss_and_grads, make_train_step
-    from repro_torch.train.optimizer import tree_items, tree_leaves, tree_map
+    from repro_torch.train import loss_and_grads
+    from repro_torch.train.optimizer import tree_items, tree_leaves
 
     t_phase = time.perf_counter()
     cfg = model.cfg
     plain = build_model(cfg, device=dev, target="torch_cpu")
     assert model.lib.TARGET_NAME == "h100" and plain.lib.TARGET_NAME == "torch_cpu"
     b, seq = batch_shape
-    batch = embed_train_batch(dev, cfg, b, seq, seed=70)
+    batch = family_train_batch(dev, cfg, b, seq, seed=70)
     rows = {k: list(v.shape) for k, v in batch.items()}
     out = {"batch": rows, "params": sum(t.numel() for t in tree_leaves(params))}
 
@@ -5242,12 +5540,39 @@ def embed_train_phase(tag: str, dev, model, params, batch_shape: tuple, gpu: str
           f"leaf, kernels vs plain (gate 5e-2; {len(grads['leaves'])} leaves): "
           f"{json.dumps(grads['leaves'])}; worst {worst} {grads['leaves'][worst]:.3g}",
           flush=True)
-
+    del batch
     gc.collect()
     torch.cuda.empty_cache()
+    out.update(train_steps_phase(tag, dev, model, params, batch_shape, gpu))
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
 
-    # (2) AdamW steps through the kernels: the path's launches
-    want = embed_train_launches_want(cfg)
+
+def train_steps_phase(tag: str, dev, model, params, batch_shape: tuple, gpu: str) -> dict:
+    """The steps of phases 8e, 9e and 10e: ``model`` trained from ``params``
+    on seeded batches of ``batch_shape`` (batch, tokens) with the family's
+    rows (family_train_batch).
+    (2) EMBED_TRAIN_STEPS AdamW steps of make_train_step on one batch
+        (float32 moments; the counters set to 0 just before and read just
+        after: the path's launches): every loss finite and the last below
+        the first, exactly family_train_launches_want a step, host wall a
+        step, the last step traced (device busy share), peak memory; one
+        more step under device tracing for its device ms by kernel.
+    (3) compile_train_step against the eager step for EMBED_GRAPH_STEPS
+        steps on as many batches (compare_compiled, lean): every metric and
+        every leaf bit-equal, the same launches a step, one compiled entry.
+    Returns {"train", "compiled"}; fails unless both parts hold."""
+    import gc
+
+    import torch
+
+    from repro_torch.train import OptConfig, init_opt_state, make_train_step
+    from repro_torch.train.optimizer import tree_map
+
+    cfg = model.cfg
+    b, seq = batch_shape
+    batch = family_train_batch(dev, cfg, b, seq, seed=70)
+    want = family_train_launches_want(cfg)
     opt_cfg = OptConfig(**TRAIN_OPT)
     step = make_train_step(model, opt_cfg)
     s, run = _run_steps(dev, step, {"params": params, "opt": init_opt_state(opt_cfg, params)},
@@ -5273,24 +5598,25 @@ def embed_train_phase(tag: str, dev, model, params, batch_shape: tuple, gpu: str
              "launches": run["launches"], "launches_per_step": per_step,
              "peak_allocated_gib": run["peak_allocated_gib"],
              "peak_reserved_gib": run["peak_reserved_gib"], "where": where}
-    out["train"] = train
     print(f"[{tag.replace(' ', '')}] {EMBED_TRAIN_STEPS} AdamW steps {TRAIN_OPT} (float32 "
-          f"moments) on {gpu}: losses {losses}; wall ms a step {json.dumps(train['wall_ms'])} "
-          f"(the first builds); traced step {json.dumps(train['traced_step'])}; peak "
-          f"allocated {train['peak_allocated_gib']:.2f} GiB, reserved "
+          f"moments) of {cfg.name} ({cfg.n_layers} layers) {b}x{seq} on {gpu}: losses "
+          f"{losses}; wall ms a step {json.dumps(train['wall_ms'])} (the first builds); "
+          f"traced step {json.dumps(train['traced_step'])}; peak allocated "
+          f"{train['peak_allocated_gib']:.2f} GiB, reserved "
           f"{train['peak_reserved_gib']:.2f} GiB; launches a step {json.dumps(per_step)}; "
           f"where a profiled step's device time goes {json.dumps(where)}", flush=True)
     if per_step != {k: float(n) for k, n in want.items()}:
         raise AssertionError(f"{tag}: launches per train step {per_step}, want {want}")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"{tag}: train losses {losses}: not finite, or not falling")
+    del batch
     gc.collect()
     torch.cuda.empty_cache()
 
     # (3) the compiled step against the eager one
     graph_cfg = OptConfig(**GRAPH_TRAIN_OPT)
     step = make_train_step(model, graph_cfg)
-    batches = [embed_train_batch(dev, cfg, b, seq, seed=71 + i)
+    batches = [family_train_batch(dev, cfg, b, seq, seed=71 + i)
                for i in range(EMBED_GRAPH_STEPS)]
 
     def compiled_state():
@@ -5299,7 +5625,6 @@ def embed_train_phase(tag: str, dev, model, params, batch_shape: tuple, gpu: str
 
     rec, differ = compare_compiled(dev, step, compiled_state(), compiled_state, batches,
                                    batches, want, lean=True)
-    out["compiled"] = rec
     print(f"[{tag.replace(' ', '')}] compiled train step vs eager, {EMBED_GRAPH_STEPS} steps "
           f"{GRAPH_TRAIN_OPT} on {gpu}: {compiled_line(rec)}", flush=True)
     if differ:
@@ -5307,8 +5632,7 @@ def embed_train_phase(tag: str, dev, model, params, batch_shape: tuple, gpu: str
     del batches, step
     gc.collect()
     torch.cuda.empty_cache()
-    out["seconds"] = time.perf_counter() - t_phase
-    return out
+    return {"train": train, "compiled": rec}
 
 
 def whisper_phase(dev, gpu: str) -> dict:
@@ -6437,12 +6761,13 @@ def main() -> int:
              **{part: whisper[part]["launches"] for part in ("9b", "9c", "9d")},
              "10a": vlm["10a"]["launches"],
              **{part: vlm[part]["launches"] for part in ("10b", "10c", "10d")},
-             "9e": whisper["9e"]["train"]["launches"], "10e": vlm["10e"]["train"]["launches"],
+             "8e": zamba["8e"]["train"]["launches"], "9e": whisper["9e"]["train"]["launches"],
+             "10e": vlm["10e"]["train"]["launches"],
              **{part: moe[part]["launches"] for part in ("11a", "11b-lane", "11b-paged",
                                                          "11c")}}
     lm_paths = ("10a", "10b", "10c", "10d", "11a", "11b-lane", "11b-paged", "11c")
-    train_paths = ("9e", "10e")
-    want = {"rmsnorm": ("8a", "8b", "8c", "8d") + lm_paths + ("10e",),
+    train_paths = ("8e", "9e", "10e")
+    want = {"rmsnorm": ("8a", "8b", "8c", "8d") + lm_paths + ("8e", "10e"),
             "swiglu": lm_paths + ("10e",),
             "flash_attention": ("8a", "9a", "9b", "9c", "9d", "10a", "11a", "11c"),
             "paged_attention": ("8c", "8d", "9c", "9d", "10c", "10d", "11b-paged"),
@@ -6469,8 +6794,8 @@ def main() -> int:
           f"train launches {train['launches']}, train losses "
           f"{[x['loss'] for x in train['steps']]}, compiled train step bit-equal to eager "
           f"{ {k: v['bit_equal'] for k, v in compiled['cases'].items()} } "
-          f"({compiled['seconds']:.1f} s), train CLI launches (9 uninterrupted "
-          f"steps) {cli['launches']}, restart max |loss diff| "
+          f"({compiled['seconds']:.1f} s), train CLI launches ({CLI_RESTART_STEPS} "
+          f"uninterrupted steps) {cli['launches']}, restart max |loss diff| "
           f"{cli['6a']['restart_max_abs_diff_logged']}, {RWKV_ARCH} serving launches "
           f"{ {p: rwkv[p]['launches'] for p in ('7b', '7c', '7d')} } "
           f"({rwkv['seconds']:.1f} s), {ZAMBA_ARCH} launches "
@@ -6479,7 +6804,9 @@ def main() -> int:
           f"{ {p: whisper[p]['launches'] for p in ('9a', '9b', '9c', '9d')} } "
           f"({whisper['seconds']:.1f} s), {VLM_ARCH} launches "
           f"{ {p: vlm[p]['launches'] for p in ('10a', '10b', '10c', '10d')} } "
-          f"({vlm['seconds']:.1f} s), training launches (5 AdamW steps) {WHISPER_ARCH} "
+          f"({vlm['seconds']:.1f} s), training launches (5 AdamW steps) {ZAMBA_ARCH} at "
+          f"{ZAMBA_TRAIN_LAYERS} layers {zamba['8e']['train']['launches']} losses "
+          f"{zamba['8e']['train']['losses']}, {WHISPER_ARCH} "
           f"{whisper['9e']['train']['launches']} losses {whisper['9e']['train']['losses']}, "
           f"{VLM_ARCH} {vlm['10e']['train']['launches']} losses "
           f"{vlm['10e']['train']['losses']}, moe launches "

@@ -67,8 +67,9 @@
 // last 2 idle) and the XOR never leaves it. Its loops divide evenly: 7
 // k-steps of 16, 14 column tiles of 8, 7 pairs of ldmatrix.trans, 7 copies a
 // thread per tile, 56 accumulator elements a thread on the float32 path.
-// D 112 is built for the serving forward only: its lse instantiation and the
-// backward (flash_attention_bwd.cu, D 64 and 128) wait for hybrid training.
+// D 112 is built for serving and for training (zamba2's hybrid training):
+// the lse instantiation at D 112 is the one the backward
+// (flash_attention_bwd.cu, D 64, 112 and 128) recomputes from.
 //
 // float32 is the exact oracle path, not the main path: the card_f32 gates
 // (rel 1e-5) cannot be met through TF32 or bf16 tensor cores, so the
@@ -464,14 +465,6 @@ Launch pick(int dtype, bool with_lse) {
   return with_lse ? launch_mma<D, true> : launch_mma<D, false>;
 }
 
-// the serving forward alone (no lse): D 112's instantiations, whose lse and
-// backward wait for hybrid training
-template <int D>
-Launch pick_serving(int dtype, bool with_lse) {
-  if (with_lse) return nullptr;
-  return dtype == 0 ? launch_f32<D, false> : launch_mma<D, false>;
-}
-
 }  // namespace
 
 // C interface, loaded with ctypes. dtype: 0 = float32 (scalar path), 1 =
@@ -488,7 +481,7 @@ extern "C" int tsl_flash_attention_fwd(const void* q, const void* k, const void*
   if (dtype == 1 && !(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o)))
     return static_cast<int>(cudaErrorInvalidValue);
   Launch fn = D == 64    ? pick<64>(dtype, lse != nullptr)
-              : D == 112 ? pick_serving<112>(dtype, lse != nullptr)
+              : D == 112 ? pick<112>(dtype, lse != nullptr)
               : D == 128 ? pick<128>(dtype, lse != nullptr)
                          : nullptr;
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);

@@ -36,9 +36,9 @@
 //   * dq: one block of 4 warps per (64-row q tile, head, batch), q tiles
 //     launched last-first (under causality the heaviest first); each warp
 //     owns 16 q rows. Q and dO are copied once into swizzled bf16 tiles and,
-//     at D 64, their fragments kept in registers after one ldmatrix (at D 128
-//     they are read again per k tile, to keep the dq accumulator, S and dP in
-//     registers without spills). The K/V tiles the q tile can see (the
+//     at D 64, their fragments kept in registers after one ldmatrix (at D 112
+//     and 128 they are read again per k tile, to keep the dq accumulator, S
+//     and dP in registers without spills). The K/V tiles the q tile can see (the
 //     forward's causal tile skip) stream through a 2-stage cp.async ring with
 //     one barrier per tile. S = Q K^T and dP = dO V^T take K and V by
 //     ldmatrix; dS = P (dP - delta) stays in registers and is the A operand of
@@ -49,14 +49,15 @@
 //     first k tiles (the heaviest under causality) launched first; each warp
 //     owns 16 key rows. K and V are copied once (zero-filled past kv_len and
 //     Sk), their fragments kept in registers at D 64 and read again per q
-//     sub-tile at D 128. The q tiles that can see the k tile, from the first
-//     row whose causal window reaches it, stream with their lse and delta
-//     through a 2-stage cp.async ring. S^T = K Q^T and dP^T = V dO^T take Q and
-//     dO by ldmatrix; P^T = exp(S^T scale - lse) (lse per column) and dS^T =
+//     sub-tile at D 112 and 128. The q tiles that can see the k tile, from
+//     the first row whose causal window reaches it, stream with their lse and
+//     delta through a 2-stage cp.async ring. S^T = K Q^T and dP^T = V dO^T take
+//     Q and dO by ldmatrix; P^T = exp(S^T scale - lse) (lse per column) and dS^T =
 //     P^T (dP^T - delta) stay in registers as the A operands of dV += P^T dO
 //     and dK += dS^T Q, which take dO and Q by ldmatrix.trans. The f32 dk and
 //     dv accumulators stay in registers; at D 128 each q tile is taken in two
-//     32-row halves, so the S^T and dP^T accumulators fit beside them;
+//     32-row halves, at D 112 in four 16-row quarters, so the S^T and dP^T
+//     accumulators fit beside them without spills;
 //   * P and dS are split in registers into their bf16 rounding and the bf16
 //     rounding of the remainder, two products against the same B fragments,
 //     as the forward splits P (rounded once, P failed card_bf16 there;
@@ -66,8 +67,16 @@
 //     no key gets dq exactly 0.
 // Shared memory: 6 bf16 tiles of 64 rows (flash_mma.cuh's tile_bytes; dq: Q,
 // dO, 2 K and 2 V stages; dk/dv: K, V, 2 Q and 2 dO stages, plus 1 KB of lse
-// and delta) = 48 KB at D 64, 96 KB at D 128. Built at D 64 and 128; the
-// D-112 instantiations the forward has wait for hybrid training.
+// and delta) = 48 KB at D 64, 96 KB at D 112 and D 128 (a D-112 row padded to
+// 16 chunks, flash_mma.cuh's row_chunks; chunks 14-15 are never read or
+// written). Built at D 64, 112 (zamba2's shared attention block, 32 heads
+// of 112) and 128. At D 112 the loops divide evenly: 7 k-steps of 16, 14
+// column tiles of 8 (7 ldmatrix pairs a 16-row step), 7 copies a thread per
+// tile; Q / dO (dq) and K / V (dk/dv) are read again per tile, as at D 128,
+// and dk/dv takes its q tiles in 16-row quarters; the dk/dv epilogue stores
+// its 14 column tiles, 112 columns a row, straight from the accumulators.
+// The float32 kernels at D 112: 28 dq / dk / dv elements a thread, 129 KB
+// (dq) and 145.5 KB (dk/dv) of dynamic shared memory.
 //
 // float32 is the exact oracle path, not the main path: the card_f32 gates
 // (rel 1e-5) cannot be met through TF32 or bf16 tensor cores, so the float32
@@ -559,7 +568,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 // QW: q rows per sub-tile of a q tile (64 at D 64; 32 at D 128, where the
 // 2 x 64 f32 registers of the dk and dv accumulators leave room for S^T and
-// dP^T of 32 rows only)
+// dP^T of 32 rows only; 16 at D 112, see launch_dkv_mma)
 template <int D, int QW>
 __global__ void __launch_bounds__(MMA_NT)
 flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -773,7 +782,9 @@ cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v, const vo
                            const float* lse, const float* delta, float* dk, float* dv,
                            int B, int H, int KH, int Sq, int Sk, int kv_len, int q_offset,
                            int causal, float scale, cudaStream_t stream) {
-  constexpr int QW = D <= 64 ? 64 : 32;
+  // at D 112 ptxas spilled 80 bytes at QW 32 (255 registers; D 128 fits
+  // in 252 there): half-height sub-tiles leave 16 registers of S^T and dP^T
+  constexpr int QW = D <= 64 ? 64 : D == 112 ? 16 : 32;
   // K + V + 2 Q stages + 2 dO stages + 2 stages of lse and delta
   constexpr int smem = 6 * tile_bytes<D>() + 4 * TILE * 4;
   static std::atomic<uint32_t> done{0};
@@ -805,6 +816,7 @@ extern "C" int tsl_flash_attention_bwd_dq(const void* q, const void* k, const vo
   return launch_dq<T, DD>(q, k, v, dout, lse, delta, dq, B, H, KH, Sq, Sk, kv_len,    \
                           q_offset, causal, scale, s)
   if (dtype == 0 && D == 64) TSL_DQ(float, 64);
+  if (dtype == 0 && D == 112) TSL_DQ(float, 112);
   if (dtype == 0 && D == 128) TSL_DQ(float, 128);
 #undef TSL_DQ
   if (dtype != 1 || !(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) &&
@@ -813,6 +825,9 @@ extern "C" int tsl_flash_attention_bwd_dq(const void* q, const void* k, const vo
   if (D == 64)
     return launch_dq_mma<64>(q, k, v, dout, lse, delta, dq, B, H, KH, Sq, Sk, kv_len,
                              q_offset, causal, scale, s);
+  if (D == 112)
+    return launch_dq_mma<112>(q, k, v, dout, lse, delta, dq, B, H, KH, Sq, Sk, kv_len,
+                              q_offset, causal, scale, s);
   if (D == 128)
     return launch_dq_mma<128>(q, k, v, dout, lse, delta, dq, B, H, KH, Sq, Sk, kv_len,
                               q_offset, causal, scale, s);
@@ -831,6 +846,7 @@ extern "C" int tsl_flash_attention_bwd_dkv(const void* q, const void* k, const v
   return launch_dkv<T, DD>(q, k, v, dout, lse, delta, dk, dv, B, H, KH, Sq, Sk,       \
                            kv_len, q_offset, causal, scale, s)
   if (dtype == 0 && D == 64) TSL_DKV(float, 64);
+  if (dtype == 0 && D == 112) TSL_DKV(float, 112);
   if (dtype == 0 && D == 128) TSL_DKV(float, 128);
 #undef TSL_DKV
   if (dtype != 1 || !(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout)))
@@ -838,6 +854,9 @@ extern "C" int tsl_flash_attention_bwd_dkv(const void* q, const void* k, const v
   if (D == 64)
     return launch_dkv_mma<64>(q, k, v, dout, lse, delta, dk, dv, B, H, KH, Sq, Sk, kv_len,
                               q_offset, causal, scale, s);
+  if (D == 112)
+    return launch_dkv_mma<112>(q, k, v, dout, lse, delta, dk, dv, B, H, KH, Sq, Sk, kv_len,
+                               q_offset, causal, scale, s);
   if (D == 128)
     return launch_dkv_mma<128>(q, k, v, dout, lse, delta, dk, dv, B, H, KH, Sq, Sk, kv_len,
                                q_offset, causal, scale, s);

@@ -26,8 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = [CSRC / "flash_attention.cu"]
 BWD_SOURCES = [CSRC / "flash_attention_bwd.cu"]
 HEADERS = [CSRC / "flash_mma.cuh"]   # the bf16 tiles, copies and products both include
-HEAD_DIMS = (64, 112, 128)
-TRAIN_HEAD_DIMS = (64, 128)   # the lse forward and the backward: not yet D 112
+HEAD_DIMS = (64, 112, 128)   # the serving forward, the lse forward and the backward
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # (B, H, KH, Sq, Sk, D, kv_len, q_offset, causal), scale, dtype, stream

@@ -23,10 +23,10 @@ from . import kernel, ref
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check(q, k, v, kv_len, scale, name: str, head_dims=kernel.TRAIN_HEAD_DIMS):
+def _check(q, k, v, kv_len, scale, name: str):
     """Validate the operands of a kernel launch; returns (kv_len, scale).
-    ``head_dims``: what the kernel is built at (the serving forward:
-    kernel.HEAD_DIMS; the lse forward and the backward: TRAIN_HEAD_DIMS)."""
+    Every kernel (the serving forward, the lse forward, dq and dk/dv) is
+    built at kernel.HEAD_DIMS."""
     for label, t in (("q", q), ("k", k), ("v", v)):
         check_cuda_tensor(t, f"{name} {label}", _DTYPES)
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
@@ -37,8 +37,8 @@ def _check(q, k, v, kv_len, scale, name: str, head_dims=kernel.TRAIN_HEAD_DIMS):
     if kb != b or kd != d or kh == 0 or h % kh:
         raise ValueError(f"{name}: k/v {tuple(k.shape)} do not match "
                          f"q {tuple(q.shape)} (batch, head dim, H % KH)")
-    if d not in head_dims:
-        raise ValueError(f"{name}: head dim {d} not in {head_dims}")
+    if d not in kernel.HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {kernel.HEAD_DIMS}")
     if k.dtype != q.dtype or v.dtype != q.dtype or k.device != q.device \
             or v.device != q.device:
         raise ValueError(f"{name}: q, k, v must share dtype and device")
@@ -158,7 +158,7 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
         return FlashAttention.apply(q, k, v, causal, scale, kv_len)
     if q.device.type == "cpu":
         return ref.attention(q, k, v, causal=causal, scale=scale, kv_len=kv_len)
-    kv_len, scale = _check(q, k, v, kv_len, scale, "flash_attention", kernel.HEAD_DIMS)
+    kv_len, scale = _check(q, k, v, kv_len, scale, "flash_attention")
     out = torch.empty_like(q)
     if q.numel():
         kernel.flash_attention_4d(q, k, v, out, causal=causal, scale=scale,

@@ -26,7 +26,9 @@ op. Unlike the reference, the initial params are the port's own seeded init
 (``init_train_state``), and ``--dp`` / ``--tp`` other than 1 raise: the
 sharded engine is not ported yet (ROADMAP.md, queue 1, item 9). The vlm
 and audio families are refused before anything is built: their batches need
-vision or audio rows, which ``SyntheticTokens`` does not make. The
+vision or audio rows, which ``SyntheticTokens`` does not make. The dense and
+hybrid (zamba) families train on its tokens and labels alone; rwkv and moe
+training raise in ``make_train_step`` (queue 1, items 11 and 15). The
 watchdog flags steps slower than ``factor`` x the running median; here it
 logs and counts.
 """

@@ -15,8 +15,8 @@ overrides), with one surface:
          goes ahead of the tokens: S + vision_prefix rows of logits)
     loss(params, batch, *, remat=True) -> (scalar, {"ce", "aux"})
         (mean next-token cross-entropy of ``batch["labels"]`` plus 0.01·aux,
-         aux 0 for the dense, vlm and audio families; vlm: the logit rows of
-         ``batch["vision_embeds"]`` dropped first; audio: over
+         aux 0 for the dense, vlm, hybrid and audio families; vlm: the logit
+         rows of ``batch["vision_embeds"]`` dropped first; audio: over
          ``batch["audio_embeds"]``; a batch without its family's key raises
          ValueError. Differentiable: a train step makes the params leaves
          that require grad, serving keeps inference mode)
@@ -77,8 +77,8 @@ overrides), with one surface:
 Unlike the reference, state is updated IN PLACE by prefill_chunk,
 decode_step, the dense verify_step, the recurrent families' verify_commit,
 insert_slot and reset_slot (each still returns it), and the page pools by
-decode_step_paged, verify_step_paged and zamba's verify_commit_paged. rwkv,
-zamba and moe are served, not trained: their ``loss`` raises.
+decode_step_paged, verify_step_paged and zamba's verify_commit_paged. rwkv
+and moe are served, not trained: their ``loss`` raises.
 
 ``load_jax_params(np_tree, cfg, device)`` turns the reference's params
 (``build_model(cfg).init(PRNGKey(s))``, ``np.asarray`` per leaf) into this
@@ -100,14 +100,12 @@ from repro_torch.device import resolve_device
 from . import encdec, lm, rwkv_lm, zamba
 from .common import init_leaf
 
-# where rwkv's, zamba's and the moe family's training stand
+# where rwkv's and the moe family's training stand
 RWKV_TRAIN_TODO = "training the ssm (rwkv) family is not ported yet " \
                   "(ROADMAP.md, queue 1, item 11)"
-HYBRID_TRAIN_TODO = "training the hybrid (zamba) family is not ported yet " \
-                    "(ROADMAP.md, queue 1, item 12)"
 MOE_TRAIN_TODO = "training the moe (grok, arctic) family is not ported yet " \
                  "(ROADMAP.md, queue 1, item 15)"
-TRAIN_TODO = {"ssm": RWKV_TRAIN_TODO, "hybrid": HYBRID_TRAIN_TODO, "moe": MOE_TRAIN_TODO}
+TRAIN_TODO = {"ssm": RWKV_TRAIN_TODO, "moe": MOE_TRAIN_TODO}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -280,7 +278,8 @@ class ZambaModel(Model):
     paged mode (the KV caches in the pools, the tails in the slot table),
     with speculation through a verify step that leaves the tails as they
     were and a commit that replays the accepted prefix, in lanes or on the
-    pools."""
+    pools. Trained through ``loss`` (the mean cross-entropy of the labels;
+    with ``remat`` one checkpoint a group and a remainder layer)."""
 
     def init(self, seed: int = 0) -> dict:
         return zamba.zamba_params(self.cfg, _init_make(self, seed))
@@ -289,7 +288,8 @@ class ZambaModel(Model):
         return zamba.zamba_forward(self.tsl, params, batch["tokens"], self.cfg)
 
     def loss(self, params, batch, *, remat: bool = True):
-        raise NotImplementedError(HYBRID_TRAIN_TODO)
+        logits = zamba.zamba_forward(self.tsl, params, batch["tokens"], self.cfg, remat=remat)
+        return _xent_loss(self.tsl, logits, batch["labels"])
 
     def prefill(self, params, batch, max_len: int):
         return zamba.zamba_prefill(self.tsl, params, batch["tokens"], self.cfg,

@@ -8,6 +8,14 @@ layout, so its params load 1:1; Python loops over the groups and layers
 replace its two-level ``lax.scan``. The shared attention block's weights are
 one copy, applied G times.
 
+Training: ``zamba_forward(..., remat=True)`` wraps each group (its k Mamba2
+layers and the shared block's application) and each remainder layer in one
+``lm.run_block`` checkpoint, as the reference wraps its group and remainder
+scan bodies in ``jax.checkpoint``. The shared block's gradient is the sum
+over its G applications (autograd adds each application's into the one
+leaf). No op on the training path writes in place: the in-place writes
+below are the serving paths'.
+
 The decode state holds both kinds of state: the Mamba2 tails (``h`` (G, k,
 B, H, P, N) float32, ``conv`` (G, k, B, KW-1, d_inner), and ``h_rest`` /
 ``conv_rest`` for the remainder), fixed size per request, and the shared
@@ -31,7 +39,7 @@ import torch
 from .attention import (attention_decode, attention_forward, attention_prefill_chunk,
                         attention_span_paged, attention_verify, init_attention)
 from .common import apply_norm_params, init_norm
-from .lm import lm_head, unstack_layers
+from .lm import lm_head, run_block, unstack_layers
 from .mamba2 import dims as m2_dims
 from .mamba2 import mamba2_decode, mamba2_forward, mamba2_params
 
@@ -80,20 +88,30 @@ def _head(tsl, params, cfg, x):
     return lm_head(tsl, params, apply_norm_params(tsl, cfg, params["final_norm"], x), cfg)
 
 
-def zamba_forward(tsl, params, tokens, cfg):
-    """tokens (B,S) -> logits (B,S,V)."""
+def _mamba_residual(tsl, bp, x, cfg):
+    """x + one Mamba2 block of its normed x (from a fresh state)."""
+    return x + mamba2_forward(tsl, bp["mamba"], apply_norm_params(tsl, cfg, bp["norm"], x),
+                              cfg)[0]
+
+
+def zamba_forward(tsl, params, tokens, cfg, *, remat: bool = False):
+    """tokens (B,S) -> logits (B,S,V). ``remat``: recompute each group's
+    and each remainder layer's activations in the backward (one
+    non-reentrant checkpoint each, ``lm.run_block``)."""
     x = tsl.embed_lookup(params["embed"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    for blocks in _groups(params, cfg):
+
+    def group(x, blocks):
         for bp in blocks:
-            x = x + mamba2_forward(tsl, bp["mamba"], apply_norm_params(tsl, cfg, bp["norm"], x),
-                                   cfg)[0]
+            x = _mamba_residual(tsl, bp, x, cfg)
         h, _ = attention_forward(tsl, params["shared_attn"], _shared_in(tsl, params, cfg, x),
                                  cfg, causal=True, positions=positions)
-        x = x + h
+        return x + h
+
+    for blocks in _groups(params, cfg):
+        x = run_block(group, x, blocks, remat=remat)
     for bp in _rest(params, cfg):
-        x = x + mamba2_forward(tsl, bp["mamba"], apply_norm_params(tsl, cfg, bp["norm"], x),
-                               cfg)[0]
+        x = run_block(_mamba_residual, tsl, bp, x, cfg, remat=remat)
     return _head(tsl, params, cfg, x)
 
 

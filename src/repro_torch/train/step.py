@@ -34,9 +34,10 @@ def make_train_step(model, opt_cfg: OptConfig, *, microbatches: int = 1,
     train_state = {"params", "opt"}; batch = {"tokens", "labels"} (B,S)
     token ids on the model's device, plus the family's embedding rows: vlm
     ``vision_embeds`` (B, vision_prefix, D), audio ``audio_embeds`` (B,
-    enc_len, D). metrics: loss, ce, aux, grad_norm (0-d tensors on the
-    device), lr (a float) and, with ``compress_grads``, compress_err (0-d
-    float32).
+    enc_len, D). The dense, vlm, hybrid (zamba) and audio families train;
+    rwkv and moe raise NotImplementedError, naming their ROADMAP.md item.
+    metrics: loss, ce, aux, grad_norm (0-d tensors on the device), lr (a
+    float) and, with ``compress_grads``, compress_err (0-d float32).
 
     With ``microbatches`` k > 1 the batch's leading axis is split into k
     parts (B must divide), each part's grads are summed into float32 zeros

@@ -202,21 +202,6 @@ def test_paged_attention_is_the_same_bit_for_bit_call_after_call(dev, dtype):
                                first)
 
 
-def test_flash_attention_d112_is_the_serving_forward_only(dev):
-    """D 112 is built for the serving forward; its lse forward and backward
-    wait for hybrid training and are refused by name, not launched."""
-    rand = _draws(dev, torch.bfloat16)
-    q = rand(1, 2, 64, 112)
-    before = fa.flash_attention.launches
-    fa.flash_attention(q, q, q)
-    assert fa.flash_attention.launches == before + 1
-    with pytest.raises(ValueError, match="head dim 112"):
-        fa.flash_attention_fwd_lse(q, q, q)
-    lse = torch.zeros(q.shape[:3], dtype=torch.float32, device=dev)
-    with pytest.raises(ValueError, match="head dim 112"):
-        fa.flash_attention_bwd_dq(q, q, q, q, lse, lse)
-
-
 def test_paged_attention_rejects_what_it_does_not_take(dev):
     q, k, v, tables, kv_len = _paged_operands(dev, torch.bfloat16, 2, 4, 4, 64, 16, 1,
                                               [5, 9], 2)
@@ -480,6 +465,14 @@ TRAIN_CASES = [
     (1, 2, 2, 16, 64, 64, True, 40),
 ]
 CARD_GATE = {torch.bfloat16: "card_bf16", torch.float32: "card_f32"}
+# the training kernels at D 112: zamba2-7b's shared block (32 heads, causal),
+# kv_len < Sk with a tile crossed by the kv_len edge and a ragged q tile, and
+# GQA non-causal at Sq != Sk
+D112_TRAIN_CASES = [
+    (2, 32, 32, 512, 512, 112, True, None),
+    (2, 32, 32, 400, 512, 112, True, 400),
+    (1, 4, 2, 96, 160, 112, False, None),
+]
 
 
 def _train_check(dev, case, dtype, seed=0):
@@ -538,7 +531,7 @@ def _glue_check(dev, case, dtype, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("case", TRAIN_CASES)
+@pytest.mark.parametrize("case", TRAIN_CASES + D112_TRAIN_CASES)
 def test_flash_attention_training_kernels(dev, case, dtype):
     _train_check(dev, case, dtype)
 

@@ -181,23 +181,26 @@ def test_editing_a_listed_header_changes_the_library_digest(tmp_path, monkeypatc
     assert '#include "flash_mma.cuh"' in paged_kernel.SOURCES[0].read_text()
 
 
+# dk/dv's q rows per sub-tile (the kernel's second template argument) per D
+DKV_QW = {64: 64, 112: 16, 128: 32}
+
+
 def _full_counts():
     counts = {}
-    for d in (64, 128):
+    for d in (64, 112, 128):
         counts |= {f"flash_fwd_mma_kernel<{d}, true>": 96,
                    f"flash_fwd_mma_kernel<{d}, false>": 96,
                    f"flash_bwd_dq_mma_kernel<{d}>": 128,
-                   f"flash_bwd_dkv_mma_kernel<{d}, {64 if d == 64 else 32}>": 192,
+                   f"flash_bwd_dkv_mma_kernel<{d}, {DKV_QW[d]}>": 192,
                    f"flash_fwd_f32_kernel<{d}, true>": 0, f"flash_bwd_dq_kernel<float, {d}>": 0,
                    f"flash_bwd_dkv_kernel<float, {d}>": 0}
-    # D 112: the serving forward alone (its lse and backward wait for training)
-    counts |= {"flash_fwd_mma_kernel<112, false>": 84, "flash_fwd_f32_kernel<112, false>": 0}
     return counts
 
 
 @pytest.mark.parametrize("edit", ["none", "bf16 dq without HMMA", "float32 dk/dv with HMMA",
                                   "no bf16 dk/dv at D 128", "no float32 instantiation",
-                                  "no bf16 forward at D 112"])
+                                  "no bf16 forward at D 112", "no bf16 dq at D 112",
+                                  "bf16 dk/dv at D 112 without HMMA"])
 def test_chip_smoke_tensor_core_gate(edit):
     """Phase 1's gate passes the expected instantiations and fails each way
     a bf16 backward kernel could leave the tensor cores unseen."""
@@ -211,7 +214,11 @@ def test_chip_smoke_tensor_core_gate(edit):
     elif edit == "no float32 instantiation":
         counts = {k: n for k, n in counts.items() if "_mma_" in k}
     elif edit == "no bf16 forward at D 112":
-        del counts["flash_fwd_mma_kernel<112, false>"]
+        del counts["flash_fwd_mma_kernel<112, false>"], counts["flash_fwd_mma_kernel<112, true>"]
+    elif edit == "no bf16 dq at D 112":
+        del counts["flash_bwd_dq_mma_kernel<112>"]
+    elif edit == "bf16 dk/dv at D 112 without HMMA":
+        counts["flash_bwd_dkv_mma_kernel<112, 16>"] = 0
     gate = _chip_smoke().tensor_core_gate
     if edit == "none":
         gate(counts)

@@ -49,8 +49,8 @@ from repro_torch.train import (OptConfig, apply_updates, init_opt_state,
                                loss_and_grads, make_train_step)
 from repro_torch.train.optimizer import tree_leaves, tree_map
 
-# the seven shapes of tests/test_flash_attention_grad.py:30-39, and whisper's
-# cross-attention form (non-causal, Sq < Sk, no kv_len)
+# the seven shapes of tests/test_flash_attention_grad.py:30-39, whisper's
+# cross-attention form (non-causal, Sq < Sk, no kv_len) and zamba2's head dim
 FA_CASES = [
     (1, 2, 2, 64, 64, 32, True, None),     # block-multiple causal
     (2, 4, 2, 96, 160, 32, True, None),    # GQA + Sq, Sk no multiple of a tile
@@ -60,6 +60,7 @@ FA_CASES = [
     (1, 4, 2, 1, 64, 32, True, 40),        # decode shape: Sq 1, kv_len < Sk
     (1, 2, 2, 16, 64, 16, True, 40),       # prefill continuation
     (2, 4, 4, 24, 40, 16, False, None),    # cross-attention: non-causal, Sq < Sk
+    (1, 4, 2, 40, 72, 112, True, 64),      # D 112 (zamba2's shared block), GQA, kv_len < Sk
 ]
 GATE = {"float32": "host_f32", "bfloat16": "host_bf16"}
 
@@ -82,6 +83,17 @@ def _jax_vjp(arrays, dt, causal, kv_len):
     return out, vjp(g)
 
 
+_VJP = {}
+
+
+def _jax_vjp_case(case, dt):
+    """_jax_vjp on ``case``'s operands (_operands), computed once a (case,
+    dtype): the fault matrix runs the same reference VJPs for every fault."""
+    if (case, dt) not in _VJP:
+        _VJP[case, dt] = _jax_vjp(_operands(case, dt)[1], dt, case[6], case[7])
+    return _VJP[case, dt]
+
+
 def _t(x):
     return torch.from_numpy(np.array(x, np.float32))
 
@@ -93,8 +105,8 @@ def test_flash_attention_grads_match_jax(case, dt):
     dk/dv, with the delta, the head-group sum and the casts) and the
     standalone flash_attention_vjp against jax.vjp(ref.attention)."""
     causal, kv_len = case[6], case[7]
-    (q, k, v, g), arrays = _operands(case, dt)
-    want_out, want = _jax_vjp(arrays, dt, causal, kv_len)
+    (q, k, v, g), _ = _operands(case, dt)
+    want_out, want = _jax_vjp_case(case, dt)
 
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     out = fa.flash_attention(*leaves, causal=causal, kv_len=kv_len)
@@ -366,37 +378,50 @@ def test_generated_torch_cpu_training_blocks_pass(name):
 # ``python tests/test_torch_train.py`` prints the whole fault x gate matrix.
 
 FAULTS = {
-    "dk_one_head_zeroed": ("ref", "    return dk, dv\n",
-                           "    dk[:, -1] = 0.0\n    return dk, dv\n"),
-    "gqa_sum_group_0_only": ("ops", ".sum(2).to(", "[:, :, 0].to("),
-    "dq_scale_dropped": ("ref", "* sc).to(q.dtype)", ").to(q.dtype)"),
-    "delta_from_bf16_product": ("ops", "delta = (g.float() * out.float()).sum(-1)",
-                                "delta = (g.float() * out.float()).bfloat16().float().sum(-1)"),
-    "lse_not_zeroed_on_rows_without_keys": (
-        "ref", "lse = torch.where(l > 0.0, m + torch.log(l.clamp_min(1e-30)), 0.0)[..., 0]",
-        "lse = (m + torch.log(l.clamp_min(1e-30)))[..., 0]"),
-    "causal_diagonal_off_by_one": ("ref", "seen & (kj <= torch.arange(sq",
-                                   "seen & (kj < torch.arange(sq"),
+    "dk_one_head_zeroed": [("ref", "    return dk, dv\n",
+                            "    dk[:, -1] = 0.0\n    return dk, dv\n")],
+    "gqa_sum_group_0_only": [("ops", ".sum(2).to(", "[:, :, 0].to(")],
+    "dq_scale_dropped": [("ref", "* sc).to(q.dtype)", ").to(q.dtype)")],
+    "delta_from_bf16_product": [
+        ("ops", "delta = (g.float() * out.float()).sum(-1)",
+         "delta = (g.float() * out.float()).bfloat16().float().sum(-1)")],
+    "lse_not_zeroed_on_rows_without_keys": [
+        ("ref", "lse = torch.where(l > 0.0, m + torch.log(l.clamp_min(1e-30)), 0.0)[..., 0]",
+         "lse = (m + torch.log(l.clamp_min(1e-30)))[..., 0]")],
+    "causal_diagonal_off_by_one": [("ref", "seen & (kj <= torch.arange(sq",
+                                    "seen & (kj < torch.arange(sq")],
     # the plain mask stays causal when causal=False (whisper's encoder and
     # cross-attention)
-    "causal_when_not_causal": ("ref", "    if causal:\n        seen = seen & (kj <=",
-                               "    if True:\n        seen = seen & (kj <="),
+    "causal_when_not_causal": [("ref", "    if causal:\n        seen = seen & (kj <=",
+                                "    if True:\n        seen = seen & (kj <=")],
     # kv_len defaults to Sq instead of Sk: keys past Sq are masked where
     # Sq < Sk (the cross-attention), rows see keys past Sk where Sq > Sk
-    "kv_len_defaults_to_sq": ("ref", "end = sk if kv_len is None else kv_len",
-                              "end = sq if kv_len is None else kv_len"),
+    "kv_len_defaults_to_sq": [("ref", "end = sk if kv_len is None else kv_len",
+                               "end = sq if kv_len is None else kv_len")],
     # dk/dv summed only over the first Sq key rows (a k-tiled grid sized by
     # Sq): the cross-attention's keys past Sq get no gradient
-    "dkv_keys_past_sq_dropped": ("ref", "    return dk, dv\n",
-                                 "    dk[:, :, q.shape[2]:] = 0.0\n"
-                                 "    dv[:, :, q.shape[2]:] = 0.0\n    return dk, dv\n"),
+    "dkv_keys_past_sq_dropped": [("ref", "    return dk, dv\n",
+                                  "    dk[:, :, q.shape[2]:] = 0.0\n"
+                                  "    dv[:, :, q.shape[2]:] = 0.0\n    return dk, dv\n")],
+    # dq and dk written for 96 of 112 columns (a D-112 row stored as a D-96
+    # one, or the last of its 14 column tiles dropped)
+    "d112_tail_columns_dropped": [
+        ("ref", '    return (torch.einsum("bhqk,bhkd->bhqd", ds, _per_query_head(k, q.shape[1]))\n'
+                "            * sc).to(q.dtype)\n",
+         '    dq = (torch.einsum("bhqk,bhkd->bhqd", ds, _per_query_head(k, q.shape[1]))\n'
+         "          * sc).to(q.dtype)\n"
+         "    if dq.shape[-1] == 112:\n        dq[..., 96:] = 0.0\n    return dq\n"),
+        ("ref", "    return dk, dv\n",
+         "    if dk.shape[-1] == 112:\n        dk[..., 96:] = 0.0\n    return dk, dv\n")],
 }
 # (fault, gate) pairs a gate cannot see, and why: no reduced model's
 # attention has a row without keys (causal self-attention at Sq = Sk,
 # whisper's encoder and cross-attention non-causal over every key), and the
 # plain versions and kernels mask p explicitly, so that lse never enters a
-# gradient.
-BLIND = {("lse_not_zeroed_on_rows_without_keys", "model_f32")}
+# gradient; no reduced model has head dim 112 (zamba2's reduced shared block
+# has 16: its full width is the card's, chip_smoke.py phases 5a and 8e).
+BLIND = {("lse_not_zeroed_on_rows_without_keys", "model_f32"),
+         ("d112_tail_columns_dropped", "model_f32")}
 # the reduced configs model_gate runs: MHA with QKV bias, GQA with q/k norm,
 # the vision prefix (GQA) and the encoder-decoder (non-causal, Sq != Sk)
 GATE_ARCHS = ("qwen1.5-0.5b", "qwen3-14b", "internvl2-2b", "whisper-tiny")
@@ -409,13 +434,13 @@ def faulted_ops(fault: str):
 
     from repro_torch.kernels.flash_attention import ref as real_ref
 
-    where, old, new = FAULTS[fault]
     mods = {}
     for name, path in (("ref", real_ref.__file__), ("ops", fa.__file__)):
         src = Path(path).read_text()
-        if name == where:
-            assert src.count(old) == (2 if fault == "gqa_sum_group_0_only" else 1), fault
-            src = src.replace(old, new)
+        for where, old, new in FAULTS[fault]:
+            if name == where:
+                assert src.count(old) == (2 if fault == "gqa_sum_group_0_only" else 1), fault
+                src = src.replace(old, new)
         mod = types.ModuleType(f"repro_torch.kernels.flash_attention.{name}_{fault}")
         mod.__package__ = "repro_torch.kernels.flash_attention"
         exec(compile(src, f"<{name}.py with {fault}>", "exec"), mod.__dict__)
@@ -431,8 +456,8 @@ def attention_gate(ops, dt, margins=None) -> list[str]:
     failed = []
     for case in FA_CASES:
         causal, kv_len = case[6], case[7]
-        (q, k, v, g), arrays = _operands(case, dt)
-        want_out, want = _jax_vjp(arrays, dt, causal, kv_len)
+        (q, k, v, g), _ = _operands(case, dt)
+        want_out, want = _jax_vjp_case(case, dt)
         _, want_lse = fa.ref.attention_fwd_lse(q.float(), k.float(), v.float(),
                                                causal=causal, kv_len=kv_len)
         no_key = ~fa.ref.visible(case[3], case[4], causal=causal, kv_len=kv_len,
@@ -493,6 +518,35 @@ def test_gate_fails_on_planted_fault(fault, gate):
         assert not run_gate(gate, faulted_ops(fault)), "BLIND pair is caught: update BLIND"
     else:
         assert run_gate(gate, faulted_ops(fault)), f"{gate} passed {fault}"
+
+
+# the card's check of the D-112 training kernels (chip_smoke.py phase 5a,
+# tests/test_torch_cuda_kernels.py) holds each kernel to its plain version
+# under card_bf16 / card_f32: with the fault on the kernel's side, both fail
+D112_CASE = FA_CASES[-1]
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_card_gates_fail_on_d112_tail_columns_dropped(dt):
+    """dq and dk with the d112_tail_columns_dropped fault against the
+    unfaulted plain versions on the same inputs fail the card gate of their
+    dtype; the unfaulted pair passes it."""
+    from repro_torch.kernels.flash_attention import ref as real_ref
+
+    faulted = faulted_ops("d112_tail_columns_dropped").ref
+    causal, kv_len = D112_CASE[6], D112_CASE[7]
+    (q, k, v, g), _ = _operands(D112_CASE, dt)
+    kw = dict(causal=causal, kv_len=kv_len)
+    out, lse = real_ref.attention_fwd_lse(q, k, v, **kw)
+    delta = (g.float() * out.float()).sum(-1)
+    gate = {"float32": "card_f32", "bfloat16": "card_bf16"}[dt]
+    want_dq = real_ref.attention_bwd_dq(q, k, v, g, lse, delta, **kw)
+    want_dk, _ = real_ref.attention_bwd_dkv(q, k, v, g, lse, delta, **kw)
+    gates.check(real_ref.attention_bwd_dq(q, k, v, g, lse, delta, **kw), want_dq, gate, "dq")
+    for name, got, want in (
+            ("dq", faulted.attention_bwd_dq(q, k, v, g, lse, delta, **kw), want_dq),
+            ("dk", faulted.attention_bwd_dkv(q, k, v, g, lse, delta, **kw)[0], want_dk)):
+        assert not gates.measure(got, want, gate)["ok"], name
 
 
 if __name__ == "__main__":
